@@ -1,0 +1,145 @@
+"""The ported slice as a whole: trajectory plans → moving render → loudness,
+and a saved RIR bank → mixture step, through both packages on the CPU.
+
+Tolerance: 1e-5 · max|ref| on rendered tracks (float32 FFT rounding at the
+same nfft, through a loudness gain equal to 1e-3 LU); the bank bridge is
+exact.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import sonicsim_tpu.ops as J
+import sonicsim_tpu_torch as T
+from sonicsim_tpu.parallel import pad_moving_plans as j_pad
+from sonicsim_tpu.parallel import render_mixture_sources as j_render
+from sonicsim_tpu.sim.oracle import BankRirOracle, save_rir_bank
+
+ROOT = Path(__file__).resolve().parent.parent
+SR = 16000
+REL = 1e-5
+
+
+def _close(ours, ref):
+    ref = np.asarray(ref)
+    assert tuple(ours.shape) == ref.shape
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0,
+                               atol=REL * np.abs(ref).max())
+
+
+def test_moving_render_slice():
+    """bench.py's pipeline at a small size: seeded waypoints, plans,
+    batched fused segmented render, then LUFS normalisation."""
+    t, n_src, p, c, l = 2 * SR, 3, 6, 2, 300
+    plans = []
+    for mod in (J, T):
+        rng = np.random.default_rng(0)
+        positions = np.cumsum(rng.uniform(0.2, 0.6, (p, 3)), axis=0)
+        idx, w = mod.dynamic_interp_plan(positions, t, rng=rng)
+        plans.append((mod.segment_plan(idx), rng))
+    (off, le, max_seg), rng = plans[0]
+    for a, b in zip(plans[1][0], plans[0][0]):
+        np.testing.assert_array_equal(a, b)
+    audio = rng.standard_normal((n_src, t)).astype(np.float32) * 0.1
+    decay = np.exp(-np.linspace(0.0, 8.0, l, dtype=np.float32))
+    rirs = rng.standard_normal((n_src, p, c, l)).astype(np.float32) * decay * 0.05
+    ours = T.convolve_moving_segmented(
+        torch.from_numpy(audio), torch.from_numpy(rirs), None, off, le, max_seg
+    )
+    ours = T.lufs_norm(ours, SR, -17.0)[0]
+    for i in range(n_src):
+        ref = J.convolve_moving_segmented(
+            jnp.asarray(audio[i]), jnp.asarray(rirs[i]), None,
+            jnp.asarray(off), jnp.asarray(le), max_seg,
+        )
+        _close(ours[i], J.lufs_norm(ref, SR, -17.0)[0])
+
+
+def test_bank_to_mixture_slice(tmp_path):
+    """A float16 bank saved by the JAX package loads into the port
+    unchanged, and both render the same mixture from it."""
+    rng = np.random.default_rng(1)
+    t, c, l = SR, 2, 256
+    rirs = (rng.standard_normal((3, 4, c, l)) * 0.05).astype(np.float16)
+    rirs[..., 0] = 1.0
+    path = tmp_path / "bank.npz"
+    save_rir_bank(path, rirs, rng.uniform(0, 5, (3, 3)), rng.uniform(0, 5, (4, 3)),
+                  sample_rate=SR, scene=np.asarray("room"))
+    bank = T.load_rir_bank(path)
+    ref_bank = BankRirOracle(path)._data
+    assert bank["sample_rate"] == SR and bank["rirs"].dtype == np.float32
+    for k in ref_bank:
+        np.testing.assert_array_equal(bank[k], ref_bank[k])
+    on_cpu = T.to_torch({"bank": bank, "rows": [bank["rirs"][0]]}, "cpu")
+    assert on_cpu["bank"]["sample_rate"] == SR
+    assert torch.equal(on_cpu["rows"][0], torch.from_numpy(bank["rirs"][0]))
+
+    # Two moving speakers, each along the receivers of one source row.
+    speech = (rng.standard_normal((2, t)) * 0.1).astype(np.float32)
+    banks, weights, offs, lens = [], [], [], []
+    for s in range(2):
+        traj = np.cumsum(rng.uniform(0.3, 1.0, (4, 3)), axis=0)
+        idx, w = T.dynamic_interp_plan(traj, t, rng=rng)
+        o, le, _ = T.segment_plan(idx)
+        banks.append(bank["rirs"][s])
+        weights.append(w)
+        offs.append(o)
+        lens.append(le)
+    banks_p, w_p, off_p, len_p, max_seg = T.pad_moving_plans(banks, weights, offs, lens)
+    static_audio = (rng.standard_normal((2, t)) * 0.1).astype(np.float32)
+    static_rirs = bank["rirs"][2, :2]
+    lufs = (np.asarray([-17.0, -18.0], np.float32), np.asarray([-24.0, -29.0], np.float32))
+    args = (speech, banks_p, None, off_p, len_p, max_seg, static_audio,
+            static_rirs, *lufs, SR)
+    ref_plans = j_pad(banks, weights, offs, lens)
+    np.testing.assert_array_equal(ref_plans[0], banks_p)
+    ours = T.render_mixture_sources(*args)
+    ref = j_render(*args)
+    for a, b in zip(ours, ref):
+        _close(a, b)
+
+
+def test_port_imports_no_jax():
+    """Importing the port and running a small render and mixture step
+    loads neither jax nor the JAX package."""
+    code = """
+import sys
+import numpy as np
+import torch
+import sonicsim_tpu_torch as T
+
+rng = np.random.default_rng(0)
+t = 8000
+idx, w = T.dynamic_interp_plan(np.cumsum(rng.uniform(0.3, 1, (4, 3)), 0), t, rng=rng)
+off, le, ms = T.segment_plan(idx)
+x = torch.from_numpy(rng.standard_normal(t).astype(np.float32))
+r = torch.from_numpy(rng.standard_normal((4, 2, 64)).astype(np.float32))
+out = T.convolve_moving_segmented(x, r, None, off, le, ms)
+bp, wp, op, lp, m = T.pad_moving_plans([r.numpy()], [w], [off], [le])
+mov, sta = T.render_mixture_sources(x[None].numpy(), bp, None, op, lp, m,
+                                    x[None].numpy(), r[0:1].numpy(),
+                                    np.float32([-17]), np.float32([-24]), 16000)
+assert out.shape == (2, t) and mov.shape == (1, 2, t) and sta.shape == (1, 2, t)
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "sonicsim_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_port_sources_never_import_jax():
+    pat = re.compile(r"^\s*(import jax|from jax|import sonicsim_tpu\b|from sonicsim_tpu\b)")
+    files = [*(ROOT / "sonicsim_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert len(files) >= 9
+    bad = [f"{f}:{i}" for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
+    assert not bad, bad
