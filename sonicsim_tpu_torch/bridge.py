@@ -3,8 +3,9 @@
 The render has no learned parameters; its state is the RIR bank and the
 host plan tables. ``load_rir_bank`` reads the JAX package's ``.npz`` bank
 format (``sim/oracle.save_rir_bank``) without importing it, and
-``to_torch`` turns numpy banks, audio and plans into tensors on a device,
-so both packages can be fed the same state.
+``to_torch`` turns numpy banks, audio and plans into tensors on a device
+(the card unless the caller asks for the CPU), so both packages can be fed
+the same state.
 """
 
 from __future__ import annotations
@@ -29,10 +30,27 @@ def load_rir_bank(path: str | Path) -> dict:
     return data
 
 
-def to_torch(arrays, device="cpu"):
+def resolve_device(device=None) -> torch.device:
+    """The device to run on: the card unless the caller names another.
+
+    Raises ``RuntimeError`` where the card is wanted (``None`` or a CUDA
+    device) and CUDA is absent: the port never falls back to the CPU, which
+    runs only when asked for by ``device="cpu"``."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on an NVIDIA GPU; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def to_torch(arrays, device=None):
     """Numeric numpy arrays (alone or in dicts, lists and tuples) → tensors
-    on ``device`` with their dtypes kept; tensors are moved, anything else
-    (strings, scalars) is returned as it is."""
+    on ``device`` (the card unless given, see :func:`resolve_device`) with
+    their dtypes kept; tensors are moved, anything else (strings, scalars)
+    is returned as it is."""
+    device = resolve_device(device)
     if isinstance(arrays, np.ndarray) and arrays.dtype.kind in "biufc":
         return torch.from_numpy(np.ascontiguousarray(arrays)).to(device)
     if torch.is_tensor(arrays):

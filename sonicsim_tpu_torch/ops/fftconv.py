@@ -9,7 +9,8 @@ and the two moving-source strategies:
 * ``convolve_moving_segmented`` / ``convolve_moving_blocked``: convolve only
   the input window each segment (or fixed-size block) of the trajectory
   needs, then lay the windows on the output timeline with the ownership
-  select (kernels.select_segments) or the gather + lerp combine
+  select, which applies the crossfade ramp as it reads
+  (kernels.select_segments, ramp form), or the gather + lerp combine
   (kernels.crossfade_combine).
 
 A ``vmap`` over sources in the reference is a leading batch axis here:
@@ -187,16 +188,6 @@ def convolve_moving_receiver(
     return (1.0 - w) * start + w * end
 
 
-def _window_ramp(off_true, off_al, lengths, span: int, dtype):
-    """Crossfade ramp (B, N, span) over sliced window coordinates (sample q
-    is global time off_al + q): the interp weight is exactly linear inside
-    a segment, w(q) = (q − lead)/len with lead = off_true − off_al."""
-    u = torch.arange(span, dtype=dtype, device=off_true.device)
-    lead = (off_true - off_al).to(dtype)[..., None]
-    inv_len = 1.0 / torch.clamp(lengths.to(dtype), min=1.0)[..., None]
-    return (u - lead) * inv_len
-
-
 def _check_weight_args(fused: bool, interp_weight) -> None:
     if fused and interp_weight is not None:
         raise ValueError(
@@ -259,15 +250,18 @@ def convolve_moving_segmented(
     sl = slice(l - 1, l - 1 + span)
 
     if fused_epilogue:
-        # out = conv_start + ramp · conv_(end − start): the combine becomes
-        # elementwise on two irfft outputs, then one ownership select.
+        # out = conv_start + w · conv_(end − start), where the interp weight
+        # is exactly linear inside a segment: over sliced window coordinates
+        # (sample u is global time off_al + u), w(u) = (u − lead)/len with
+        # lead = off − off_al. K1's ramp form applies it as it selects,
+        # reading both irfft outputs in place.
         conv_s = torch.fft.irfft(sf[:, :, None] * kf[:, :-1], nfft)[..., sl]
         conv_d = torch.fft.irfft(
             sf[:, :, None] * (kf[:, 1:] - kf[:, :-1]), nfft
         )[..., sl]
-        ramp = _window_ramp(off, off_al, le, span, x.dtype)
-        combined = conv_s + ramp[:, :, None, :] * conv_d  # (B, N, C, span)
-        out = select_segments(combined, off, off_al, t)
+        shift = (off_al - off).to(x.dtype)
+        scale = 1.0 / torch.clamp(le.to(x.dtype), min=1.0)
+        out = select_segments(conv_s, off, off_al, t, conv_d, shift, scale)
     else:
         pair = torch.stack([kf[:, :-1], kf[:, 1:]], dim=2)  # (B, N, 2, C, F)
         conv = torch.fft.irfft(sf[:, :, None, None] * pair, nfft)[..., sl]
@@ -333,11 +327,10 @@ def convolve_moving_blocked(
             inv_len = inv_len * ws.reshape(-1, 1)
         conv_s = torch.fft.irfft(sf[:, :, None] * ks, nfft)[..., sl]
         conv_d = torch.fft.irfft(sf[:, :, None] * (ke - ks), nfft)[..., sl]
-        # Ramp over sliced window coordinates (sample q is t = off_al + q).
-        u = torch.arange(span, dtype=x.dtype, device=x.device)
-        ramp = ((off_al - so).to(x.dtype)[..., None] + u) * inv_len[..., None]
-        combined = conv_s + ramp[:, :, None, :] * conv_d  # (B, NB, C, span)
-        out = select_segments(combined, boff, off_al, t)
+        # Ramp over sliced window coordinates (sample u is t = off_al + u):
+        # w(u) = (u + off_al − seg_off) · inv_len, applied by K1 in place.
+        shift = (off_al - so).to(x.dtype)
+        out = select_segments(conv_s, boff, off_al, t, conv_d, shift, inv_len)
     else:
         pair = torch.stack([ks, ke], dim=2)  # (B, NB, 2, C, F)
         conv = torch.fft.irfft(sf[:, :, None, None] * pair, nfft)[..., sl]

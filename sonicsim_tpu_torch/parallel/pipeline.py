@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bridge import resolve_device
 from ..ops.fftconv import (
     block_plan_sizes,
     convolve_fixed_receiver,
@@ -128,7 +129,9 @@ def render_mixture_sources(
     fixed-size block plan. ``weights=None`` takes the fused crossfade
     epilogue (ramps from the segment table, ``weight_mask`` scaling each
     source's); ``weights`` (S, T) takes the gather + lerp combine.
-    ``device`` defaults to the device of ``speech`` (CPU for numpy input).
+    ``device`` defaults to the device of ``speech`` where it is a tensor,
+    else to the card: numpy input with no ``device`` raises where CUDA is
+    absent, and runs on the CPU only with ``device="cpu"``.
     Returns (moving (S, C, T), static (K, C, T)) tensors on that device.
     """
     if mesh is not None:
@@ -136,8 +139,10 @@ def render_mixture_sources(
             "sharded rendering is not ported yet (ROADMAP A11); call "
             "without mesh"
         )
-    if device is None:
-        device = speech.device if torch.is_tensor(speech) else "cpu"
+    if device is None and torch.is_tensor(speech):
+        device = speech.device
+    else:
+        device = resolve_device(device)
     s = int(speech.shape[0])
     t = int(speech.shape[-1])
     offsets = np.asarray(offsets)

@@ -139,7 +139,7 @@ def test_wrappers_take_plain_path_on_cpu(rng):
 def test_wrappers_reject_bad_arguments():
     i32 = dict(dtype=torch.int32)
     c = torch.zeros(1, 3, 2, 256)
-    with pytest.raises(ValueError, match="combined must be"):
+    with pytest.raises(ValueError, match="conv_s must be"):
         kernels.select_segments(c[0], torch.zeros(1, 3, **i32),
                                 torch.zeros(1, 3, **i32), 100)
     with pytest.raises(ValueError, match="off_true must be"):

@@ -14,6 +14,7 @@ import torch
 
 from sonicsim_tpu.ops import dynamic_interp_plan, segment_plan
 from sonicsim_tpu.parallel import pipeline as J
+from sonicsim_tpu_torch.bridge import to_torch
 from sonicsim_tpu_torch.parallel import pipeline as T
 
 SR = 16000
@@ -93,7 +94,7 @@ def _render_both(data, weights_form, weight_mask=None, pcm16=False):
         sa = np.rint(np.clip(sa, -1, 0.999) * 32768).astype(np.int16)
     w = w_p if weights_form else None
     args = (speech, banks_p, w, off_p, len_p, max_seg, sa, srir, sl, stl, SR)
-    ours = T.render_mixture_sources(*args, weight_mask=weight_mask)
+    ours = T.render_mixture_sources(*args, weight_mask=weight_mask, device="cpu")
     ref = J.render_mixture_sources(*args, weight_mask=weight_mask)
     return ours, ref
 
@@ -141,3 +142,23 @@ def test_render_mixture_mesh_not_ported(rng):
     with pytest.raises(NotImplementedError, match="A11"):
         T.render_mixture_sources(speech, banks_p, w_p, off_p, len_p, max_seg,
                                  sa, srir, sl, stl, SR, mesh=object())
+
+
+def test_entry_points_default_to_the_card(rng, monkeypatch):
+    """Numpy input with no device asks for the card: without CUDA the entry
+    points raise and never fall back to the CPU, which runs only when asked
+    for. A tensor input keeps its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    speech, banks, weights, offs, lens, sa, srir, sl, stl = _mixture(rng, n_src=1)
+    banks_p, _, off_p, len_p, max_seg = T.pad_moving_plans(banks, weights, offs, lens)
+    args = (speech, banks_p, None, off_p, len_p, max_seg, sa, srir, sl, stl, SR)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.render_mixture_sources(*args)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            to_torch({"speech": speech}, device)
+    moving, static = T.render_mixture_sources(*args, device="cpu")
+    assert moving.device.type == static.device.type == "cpu"
+    from_tensor, _ = T.render_mixture_sources(torch.from_numpy(speech), *args[1:])
+    assert torch.equal(from_tensor, moving)
+    assert to_torch(speech, "cpu").device.type == "cpu"

@@ -99,7 +99,7 @@ def test_bank_to_mixture_slice(tmp_path):
             static_rirs, *lufs, SR)
     ref_plans = j_pad(banks, weights, offs, lens)
     np.testing.assert_array_equal(ref_plans[0], banks_p)
-    ours = T.render_mixture_sources(*args)
+    ours = T.render_mixture_sources(*args, device="cpu")
     ref = j_render(*args)
     for a, b in zip(ours, ref):
         _close(a, b)
@@ -124,7 +124,8 @@ out = T.convolve_moving_segmented(x, r, None, off, le, ms)
 bp, wp, op, lp, m = T.pad_moving_plans([r.numpy()], [w], [off], [le])
 mov, sta = T.render_mixture_sources(x[None].numpy(), bp, None, op, lp, m,
                                     x[None].numpy(), r[0:1].numpy(),
-                                    np.float32([-17]), np.float32([-24]), 16000)
+                                    np.float32([-17]), np.float32([-24]), 16000,
+                                    device="cpu")
 assert out.shape == (2, t) and mov.shape == (1, 2, t) and sta.shape == (1, 2, t)
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "sonicsim_tpu"))
 assert not loaded, loaded
