@@ -2,16 +2,18 @@
 
 The port of ``sonicsim_tpu`` (JAX/XLA/Pallas), which stays the reference it
 is held against. This package imports neither jax nor ``sonicsim_tpu``.
-Ported so far: the moving-source render and the per-mixture render step of
-SonicSet generation.
+Ported so far: the moving-source render, the per-mixture render step of
+SonicSet generation, and the RIR-bank render.
 
-* ``ops`` — trajectory plans, FFT convolutions, BS.1770 loudness, and the
-  two Hopper kernels (``ops.kernels``, sources in ``csrc/``).
+* ``ops`` — trajectory plans, FFT convolutions, BS.1770 loudness, levels,
+  and the two Hopper kernels (``ops.kernels``, sources in ``csrc/``).
 * ``parallel`` — ``render_mixture_sources``, one device.
-* ``bridge`` — RIR banks and numpy state into tensors.
+* ``sim`` — rooms, channels, materials, RIR oracles and the batched
+  RIR-bank renderer.
+* ``bridge`` — RIR banks, room descriptions and numpy state into the port.
 """
 
-from . import bridge, ops, parallel
+from . import bridge, ops, parallel, sim
 from .bridge import load_rir_bank, to_torch
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
@@ -24,6 +26,7 @@ __all__ = [
     "pad_moving_plans",
     "parallel",
     "render_mixture_sources",
+    "sim",
     "to_torch",
     *_ops_all,
 ]

@@ -3,7 +3,9 @@ and a saved RIR bank → mixture step, through both packages on the CPU.
 
 Tolerance: 1e-5 · max|ref| on rendered tracks (float32 FFT rounding at the
 same nfft, through a loudness gain equal to 1e-3 LU); the bank bridge is
-exact.
+exact. Banks that each package renders itself differ as in
+tests/test_torch_bank_render.py, and the tracks through them by up to
+2.5e-5 · max|ref| (held to 4e-5).
 """
 
 import re
@@ -24,6 +26,10 @@ from sonicsim_tpu.sim.oracle import BankRirOracle, save_rir_bank
 ROOT = Path(__file__).resolve().parent.parent
 SR = 16000
 REL = 1e-5
+# Rendered banks: the bank renderer's bound (tests/test_torch_bank_render.py).
+BANK_ATOL, BANK_RTOL = 5e-5, 1e-4
+# Tracks rendered through those banks: measured up to 2.5e-5 · max|ref|.
+SLICE_REL = 4e-5
 
 
 def _close(ours, ref):
@@ -105,14 +111,71 @@ def test_bank_to_mixture_slice(tmp_path):
         _close(a, b)
 
 
+def test_rendered_bank_to_mixture_slice():
+    """The whole slice in each package: a room, its RIR banks rendered by
+    the batched renderer, and the mixture step over them."""
+    import dataclasses
+
+    from sonicsim_tpu.sim.bank_render import render_rir_banks as j_banks
+    from sonicsim_tpu.sim.channels import ChannelModel
+    from sonicsim_tpu.sim.image_source import ShoeboxRoom
+    from sonicsim_tpu.sim.oracle import SyntheticRirOracle
+
+    ref_oracle = SyntheticRirOracle(ShoeboxRoom((6.0, 3.0, 5.0), absorption=0.4),
+                                    n_bands=8, max_order=2, seed=2)
+    channel = ChannelModel("Binaural")
+    oracle, ch = T.bridge.sim_from_fields(dataclasses.asdict(ref_oracle),
+                                          dataclasses.asdict(channel), device="cpu")
+    rng = np.random.default_rng(4)
+    ways = [list(rng.uniform([1, 1, 1], [5, 2.5, 4], (4, 3))) for _ in range(2)]
+    ways.append(list(rng.uniform([1, 1, 1], [5, 2.5, 4], (2, 3))))
+    mic = [np.array([3.0, 1.5, 2.5])]
+    ref_banks = j_banks(ref_oracle, ways, mic, channel)
+    banks = T.sim.render_rir_banks(oracle, ways, mic, ch, out_device=True)
+    for a, b in zip(banks, ref_banks):
+        np.testing.assert_allclose(a.numpy(), b, rtol=BANK_RTOL,
+                                   atol=BANK_ATOL * np.abs(b).max())
+
+    t = SR
+    speech = (rng.standard_normal((2, t)) * 0.1).astype(np.float32)
+    static_audio = (rng.standard_normal((2, t)) * 0.1).astype(np.float32)
+    weights, offs, lens = [], [], []
+    for w in ways[:2]:
+        idx, wt = T.dynamic_interp_plan(np.asarray(w), t, rng=rng)
+        o, le, _ = T.segment_plan(idx)
+        weights.append(wt)
+        offs.append(o)
+        lens.append(le)
+    lufs = (np.asarray([-17.0, -18.0], np.float32), np.asarray([-24.0, -29.0], np.float32))
+    plans = T.pad_moving_plans([b[:, 0] for b in banks[:2]], weights, offs, lens)
+    ours = T.render_mixture_sources(speech, plans[0], None, *plans[2:], static_audio,
+                                    banks[2][:, 0], *lufs, SR, device="cpu")
+    ref_plans = j_pad([b[:, 0] for b in ref_banks[:2]], weights, offs, lens)
+    ref = j_render(speech, ref_plans[0], None, *ref_plans[2:], static_audio,
+                   ref_banks[2][:, 0], *lufs, SR)
+    for a, b in zip(ours, ref):
+        b = np.asarray(b)
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=SLICE_REL * np.abs(b).max())
+
+
 def test_port_imports_no_jax():
-    """Importing the port and running a small render and mixture step
-    loads neither jax nor the JAX package."""
+    """Importing the port and its ``sim`` subpackage, and running a small
+    bank render, moving render and mixture step, loads neither jax nor the
+    JAX package."""
     code = """
 import sys
 import numpy as np
 import torch
 import sonicsim_tpu_torch as T
+import sonicsim_tpu_torch.sim as S
+
+oracle = S.SyntheticRirOracle(S.ShoeboxRoom((5.0, 3.0, 4.0)), n_bands=4, max_order=1,
+                              device="cpu")
+bank = S.render_rir_bank(oracle, [np.array([1.0, 1.5, 1.0])], [np.array([3.0, 1.5, 2.0])],
+                         S.ChannelModel("Binaural"))
+assert bank.shape[:3] == (1, 1, 2) and np.isfinite(bank).all()
 
 rng = np.random.default_rng(0)
 t = 8000
