@@ -34,7 +34,19 @@ Phases, one line each:
    per-wall materials (rank r > 1 and Q > 1);
 7. bank -> mixture: phase 6's banks as the moving banks, and a 2-source
    static bank, through both forms of the mixture step without leaving
-   the device, under phase 5's gates.
+   the device, under phase 5's gates;
+8. generation end to end: a seeded synthetic corpus (6 speakers x 12
+   utterances of 2-16 s, 8 noise clips of 1-10 s, 6 music clips of 20-30 s,
+   PCM16 WAVs written here) through ``generate_split`` with the CLI's
+   scene factory at SonicSet's widths (60 s, binaural, 32 bands, order 4;
+   2 scenes = 4 mixtures; pipelined, utterance cache, pcm16), after a
+   warm-up mixture in a third scene: a disk-sink run, a second disk-sink
+   run into a fresh root, and a device-sink run. Gates: the artifacts and
+   their shapes, every track's loudness read back within 0.1 LU of its
+   target (0.05 LU for the device-sink tracks, on the device), cache hits
+   in the second scene, the two disk runs byte-identical, and one mixture
+   against the port on the CPU. Phase 3's ``generation`` case holds K1 at
+   the first timed mixture's shapes.
 
 Then a JSON line of the kernels' numbers, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -44,8 +56,9 @@ result, as does a run with no CUDA device or outside the repository.
 ``python3 chip_smoke.py --profile [--port-root DIR]`` instead profiles the
 main path (``torch.profiler``): wall and device-busy time per call, device
 ops per call, the top device ops and the peak device memory, of the headline
-render, the fused mixture step and the RIR-bank render (with the share of
-its device time in the placement product, ``aten::bmm``). ``--port-root`` measures the port found under
+render, the fused mixture step, the RIR-bank render (with the share of
+its device time in the placement product, ``aten::bmm``), and one generated
+60 s mixture with the disk sink and one with the device sink. ``--port-root`` measures the port found under
 another checkout, so two commits compare in one run on one card.
 """
 
@@ -53,12 +66,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
+import logging
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -81,6 +98,14 @@ BANK_MIXTURE = dict(duration=60.0, iters=3, speech_lufs=(-17.0, -17.0, -17.0),
 # package's bank-vs-serial tolerance (tests/test_bank_render.py:51).
 BANK_ATOL, BANK_RTOL = 5e-5, 1e-3  # atol is a fraction of the peak
 RAMP_ATOL = 1e-6  # expected 0: each op rounded as in the plain version
+# Generation end to end (phase 8): SonicSet's widths, a synthetic corpus of
+# LibriSpeech-, FSD50K- and FMA-like lengths.
+GENERATION = dict(duration=60.0, channel="Binaural", n_bands=32, max_order=4,
+                  speakers=6, utterances=12, utt_s=(2.0, 16.0), noise=8,
+                  noise_s=(1.0, 10.0), music=6, music_s=(20.0, 30.0),
+                  scenes=("scene000", "scene001"), warm_scene="scene900", seed=0)
+GEN_LU_TOL = 0.1  # tracks read back from PCM16 WAVs
+SLICE_REL = 4e-5  # tests/test_torch_slice.py: tracks through rendered banks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -335,7 +360,6 @@ def phase_kernels(device, head, mix, bank_cfg, bank_mix_cfg):
     shapes, the blocked path's short-segment shapes, and the shapes bank ->
     mixture (phase 7) gives it: the rendered banks' ``ir_len`` and the
     block plans of phase 7's trajectories."""
-    from sonicsim_tpu_torch.ops import kernels
     from sonicsim_tpu_torch.parallel import pad_moving_plans
     from sonicsim_tpu_torch.sim import bank_render
 
@@ -363,8 +387,18 @@ def phase_kernels(device, head, mix, bank_cfg, bank_mix_cfg):
         [np.zeros((len(wy), 1, 1), np.float32) for wy in ways], weights, offs, lens)
     cases["bank"] = _blocked_case(off_p, len_p, seg_max, t_bank, channel.count,
                                   bank_render._bank_params(oracle).ir_len, w_p)
+    return hold_kernel_cases(device, cases)
+
+
+def hold_kernel_cases(device, cases, first_seed: int = 0):
+    """Each kernel against its plain version, timed, on every case (tables,
+    segment lengths, ramp shifts, span, nfft, offset, C, weights); the
+    headline case also times K1's ramp form against the separate epilogue.
+    Returns {case: {kernel: numbers}}."""
+    from sonicsim_tpu_torch.ops import kernels
+
     results, ab = {}, None
-    for seed, (name, case) in enumerate(cases.items()):
+    for seed, (name, case) in enumerate(cases.items(), first_seed):
         tables, lens, shift, span, nfft, lead, c, wc = case
         t = wc.shape[-1]
         k = _kernel_case(device, tables, lens, shift, span, nfft, lead, c, t, wc, seed)
@@ -725,9 +759,272 @@ def phase_bank_mixture(device, banks, ways, static, cfg):
           f"{targets}, tol {LUFS_TOL} LU); forms max abs diff {diff:.3g}",
           flush=True)
 
+def generation_corpus(root: Path, cfg):
+    """Phase 8's corpus: PCM16 WAVs at 16 kHz from ``default_rng(cfg["seed"])``,
+    ``cfg["speakers"]`` speaker folders of ``cfg["utterances"]`` utterances,
+    and noise and music clips, each an AM tone plus noise, with lengths drawn
+    from the ``*_s`` ranges. Returns (speaker dirs, noise and music length
+    manifests)."""
+    from sonicsim_tpu_torch.dataset import scan_audio_lengths
+    from sonicsim_tpu_torch.utils import write_wav
+
+    rng = np.random.default_rng(cfg["seed"])
+
+    def clip(path, lo, hi):
+        n = int(rng.uniform(lo, hi) * SR)
+        t = np.arange(n) / SR
+        f0, fm = rng.uniform(120.0, 400.0), rng.uniform(2.0, 6.0)
+        x = 0.3 * np.sin(2 * np.pi * f0 * t) * (1 + 0.3 * np.sin(2 * np.pi * fm * t))
+        write_wav(path, (x + 0.01 * rng.standard_normal(n)).astype(np.float32), SR)
+
+    dirs = []
+    for k in range(cfg["speakers"]):
+        d = root / "speech" / f"spk{k:02d}"
+        d.mkdir(parents=True)
+        for i in range(cfg["utterances"]):
+            clip(d / f"spk{k:02d}_{i:03d}.wav", *cfg["utt_s"])
+        dirs.append(str(d))
+    for kind in ("noise", "music"):
+        (root / kind).mkdir()
+        for i in range(cfg[kind]):
+            clip(root / kind / f"{kind}{i:02d}.wav", *cfg[f"{kind}_s"])
+    return dirs, scan_audio_lengths(root / "noise"), scan_audio_lengths(root / "music")
+
+
+def generation_factory(cfg, device):
+    """The CLI's ``synthetic_scene_factory`` (32 bands) on ``device`` (None
+    for the card), at ``cfg["max_order"]`` (the CLI's is 4)."""
+    from sonicsim_tpu_torch.scripts.generate_sonicset import synthetic_scene_factory
+
+    base = synthetic_scene_factory(cfg["channel"], 1, None, cfg["seed"],
+                                   n_bands=cfg["n_bands"], device=device)
+
+    def factory(name):
+        scene = base(name)
+        if scene.oracle.max_order != cfg["max_order"]:
+            scene.oracle = dataclasses.replace(scene.oracle, max_order=cfg["max_order"])
+        return scene
+
+    return factory
+
+
+class _Latencies(logging.Handler):
+    """Each mixture's seconds from its plan to its finish, from the log line
+    ``generate_split`` writes as it finishes one."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.seconds = []
+
+    def emit(self, record):
+        if "generated" in record.getMessage():
+            self.seconds.append(float(record.args[2]))
+
+
+def prepare_generation(device, cfg, root: Path) -> dict:
+    """Phase 8's set-up: the corpus, and one warm-up mixture in a scene the
+    timed runs do not use (cuFFT plans, the kernel library)."""
+    from sonicsim_tpu_torch.dataset import UtteranceCache, generate_split
+
+    name = None if device.type == "cuda" else str(device)
+    t0 = time.perf_counter()
+    dirs, noise, music = generation_corpus(root / "corpus", cfg)
+    corpus_s = time.perf_counter() - t0
+    factory = generation_factory(cfg, name)
+    t0 = time.perf_counter()
+    warm = generate_split(factory, [cfg["warm_scene"]], dirs, noise, music, root / "warm",
+                          duration=cfg["duration"], base_seed=cfg["seed"], max_mixtures=1,
+                          utterance_cache=UtteranceCache(sample_rate=SR, device=name))
+    sync(device)
+    check(len(warm) == 1, f"warm-up made {len(warm)} mixtures")
+    return dict(root=root, dirs=dirs, noise=noise, music=music, factory=factory,
+                device_name=name, corpus_s=corpus_s, warm_s=time.perf_counter() - t0)
+
+
+def generation_runs(device, cfg, gen) -> dict:
+    """The main path of phase 8: ``generate_split`` over the timed scenes
+    (pipelined, a fresh utterance cache, pcm16) with the disk sink, again
+    into a fresh root, and with the device sink. Per run: the folders, the
+    wall, each mixture's latency (plan to finish), and the cache's hits and
+    misses (all, and in the second scene)."""
+    from sonicsim_tpu_torch.dataset import UtteranceCache, generate_split
+    from sonicsim_tpu_torch.dataset import generate as generate_module
+
+    log = logging.getLogger(generate_module.__name__)
+    runs = {}
+    for label, sink in (("disk", "disk"), ("disk2", "disk"), ("device", "device")):
+        cache = UtteranceCache(sample_rate=SR, device=gen["device_name"])
+        at_scene = {}
+
+        def factory(name, cache=cache, at_scene=at_scene):
+            at_scene[name] = cache.hits
+            return gen["factory"](name)
+
+        done, level = _Latencies(), log.level
+        log.addHandler(done)
+        log.setLevel(logging.INFO)
+        try:
+            t0 = time.perf_counter()
+            produced = generate_split(factory, list(cfg["scenes"]), gen["dirs"],
+                                      gen["noise"], gen["music"], gen["root"] / label,
+                                      duration=cfg["duration"], base_seed=cfg["seed"],
+                                      utterance_cache=cache, sink=sink)
+            sync(device)
+            wall = time.perf_counter() - t0
+        finally:
+            log.removeHandler(done)
+            log.setLevel(level)
+        runs[label] = dict(produced=produced, wall=wall, latency=done.seconds,
+                           hits=cache.hits, misses=cache.misses,
+                           second_scene_hits=cache.hits - at_scene[cfg["scenes"][-1]])
+    return runs
+
+
+def _track_names(n_moving: int) -> list:
+    return ([f"moving_audio_{i + 1}.wav" for i in range(n_moving)]
+            + ["noise_audio.wav", "music_audio.wav"])
+
+
+def generation_case(plan, bank_len: int, n_ch: int):
+    """Phase 3's ``generation`` case: the K1/K2 tables the mixture step of
+    ``plan`` launches with, from the crossfade plans drawn from
+    ``default_rng(plan.seed)`` speaker by speaker, as ``dispatch_mixture``
+    draws them, and the bank's length."""
+    from sonicsim_tpu_torch.ops import dynamic_interp_plan, segment_plan
+    from sonicsim_tpu_torch.parallel import pad_moving_plans
+
+    rng = np.random.default_rng(plan.seed)
+    weights, offs, lens = [], [], []
+    for sp, traj in zip(plan.speech_plans, plan.trajectories):
+        idx, w = dynamic_interp_plan(np.asarray(traj), sp.total_samples, rng=rng)
+        o, le, _ = segment_plan(idx)
+        weights.append(w)
+        offs.append(o)
+        lens.append(le)
+    _, w_p, off_p, len_p, max_seg = pad_moving_plans(
+        [np.zeros((len(t), 1, 1), np.float32) for t in plan.trajectories],
+        weights, offs, lens)
+    return _blocked_case(off_p, len_p, max_seg, w_p.shape[-1], n_ch, bank_len, w_p)
+
+
+def check_generation(device, cfg, gen, runs, smi):
+    """Phase 8's gates on the runs; prints the phase's lines. Returns phase
+    3's ``generation`` case, from the first timed mixture."""
+    import torch
+
+    from sonicsim_tpu_torch.bridge import plan_from_json
+    from sonicsim_tpu_torch.dataset import UtteranceCache, render_mixture
+    from sonicsim_tpu_torch.ops import integrated_loudness
+    from sonicsim_tpu_torch.utils import read_wav
+
+    t = int(SR * cfg["duration"])
+    n_mix = len(cfg["scenes"]) * (cfg["speakers"] // 3)
+    disk, disk2, dev = runs["disk"]["produced"], runs["disk2"]["produced"], runs["device"]["produced"]
+    check(len(disk) == len(disk2) == len(dev) == n_mix,
+          f"mixtures made: {len(disk)}, {len(disk2)}, {len(dev)}; want {n_mix}")
+    check([p.name for p in disk] == [p.name for p in disk2] == [p.name for p in dev],
+          "the runs made different mixtures")
+    drawer = next((m for m in ("PIL", "matplotlib") if importlib.util.find_spec(m)), None)
+    worst_lu, plans = 0.0, []
+    for folder, again in zip(disk, disk2):
+        plan = plan_from_json(folder / "mixture_plan.json")
+        plans.append(plan)
+        names = _track_names(len(plan.speech_plans))
+        want = set(names) | {"json_data.json", "mixture_plan.json",
+                             f"rir_bank_{cfg['channel']}.npz"}
+        have = {p.name for p in folder.iterdir()}
+        check(want <= have, f"{folder.name}: missing {sorted(want - have)}")
+        check(("trace.png" in have) == (drawer is not None),
+              f"{folder.name}: trace.png {'missing' if drawer else 'written'} "
+              f"with drawer {drawer}")
+        meta = json.loads((folder / "json_data.json").read_text())
+        scales = meta.get("pcm16_peak_scale", {})
+        targets = list(plan.lufs_speech) + [plan.lufs_noise, plan.lufs_music]
+        for name, target in zip(names, targets):
+            wav, sr = read_wav(folder / name)
+            check(sr == SR and wav.shape == (2, t), f"{folder.name}/{name}: {wav.shape}")
+            lu = float(integrated_loudness(torch.from_numpy(wav).to(device), SR))
+            lu -= 20.0 * np.log10(scales.get(name, 1.0))
+            worst_lu = max(worst_lu, abs(lu - target))
+            check(abs(lu - target) <= GEN_LU_TOL,
+                  f"{folder.name}/{name}: {lu:.4f} LUFS, target {target:.4f}")
+        for name in names + ["json_data.json", "mixture_plan.json"]:
+            check((folder / name).read_bytes() == (again / name).read_bytes(),
+                  f"{folder.name}/{name}: the two disk-sink runs differ")
+        with np.load(folder / f"rir_bank_{cfg['channel']}.npz") as a, \
+                np.load(again / f"rir_bank_{cfg['channel']}.npz") as b:
+            check(all(np.array_equal(a[k], b[k]) for k in a.files),
+                  f"{folder.name}: the two disk-sink runs' banks differ")
+    check(all(not any(p.iterdir()) for p in dev), "the device sink wrote files")
+    hits_b = runs["disk"]["second_scene_hits"]
+    check(hits_b > 0, "no utterance-cache hit in the second scene")
+
+    # The device sink's tracks, measured on the device.
+    cache = UtteranceCache(sample_rate=SR, device=gen["device_name"])
+    worst_dev = 0.0
+    for plan in plans:
+        res = render_mixture(gen["factory"](plan.room), plan, gen["root"] / "sink",
+                             cache=cache, sink="device")
+        tracks = res["tracks"].to(torch.float32) / 32768.0 / res["peak_scales"][:, None, None]
+        targets = list(plan.lufs_speech) + [plan.lufs_noise, plan.lufs_music]
+        for x, target in zip(tracks, targets):
+            err = abs(float(integrated_loudness(x, SR)) - target)
+            worst_dev = max(worst_dev, err)
+            check(err <= LUFS_TOL, f"device-sink track {err:.4f} LU off its target")
+
+    # One mixture again on the CPU, float32 on both sides.
+    plan = plans[0]
+    outs = {}
+    for side, factory in (("device", gen["factory"]),
+                          ("cpu", generation_factory(cfg, "cpu"))):
+        t0 = time.perf_counter()
+        render_mixture(factory(plan.room), plan, gen["root"] / f"f32_{side}",
+                       wav_encoding="float32")
+        outs[side] = (gen["root"] / f"f32_{side}", time.perf_counter() - t0)
+    cpu_err, cpu_ref = 0.0, 0.0
+    for name in _track_names(len(plan.speech_plans)):
+        got, _ = read_wav(outs["device"][0] / name)
+        ref, _ = read_wav(outs["cpu"][0] / name)
+        err, peak = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+        check(err <= SLICE_REL * peak,
+              f"{name}: the device and the CPU differ by {err} (max|ref| {peak})")
+        cpu_err, cpu_ref = max(cpu_err, err / peak), max(cpu_ref, peak)
+    for name in ("json_data.json", "mixture_plan.json"):
+        check((outs["device"][0] / name).read_bytes() == (outs["cpu"][0] / name).read_bytes(),
+              f"{name}: the device and the CPU differ")
+
+    def per_mix(run):
+        return (run["wall"] / n_mix, statistics.median(run["latency"]))
+
+    (dw, dm), (dw2, dm2), (vw, vm) = (per_mix(runs[k]) for k in ("disk", "disk2", "device"))
+    print(f"generation: {n_mix} x {cfg['duration']:.0f} s {cfg['channel']} mixtures, "
+          f"{cfg['n_bands']} bands, order {cfg['max_order']}, pipelined, utterance "
+          f"cache, pcm16 (corpus {gen['corpus_s']:.3f} s to write, warm-up mixture "
+          f"{gen['warm_s']:.3f} s): s per mixture = wall/{n_mix}, and the median "
+          f"latency of a mixture (plan to finish): disk sink {dw:.4f} s, {dm:.4f} s; "
+          f"again {dw2:.4f} s, {dm2:.4f} s; device sink {vw:.4f} s, {vm:.4f} s "
+          f"(latencies: disk {runs['disk']['latency']}, device "
+          f"{runs['device']['latency']}); cache hits/misses "
+          f"{runs['disk']['hits']}/{runs['disk']['misses']} ({hits_b} hits in the second "
+          f"scene); device ops per mixture: see --profile; {smi}", flush=True)
+    print(f"generation gates: 4 folders x 5 WAVs of 2 x {t}, json, plan, bank; loudness "
+          f"read back within {worst_lu:.4f} LU (tol {GEN_LU_TOL}); device-sink tracks "
+          f"within {worst_dev:.4f} LU on the device (tol {LUFS_TOL}); the two disk-sink "
+          f"runs byte-identical; the device sink wrote nothing; mixture "
+          f"{disk[0].parent.name}/{disk[0].name} on the device ({outs['device'][1]:.3f} "
+          f"s) vs the CPU ({outs['cpu'][1]:.3f} s), float32: max abs err / "
+          f"max|ref| {cpu_err:.3g} (tol {SLICE_REL}; largest max|ref| "
+          f"{cpu_ref:.3g}); trace: "
+          + (f"drawn by {drawer}" if drawer else
+             "neither PIL nor matplotlib is importable, trace.png left out"),
+          flush=True)
+    with np.load(disk[0] / f"rir_bank_{cfg['channel']}.npz") as z:
+        _, _, n_ch, bank_len = z["rirs"].shape
+    return generation_case(plans[0], int(bank_len), int(n_ch))
+
 
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
-        bank_mix_cfg=BANK_MIXTURE) -> None:
+        bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION) -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     head = headline_plan(head_cfg)
@@ -747,6 +1044,13 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     kernels.reset_launch_counts()
     phase_bank_mixture(device, banks, ways, static, bank_mix_cfg)
     counts["bank->mixture"] = dict(kernels.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        gen = prepare_generation(device, gen_cfg, Path(tmp))
+        kernels.reset_launch_counts()
+        runs = generation_runs(device, gen_cfg, gen)
+        counts["generation"] = dict(kernels.LAUNCHES)
+        case = check_generation(device, gen_cfg, gen, runs, smi)
+    times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
     if device.type == "cuda":
         for path, c in counts.items():
@@ -756,7 +1060,8 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
             check(counts[path]["crossfade_combine"] > 0,
                   f"crossfade_combine: no launch in {path}")
     print(f"launches on the main paths: {counts} (the select form is off "
-          f"the main paths; the bank render has no kernel of its own)",
+          f"the main paths; the bank render has no kernel of its own; "
+          f"generation takes the fused form alone)",
           flush=True)
 
     report = {"kernels": [
@@ -799,10 +1104,44 @@ def _busy_us(intervals) -> float:
 
 
 def phase_profile(device, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
-                  reps: int = 10):
+                  gen_cfg=GENERATION, reps: int = 10):
     """The main paths under ``torch.profiler``: for the headline render, the
-    fused mixture step and the RIR-bank render, ``reps`` calls after a
-    warm-up."""
+    fused mixture step, the RIR-bank render, and one generated mixture with
+    the disk sink and with the device sink (where the port has
+    ``dataset``), ``reps`` calls after a warm-up."""
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, reps, tmp)
+    finally:
+        shutil.rmtree(tmp)
+
+
+def _generation_paths(device, cfg, root: Path) -> dict:
+    """One 60 s mixture of phase 8's corpus, planned from a fixed seed, as
+    ``render_mixture`` with the disk sink and with the device sink (a warm
+    utterance cache)."""
+    from sonicsim_tpu_torch.dataset import (
+        UtteranceCache,
+        plan_mixture,
+        render_mixture,
+        scan_audio_lengths,
+    )
+
+    dirs, noise, music = generation_corpus(root / "corpus", cfg)
+    name = None if device.type == "cuda" else str(device)
+    scene = generation_factory(cfg, name)(cfg["scenes"][0])
+    plan = plan_mixture(scene, [scan_audio_lengths(d) for d in dirs[:3]], noise, music,
+                        np.random.default_rng(cfg["seed"]), duration=cfg["duration"],
+                        seed=cfg["seed"])
+    cache = UtteranceCache(sample_rate=SR, device=name)
+    return {
+        "generation-disk": lambda: render_mixture(scene, plan, root / "disk", cache=cache),
+        "generation-device": lambda: render_mixture(scene, plan, root / "device",
+                                                    cache=cache, sink="device"),
+    }
+
+
+def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, reps, tmp):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -830,6 +1169,8 @@ def phase_profile(device, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     ways = [bank_ways(k, bank_cfg["n_ways"]) for k in range(bank_cfg["n_banks"])]
     paths["bank"] = lambda: render_rir_banks(oracle, ways, mic, channel,
                                              out_device=True)
+    if importlib.util.find_spec("sonicsim_tpu_torch.dataset"):
+        paths.update(_generation_paths(device, gen_cfg, tmp))
     report = {"port": sonicsim_tpu_torch.__file__}
     for name, fn in paths.items():
         fn()

@@ -1,17 +1,21 @@
-"""State carried over from the JAX package: RIR banks, rooms, audio and plans.
+"""State carried over from the JAX package: RIR banks, rooms, scenes, audio
+and plans.
 
 The render has no learned parameters; its state is the RIR bank, the
 host plan tables and the description of the simulated room.
 ``load_rir_bank`` reads the JAX package's ``.npz`` bank format
 (``sim/oracle.save_rir_bank``) without importing it, ``sim_from_fields``
-builds the port's oracle and channel model from the plain fields of the
-JAX package's (``dataclasses.asdict``), and ``to_torch`` turns numpy banks,
-audio and plans into tensors on a device (the card unless the caller asks
-for the CPU), so both packages can be fed the same state.
+and ``scene_from_fields`` build the port's oracle, channel model and scene
+from the plain fields of the JAX package's (``dataclasses.asdict``),
+``plan_from_json`` loads a ``mixture_plan.json`` that either package wrote,
+and ``to_torch`` turns numpy banks, audio and plans into tensors on a device
+(the card unless the caller asks for the CPU), so both packages can be fed
+the same state.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +51,43 @@ def sim_from_fields(oracle: dict, channel: dict, device=None) -> tuple:
     room = ShoeboxRoom(**fields.pop("room"))
     return (SyntheticRirOracle(room=room, device=device, **fields),
             ChannelModel(**channel))
+
+
+def scene_from_fields(fields: dict, device=None):
+    """The port's ``Scene`` from the plain fields of a synthetic one:
+    ``room``, ``nav`` (a dict of ``NavGrid`` fields: ``occupancy``,
+    ``origin``, ``resolution``, ``floor_height``), ``oracle`` and
+    ``channel`` (as :func:`sim_from_fields` takes them), and optionally
+    ``source_height``, ``sensor_height`` and ``acoustic_config``.
+    ``dataclasses.asdict`` of the JAX package's ``Scene`` gives them. The
+    scene and its oracle run on ``device``."""
+    from .sim import NavGrid, Scene
+
+    f = dict(fields)
+    oracle, channel = sim_from_fields(f.pop("oracle"), f.pop("channel"),
+                                      device=device)
+    return Scene(nav=NavGrid(**f.pop("nav")), oracle=oracle, channel=channel,
+                 device=device, **f)
+
+
+def plan_from_json(source):
+    """A ``MixturePlan`` from a ``mixture_plan.json`` (a path) or its parsed
+    dict, as either package writes it (``MixturePlan.save``)."""
+    from .dataset.plan import LongAudioPlan, MixturePlan, Placement
+
+    if not isinstance(source, dict):
+        with open(source) as f:
+            source = json.load(f)
+    d = dict(source)
+
+    def long_audio(p: dict) -> LongAudioPlan:
+        return LongAudioPlan(p["total_samples"], p["sample_rate"],
+                             [Placement(**x) for x in p["placements"]])
+
+    d["speech_plans"] = [long_audio(p) for p in d["speech_plans"]]
+    d["noise_plan"] = long_audio(d["noise_plan"])
+    d["music_plan"] = long_audio(d["music_plan"])
+    return MixturePlan(**d)
 
 
 def resolve_device(device=None) -> torch.device:

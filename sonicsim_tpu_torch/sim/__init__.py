@@ -1,5 +1,6 @@
-"""Acoustic simulation: rooms, channels, materials, RIR oracles and the
-batched RIR-bank renderer (port of ``sonicsim_tpu.sim``)."""
+"""Acoustic simulation: rooms, channels, materials, RIR oracles, the
+batched RIR-bank renderer, navigable space and scenes (port of
+``sonicsim_tpu.sim``; the habitat oracle and ``visual`` are not ported)."""
 
 from .bank_render import render_bank_batched, render_rir_banks
 from .channels import (
@@ -11,6 +12,16 @@ from .channels import (
     real_sh_matrix,
 )
 from .entities import Receiver, Source
+from .geometry import (
+    NavGrid,
+    densify_path,
+    generate_xy_grid_points,
+    interpolate_receiver_poses,
+    random_select_start_end_points,
+    sample_trajectory,
+    select_static_points,
+)
+from .grid_cache import grid_cache_path, load_room_grid, save_xy_grid_points
 from .image_source import (
     WALLS,
     ShoeboxRoom,
@@ -23,6 +34,7 @@ from .image_source import (
     render_shoebox_rir_multiband,
     tail_noise,
 )
+from .maps import points_to_pixels, save_trace_image, topdown_map
 from .materials import (
     DEFAULT_MATERIALS,
     Material,
@@ -39,38 +51,53 @@ from .oracle import (
     render_rir_bank,
     save_rir_bank,
 )
+from .scene import Scene
 
 __all__ = [
     "ACOUSTIC_CONFIG",
-    "BankRirOracle",
-    "CHANNEL_TYPES",
-    "CIRCULAR_4CH_ARRAY",
-    "ChannelModel",
-    "DEFAULT_MATERIALS",
-    "LINEAR_4CH_ARRAY",
-    "Material",
-    "Receiver",
-    "RirOracle",
-    "ShoeboxRoom",
-    "Source",
-    "SyntheticRirOracle",
-    "WALLS",
-    "WallPhysics",
     "band_centers",
     "band_masks",
+    "BankRirOracle",
     "channel_count",
+    "CHANNEL_TYPES",
+    "ChannelModel",
+    "CIRCULAR_4CH_ARRAY",
+    "DEFAULT_MATERIALS",
+    "densify_path",
+    "generate_xy_grid_points",
+    "grid_cache_path",
     "image_sources",
     "image_sources_walls",
+    "interpolate_receiver_poses",
+    "LINEAR_4CH_ARRAY",
     "load_material_config",
+    "load_room_grid",
+    "Material",
     "material_for_label",
+    "NavGrid",
+    "points_to_pixels",
+    "random_select_start_end_points",
     "real_sh_matrix",
+    "Receiver",
     "render_bank_batched",
     "render_rir_bank",
     "render_rir_banks",
     "render_shoebox_rir",
     "render_shoebox_rir_multiband",
+    "RirOracle",
     "room_mean_absorption",
+    "sample_trajectory",
     "save_rir_bank",
+    "save_trace_image",
+    "save_xy_grid_points",
+    "Scene",
+    "select_static_points",
+    "ShoeboxRoom",
+    "Source",
+    "SyntheticRirOracle",
     "tail_noise",
+    "topdown_map",
     "wall_curves_from_labels",
+    "WallPhysics",
+    "WALLS",
 ]

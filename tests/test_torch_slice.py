@@ -160,10 +160,10 @@ def test_rendered_bank_to_mixture_slice():
                                    atol=SLICE_REL * np.abs(b).max())
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """Importing the port and its ``sim`` subpackage, and running a small
-    bank render, moving render and mixture step, loads neither jax nor the
-    JAX package."""
+    bank render, moving render, mixture step and ``generate_split`` on the
+    CPU, loads neither jax nor the JAX package."""
     code = """
 import sys
 import numpy as np
@@ -190,11 +190,27 @@ mov, sta = T.render_mixture_sources(x[None].numpy(), bp, None, op, lp, m,
                                     np.float32([-17]), np.float32([-24]), 16000,
                                     device="cpu")
 assert out.shape == (2, t) and mov.shape == (1, 2, t) and sta.shape == (1, 2, t)
-loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "sonicsim_tpu"))
+
+from pathlib import Path
+from sonicsim_tpu_torch.dataset import generate_split, scan_audio_lengths
+from sonicsim_tpu_torch.utils import write_wav
+
+root = Path(sys.argv[1])
+dirs = []
+for name in ("a", "b", "c", "noise", "music"):
+    (root / name).mkdir()
+    write_wav(root / name / "x.wav", rng.standard_normal(6000).astype(np.float32) * 0.1, 16000)
+    dirs.append(str(root / name))
+produced = generate_split(
+    lambda n: S.Scene.synthetic(room=n, channel_type="Mono", max_order=1, device="cpu"),
+    ["r"], dirs[:3], scan_audio_lengths(dirs[3]), scan_audio_lengths(dirs[4]),
+    root / "out", duration=1.0)
+assert len(produced) == 1 and (produced[0] / "json_data.json").exists()
+loaded =sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "sonicsim_tpu"))
 assert not loaded, loaded
 print("ok")
 """
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
