@@ -46,7 +46,20 @@ Phases, one line each:
    target (0.05 LU for the device-sink tracks, on the device), cache hits
    in the second scene, the two disk runs byte-identical, and one mixture
    against the port on the CPU. Phase 3's ``generation`` case holds K1 at
-   the first timed mixture's shapes.
+   the first timed mixture's shapes;
+9. ConvTasNet serving at the full width of configs/separation/convtasnet.yaml
+   (3,491,505 parameters, seeded weights in the JAX package's flax layout,
+   saved with ``save_model`` and loaded with ``from_pretrain`` on the card):
+   float32 against the port on the CPU on a 4 s crop; the forward's
+   throughput (CUDA-event medians, audio-s/s, peak extra memory) for one
+   60 s mixture in fp32 and bf16 and 16 crops of 4 s in bf16, bf16 held
+   to rel-L2 0.05 of fp32; the inference CLI (``scripts.inference``) on
+   phase 8's first mixture in fp32 and bf16; the remix evaluation
+   (``scripts.audio_test``'s loop) over phase 8's disk-sink split on the
+   metadata spans, with the default columns and PESQ, its wall split into
+   forward and tracker time and ``metrics.csv``'s avg/std rows; the tracker
+   on the card against the CPU on one segment. Serving launches neither
+   kernel.
 
 Then a JSON line of the kernels' numbers, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -57,9 +70,11 @@ result, as does a run with no CUDA device or outside the repository.
 main path (``torch.profiler``): wall and device-busy time per call, device
 ops per call, the top device ops and the peak device memory, of the headline
 render, the fused mixture step, the RIR-bank render (with the share of
-its device time in the placement product, ``aten::bmm``), and one generated
-60 s mixture with the disk sink and one with the device sink. ``--port-root`` measures the port found under
-another checkout, so two commits compare in one run on one card.
+its device time in the placement product, ``aten::bmm``), one generated
+60 s mixture with the disk sink and one with the device sink, and
+ConvTasNet's forward (``serve-fp32-60s``, ``serve-bf16-B16``).
+``--port-root`` measures the port found under another checkout, so two
+commits compare in one run on one card.
 """
 
 from __future__ import annotations
@@ -69,6 +84,7 @@ import dataclasses
 import importlib.util
 import json
 import logging
+import os
 import shutil
 import statistics
 import subprocess
@@ -106,6 +122,15 @@ GENERATION = dict(duration=60.0, channel="Binaural", n_bands=32, max_order=4,
                   scenes=("scene000", "scene001"), warm_scene="scene900", seed=0)
 GEN_LU_TOL = 0.1  # tracks read back from PCM16 WAVs
 SLICE_REL = 4e-5  # tests/test_torch_slice.py: tracks through rendered banks
+# Phase 9: ConvTasNet serving at the full width of the model node of
+# configs/separation/convtasnet.yaml, written out here because the card's
+# host may have no pyyaml; seeded weights.
+SERVE = dict(model=dict(N=512, L=32, B=128, H=512, P=3, X=8, R=3, norm="gLN",
+                        num_spks=2, activate="relu", causal=False, sample_rate=SR),
+             params=3_491_505, seed=0, crop_s=4.0, batch=16, segment_s=10.0, reps=10)
+SERVE_REL = 1e-4  # float32 on the card vs the port on the CPU, of max|ref|
+BF16_REL_L2 = 0.05  # bf16 vs float32 (tests/test_metrics_infer.py's bound)
+SISNR_DB, SDR_DB = 1e-3, 1e-2  # the tracker on the card vs on the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -180,11 +205,20 @@ def phase_env():
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     check(bool(smi), "nvidia-smi gave no card name and power limit")
+    smi_version = subprocess.run(["nvidia-smi", "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout.strip().splitlines()
+    nv_version = smi_version[0].split(":")[-1].strip() if smi_version else "?"
+    # Phases 4, 6, 8 and 9 hold the card against the CPU: name the host's CPU.
+    info = Path("/proc/cpuinfo")
+    lines = info.read_text().splitlines() if info.exists() else []
+    cpu = next((ln.split(":", 1)[1].strip() for ln in lines if ln.startswith("vendor_id")), "?")
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} triton {triton_v} "
           f"nvcc-on-PATH {shutil.which('nvcc')} nvcc {nvcc} "
           f"({nvcc_v[-1] if nvcc_v else '?'}) device {props} "
-          f"count {torch.cuda.device_count()}", flush=True)
+          f"count {torch.cuda.device_count()} nvidia-smi {nv_version} host CPU {cpu} "
+          f"{os.cpu_count()} cores, torch CPU capability "
+          f"{torch.backends.cpu.get_cpu_capability()}", flush=True)
     return torch.device("cuda", 0), smi
 
 
@@ -1023,8 +1057,236 @@ def check_generation(device, cfg, gen, runs, smi):
     return generation_case(plans[0], int(bank_len), int(n_ch))
 
 
+def seeded_convtasnet(model_cfg, seed: int) -> dict:
+    """ConvTasNet weights from ``default_rng(seed)`` as numpy arrays in the
+    JAX package's flax layout, leaves drawn in sorted key order: kernels
+    N(0, 1/fan_in), gammas 1 + N(0, 0.01), PReLU slopes 0.25, biases and
+    betas N(0, 0.01). The tree's shapes come from the port's model through
+    the bridge."""
+    from sonicsim_tpu_torch import bridge
+    from sonicsim_tpu_torch.models import ConvTasNet
+
+    rng = np.random.default_rng(seed)
+
+    def draw(node):
+        out = {}
+        for key in sorted(node):
+            v = node[key]
+            if isinstance(v, dict):
+                out[key] = draw(v)
+                continue
+            if key == "kernel":
+                a = rng.standard_normal(v.shape) / np.sqrt(np.prod(v.shape[:-1]))
+            elif key == "gamma":
+                a = 1.0 + 0.1 * rng.standard_normal(v.shape)
+            elif key == "alpha":
+                a = np.full(v.shape, 0.25)
+            else:
+                a = 0.1 * rng.standard_normal(v.shape)
+            out[key] = a.astype(np.float32)
+        return out
+
+    return draw(bridge.convtasnet_flax_params(ConvTasNet(**model_cfg, device="cpu").state_dict()))
+
+
+def serving_models(device, cfg, root: Path):
+    """The seeded weights through the CLI's own path: the port's model on the
+    CPU, ``save_model`` to a pack, ``from_pretrain`` on ``device``. Returns
+    (CPU model, model on the device, pack path)."""
+    from sonicsim_tpu_torch import bridge
+    from sonicsim_tpu_torch.models import ConvTasNet, from_pretrain, save_model
+
+    cpu = ConvTasNet(**cfg["model"], device="cpu")
+    cpu.load_state_dict(bridge.convtasnet_state_dict(seeded_convtasnet(cfg["model"], cfg["seed"])))
+    path = root / "convtasnet.pkl"
+    save_model(cpu.eval(), path)
+    return cpu, from_pretrain(path, device=device), path
+
+
+def _timed_metric(fn, clocks: dict, name: str):
+    """``fn`` (a tracker sidecar) adding its host seconds to ``clocks[name]``."""
+    def timed(ref, est, sample_rate):
+        t0 = time.perf_counter()
+        try:
+            return fn(ref, est, sample_rate)
+        finally:
+            clocks[name] = clocks.get(name, 0.0) + time.perf_counter() - t0
+
+    timed.backend = fn.backend
+    return timed
+
+
+def _peak_mib(device, fn) -> float | None:
+    """Peak extra device memory of one call of ``fn``, in MiB (the card)."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    fn()
+    sync(device)
+    return (torch.cuda.max_memory_allocated(device) - base) / 2**20
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def phase_serving(device, cfg, folders, root: Path, smi) -> None:
+    """Phase 9: ConvTasNet from a pack on the device; its forward against the
+    CPU, its throughput, the inference CLI on phase 8's first mixture, and
+    the remix evaluation over phase 8's disk-sink split."""
+    import csv
+
+    import torch
+
+    from sonicsim_tpu_torch.dataset import MovingTestEvalDataset
+    from sonicsim_tpu_torch.metrics import MetricsTracker
+    from sonicsim_tpu_torch.scripts import audio_test, inference
+    from sonicsim_tpu_torch.scripts.common import make_forward, pesq_columns
+    from sonicsim_tpu_torch.scripts.test import metadata_segments
+    from sonicsim_tpu_torch.utils import read_wav, write_wav
+
+    root.mkdir()
+    cpu, model, pack = serving_models(device, cfg, root)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(cfg.get("params") in (None, n_params), f"ConvTasNet has {n_params} parameters")
+    # Each generated mixture: its five tracks summed (binaural), and mono.
+    mixes = [np.sum([read_wav(f / n)[0] for n in sorted(p.name for p in f.glob("*_audio*.wav"))],
+                    axis=0, dtype=np.float32) for f in folders]
+    mono = [m.mean(axis=0) for m in mixes]
+    t_mix, t_crop = mono[0].shape[-1], int(cfg["crop_s"] * SR)
+    fwd32, fwd16 = make_forward(model), make_forward(model, bf16=True)
+
+    crop = torch.from_numpy(mono[0][None, :t_crop].copy())
+    with torch.inference_mode():
+        ref = cpu(crop)
+    got = fwd32(crop.to(device)).cpu()
+    crop_err, crop_ref = float((got - ref).abs().max()), float(ref.abs().max())
+    check(crop_err <= SERVE_REL * crop_ref,
+          f"ConvTasNet on the device vs the CPU: max abs err {crop_err} (max|ref| {crop_ref})")
+
+    per = -(-cfg["batch"] // len(mono))
+    step = (t_mix - t_crop) // per
+    xb = torch.from_numpy(np.stack([mono[k % len(mono)][(k // len(mono)) * step:][:t_crop]
+                                    for k in range(cfg["batch"])])).to(device)
+    x60 = torch.from_numpy(mono[0][None].copy()).to(device)
+    runs = {"fp32 60 s": (fwd32, x60), "bf16 60 s": (fwd16, x60),
+            f"bf16 B={cfg['batch']} x {cfg['crop_s']:g} s": (fwd16, xb)}
+    outs, stats = {}, {}
+    for name, (fn, x) in runs.items():
+        outs[name] = fn(x)
+        sync(device)
+        check(tuple(outs[name].shape) == (x.shape[0], cfg["model"]["num_spks"], x.shape[1]),
+              f"{name}: output shape {tuple(outs[name].shape)}")
+        check(bool(torch.isfinite(outs[name]).all()), f"{name}: output not finite")
+        ms = median_ms(lambda fn=fn, x=x: fn(x), device, reps=cfg["reps"], warmup=2)
+        stats[name] = (ms, x.numel() / SR / (ms / 1e3), _peak_mib(device, lambda fn=fn, x=x: fn(x)))
+    names = list(runs)
+    rel60 = _rel_l2(outs[names[1]], outs[names[0]])
+    rel_b = _rel_l2(outs[names[2]], fwd32(xb))
+    check(rel60 < BF16_REL_L2 and rel_b < BF16_REL_L2,
+          f"bf16 vs fp32 rel-L2 {rel60}, {rel_b} (bound {BF16_REL_L2})")
+    print(f"serving: ConvTasNet N={cfg['model']['N']} H={cfg['model']['H']} "
+          f"X={cfg['model']['X']} R={cfg['model']['R']}, {n_params} parameters, from "
+          f"{pack.name} via from_pretrain; fp32 vs the port on the CPU on a "
+          f"{cfg['crop_s']:g} s crop: max abs err {crop_err:.3g} of max|ref| {crop_ref:.3g} "
+          f"(tol {SERVE_REL}·max|ref|); bf16 vs fp32 rel-L2 {rel60:.4f} (60 s), "
+          f"{rel_b:.4f} (batch) (tol {BF16_REL_L2}) | "
+          + " | ".join(f"{k}: {v[0]:.4f} ms = {v[1]:.1f} audio-s/s, peak extra "
+                       f"memory {v[2] if v[2] is None else round(v[2], 1)} MiB"
+                       for k, v in stats.items())
+          + f" (median of {cfg['reps']}); {smi}", flush=True)
+
+    mix_path = root / "mix.wav"
+    write_wav(mix_path, mixes[0], SR, encoding="float32")
+    walls = {}
+    for label, extra in (("fp32", []), ("bf16", ["--bf16"])):
+        argv = ["--model_path", str(pack), "--mix", str(mix_path), "--out_dir",
+                str(root / f"sep_{label}"), "--segment_seconds", str(cfg["segment_s"]),
+                "--device", str(device)] + extra
+        inference.main(argv)  # warm-up
+        t0 = time.perf_counter()
+        inference.main(argv)
+        walls[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inference.separate(model, mono[0], SR, cfg["segment_s"], bf16=bool(extra))
+        walls[label + " separate"] = time.perf_counter() - t0
+        for i in range(cfg["model"]["num_spks"]):
+            est, _ = read_wav(root / f"sep_{label}" / f"s{i + 1}_est.wav")
+            check(est.shape == (1, t_mix) and bool(np.isfinite(est).all()),
+                  f"inference {label}: s{i + 1}_est.wav {est.shape}")
+    print(f"serving[inference CLI]: one {t_mix / SR:g} s generated mixture "
+          f"(binaural, downmixed by the CLI), {cfg['segment_s']:g} s windows, "
+          f"stitched: wall per mixture after a warm-up, load and WAV I/O included: "
+          f"fp32 {walls['fp32']:.4f} s, bf16 {walls['bf16']:.4f} s; separate() "
+          f"alone: fp32 {walls['fp32 separate']:.4f} s, bf16 "
+          f"{walls['bf16 separate']:.4f} s", flush=True)
+
+    split = folders[0].parent.parent
+    ds = MovingTestEvalDataset(str(split), seed=cfg["seed"])
+    check(sorted(ds.data_dirs) == sorted(str(f) for f in folders),
+          f"the split's leaf folders are not the generated mixtures: {ds.data_dirs}")
+    segments = {str(f): metadata_segments(str(f), t_mix) for f in folders}
+    clocks: dict = {}
+    columns = {k: _timed_metric(fn, clocks, k) for k, fn in pesq_columns().items()}
+    t0 = time.perf_counter()
+    res = audio_test.evaluate_remix(model, split, root / "results" / "metrics_remix-noise.csv",
+                                    segments=segments, extra_metrics=columns, seed=cfg["seed"])
+    wall = time.perf_counter() - t0
+    want = sum(e - s > audio_test.MIN_SEGMENT for spans in segments.values() for s, e in spans)
+    with open(res["csv"]) as f:
+        table = list(csv.DictReader(f))
+    scored = res["spans"] - res["skipped_silent"]
+    check(res["spans"] == want and scored > 0 and len(table) == scored + 2,
+          f"metrics.csv has {len(table)} rows for {res['spans']} of {want} spans "
+          f"({res['skipped_silent']} skipped for a silent reference)")
+    for row in table[-2:]:
+        print(f"serving[remix eval] metrics.csv {row['snt_id']}: "
+              + ", ".join(f"{k} {float(v):.4f}" for k, v in row.items() if k != "snt_id"),
+              flush=True)
+    n = res["mixtures"]
+    print(f"serving[remix eval]: {n} mixtures x {t_mix / SR:g} s, {want} metadata spans "
+          f"({sum(e - s for sp in segments.values() for s, e in sp) / SR:.1f} audio-s; "
+          f"{scored} scored, {res['skipped_silent']} skipped for a silent reference), "
+          f"moving_audio_1 and _3 (the eval dataset's default num_spks=(0, 2), read as "
+          f"ids) + noise, SIR/SNR "
+          f"from seed {cfg['seed']}: wall per mixture {wall / n:.4f} s = forward "
+          f"{res['forward_s'] / n:.4f} s + tracker {res['metrics_s'] / n:.4f} s (SDRs on "
+          f"{device.type}, STOI and PESQ on the host; PESQ host s per mixture: "
+          + ", ".join(f"{k} {v / n:.4f}" for k, v in clocks.items())
+          + f"); columns {list(table[0])}; backend {columns[next(iter(columns))].backend}",
+          flush=True)
+
+    # The first crop of a metadata span in which no reference is silent.
+    crops = ((mix, targets, s)
+             for mix, targets, folder in (ds[i] for i in range(len(ds)))
+             for a, b in segments[folder] for s in range(a, b - t_crop + 1, t_crop)
+             if np.abs(targets[:, s:s + t_crop]).max(axis=-1).min() >= 1e-6)
+    found = next(crops, None)
+    check(found is not None, "no crop of the split without a silent reference")
+    mix, targets, s = found
+    e = s + t_crop
+    est = fwd32(torch.from_numpy(mix[None, s:e]).to(device))[0].cpu().numpy()
+    rows = {}
+    for side, dev in (("device", device), ("cpu", "cpu")):
+        tracker = MetricsTracker(root / f"gate_{side}.csv", device=dev)
+        tracker(mix[s:e], targets[:, s:e], est, "gate")
+        check(len(tracker.rows) == 1, f"the tracker on the {side} dropped the segment")
+        rows[side] = tracker.rows[0]
+    d_si = abs(rows["device"]["si-snr"] - rows["cpu"]["si-snr"])
+    d_sdr = abs(rows["device"]["sdr"] - rows["cpu"]["sdr"])
+    check(d_si <= SISNR_DB and d_sdr <= SDR_DB,
+          f"tracker on the device vs the CPU: si-snr {d_si} dB, sdr {d_sdr} dB")
+    print(f"serving[tracker gate]: one {(e - s) / SR:g} s segment's estimate, the device vs "
+          f"the CPU: |d si-snr| {d_si:.3g} dB (tol {SISNR_DB}), |d sdr| {d_sdr:.3g} dB "
+          f"(tol {SDR_DB})", flush=True)
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
-        bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION) -> None:
+        bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE) -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     head = headline_plan(head_cfg)
@@ -1050,6 +1312,10 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         runs = generation_runs(device, gen_cfg, gen)
         counts["generation"] = dict(kernels.LAUNCHES)
         case = check_generation(device, gen_cfg, gen, runs, smi)
+        kernels.reset_launch_counts()
+        phase_serving(device, serve_cfg, runs["disk"]["produced"], Path(tmp) / "serve", smi)
+        serving = dict(kernels.LAUNCHES)
+    check(not any(serving.values()), f"serving launched a kernel: {serving}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
     if device.type == "cuda":
@@ -1061,7 +1327,8 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
                   f"crossfade_combine: no launch in {path}")
     print(f"launches on the main paths: {counts} (the select form is off "
           f"the main paths; the bank render has no kernel of its own; "
-          f"generation takes the fused form alone)",
+          f"generation takes the fused form alone); serving (phase 9) launches "
+          f"neither kernel: {serving} (ConvTasNet has no Pallas counterpart)",
           flush=True)
 
     report = {"kernels": [
@@ -1104,16 +1371,34 @@ def _busy_us(intervals) -> float:
 
 
 def phase_profile(device, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
-                  gen_cfg=GENERATION, reps: int = 10):
+                  gen_cfg=GENERATION, serve_cfg=SERVE, reps: int = 10):
     """The main paths under ``torch.profiler``: for the headline render, the
-    fused mixture step, the RIR-bank render, and one generated mixture with
+    fused mixture step, the RIR-bank render, one generated mixture with
     the disk sink and with the device sink (where the port has
-    ``dataset``), ``reps`` calls after a warm-up."""
+    ``dataset``), and ConvTasNet's forward on 60 s in fp32 and on a batch
+    of 4 s crops in bf16 (where the port has ``models``), ``reps`` calls
+    after a warm-up."""
     tmp = Path(tempfile.mkdtemp())
     try:
-        _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, reps, tmp)
+        _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, reps, tmp)
     finally:
         shutil.rmtree(tmp)
+
+
+def _serving_paths(device, cfg, root: Path) -> dict:
+    """ConvTasNet's forward from phase 9's pack, on seeded noise: one 60 s
+    mixture in fp32, and ``cfg["batch"]`` crops of ``cfg["crop_s"]`` in
+    bf16."""
+    import torch
+
+    from sonicsim_tpu_torch.scripts.common import make_forward
+
+    _, model, _ = serving_models(device, cfg, root)
+    g = torch.Generator(device=device).manual_seed(cfg["seed"])
+    x60 = 0.1 * torch.randn((1, int(60 * SR)), generator=g, device=device)
+    xb = 0.1 * torch.randn((cfg["batch"], int(cfg["crop_s"] * SR)), generator=g, device=device)
+    fwd32, fwd16 = make_forward(model), make_forward(model, bf16=True)
+    return {"serve-fp32-60s": lambda: fwd32(x60), "serve-bf16-B16": lambda: fwd16(xb)}
 
 
 def _generation_paths(device, cfg, root: Path) -> dict:
@@ -1141,7 +1426,7 @@ def _generation_paths(device, cfg, root: Path) -> dict:
     }
 
 
-def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, reps, tmp):
+def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, reps, tmp):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1171,6 +1456,8 @@ def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, reps, tmp):
                                              out_device=True)
     if importlib.util.find_spec("sonicsim_tpu_torch.dataset"):
         paths.update(_generation_paths(device, gen_cfg, tmp))
+    if importlib.util.find_spec("sonicsim_tpu_torch.models"):
+        paths.update(_serving_paths(device, serve_cfg, tmp))
     report = {"port": sonicsim_tpu_torch.__file__}
     for name, fn in paths.items():
         fn()

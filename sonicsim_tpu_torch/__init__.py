@@ -2,8 +2,8 @@
 
 The port of ``sonicsim_tpu`` (JAX/XLA/Pallas), which stays the reference it
 is held against. This package imports neither jax nor ``sonicsim_tpu``.
-Ported so far: the moving-source render, the RIR-bank render and SonicSet
-generation end to end.
+Ported so far: the moving-source render, the RIR-bank render, SonicSet
+generation end to end, and ConvTasNet serving and evaluation.
 
 * ``ops`` — trajectory plans, FFT convolutions, BS.1770 loudness, levels,
   and the two Hopper kernels (``ops.kernels``, sources in ``csrc/``).
@@ -12,13 +12,23 @@ generation end to end.
   RIR-bank renderer, navigable space and scenes.
 * ``dataset`` — SonicSet generation: plans, dry-track assembly, the
   per-mixture render and ``generate_split``.
-* ``utils`` — WAV I/O, seeding, audio helpers, transcripts.
-* ``scripts`` — ``python -m sonicsim_tpu_torch.scripts.generate_sonicset``.
-* ``bridge`` — RIR banks, room and scene descriptions, mixture plans and
-  numpy state into the port.
+  The eval samplers (``dataset.sampler``) read generated splits.
+* ``models`` — ConvTasNet, the registry and checkpoints in the JAX
+  package's pack format (``from_pretrain``, ``save_model``).
+* ``infer`` — bf16 inference, segment stitching, the energy VAD.
+* ``losses`` and ``metrics`` — SI-SDR/SNR, PIT, BSS SDR, STOI, PESQ and
+  the ``MetricsTracker``.
+* ``utils`` — WAV I/O, seeding, audio helpers, transcripts, YAML configs.
+* ``scripts`` — ``python -m sonicsim_tpu_torch.scripts.<name>`` for
+  ``generate_sonicset``, ``inference``, ``audio_test``, ``test`` and
+  ``generate_fixed_eval``.
+* ``bridge`` — RIR banks, room and scene descriptions, mixture plans, model
+  weights and numpy state into the port.
 """
 
-from . import bridge, dataset, ops, parallel, sim, utils
+__version__ = "0.2.0"
+
+from . import bridge, dataset, infer, losses, metrics, models, ops, parallel, sim, utils
 from .bridge import load_rir_bank, to_torch
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
@@ -27,7 +37,11 @@ from .parallel import pad_moving_plans, render_mixture_sources
 __all__ = [
     "bridge",
     "dataset",
+    "infer",
     "load_rir_bank",
+    "losses",
+    "metrics",
+    "models",
     "ops",
     "pad_moving_plans",
     "parallel",

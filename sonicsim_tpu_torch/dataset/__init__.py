@@ -1,8 +1,9 @@
-"""SonicSet generation (port of the generation part of
-``sonicsim_tpu.dataset``): seeded plans, dry-track assembly on the host or
-on the device, the per-mixture render and the split loop. The training-data
-modules (datamodule, loader, remix, sampler) are not ported yet (ROADMAP
-A7)."""
+"""SonicSet generation and evaluation data (port of ``sonicsim_tpu.dataset``
+but its training modules): seeded plans, dry-track assembly on the host or
+on the device, the per-mixture render, the split loop, and the eval
+samplers that read a generated split. The training-data modules
+(datamodule, loader, remix, the training sampler) come with the training
+slice (ROADMAP A7)."""
 
 from .assemble import (
     assemble_long_audio,
@@ -37,6 +38,15 @@ from .plan import (
     scan_audio_lengths,
     select_files_to_fill,
 )
+from .sampler import (
+    MovingTestDataset,
+    MovingTestEvalDataset,
+    apply_sir,
+    apply_snr,
+    find_bottom_directories,
+    overlap_audio,
+    rms_db,
+)
 
 __all__ = [
     "ArtifactWriter",
@@ -46,17 +56,23 @@ __all__ = [
     "LUFS_SPEECH",
     "LongAudioPlan",
     "MixturePlan",
+    "MovingTestDataset",
+    "MovingTestEvalDataset",
     "Placement",
     "UtteranceCache",
+    "apply_sir",
+    "apply_snr",
     "assemble_long_audio",
     "assemble_plans_on_device",
     "dispatch_mixture",
     "finalize_mixture",
+    "find_bottom_directories",
     "generate_split",
     "load_length_manifest",
     "load_split_manifest",
     "looks_like_partial_mixture",
     "loudness_normalize_to",
+    "overlap_audio",
     "pack_tracks",
     "plan_background_audio",
     "plan_long_audio",
@@ -65,6 +81,7 @@ __all__ = [
     "render_mixture",
     "render_moving_source",
     "render_static_source",
+    "rms_db",
     "scan_audio_lengths",
     "select_files_to_fill",
 ]

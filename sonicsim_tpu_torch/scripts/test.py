@@ -1,0 +1,148 @@
+"""Benchmark evaluation of a materialised test tree, on the card or the CPU.
+
+  python -m sonicsim_tpu_torch.scripts.test --conf_dir CONFIG.yaml \\
+      [--model_path best_model.pkl] [--limit N] [--bf16] [--use_vad] \\
+      [--no_pesq] [--bucket SAMPLES] [--device cpu]
+
+Port of scripts/test.py (reference separation/test.py, enhancement/test.py):
+walks ``datas.test_dir`` (mix.wav + s{i}.wav per folder), segments each
+mixture by the start/end points its ``json_data.json`` records (or, with
+``--use_vad``, by the energy VAD), separates each span and scores it with
+the ``MetricsTracker`` into ``<exp.dir>/<exp.name>/results/metrics.csv``.
+``--vad_ckpt``, ``--dnsmos_dir``, ``--sigmos_path`` and ``--whisper`` wait
+for ROADMAP A10 and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..dataset.sampler import MovingTestDataset
+from ..infer import segment_mixture
+from ..metrics import MetricsTracker
+from ..models import from_pretrain
+from ..utils.config import load_config
+from .common import (
+    make_forward,
+    model_device,
+    pesq_columns,
+    refuse_unported,
+    strict_float32,
+)
+
+MIN_SEGMENT = 320  # samples; the reference skips shorter (separation/test.py:80)
+
+
+def metadata_segments(folder: str, total: int) -> list[tuple[int, int]]:
+    """Voice-active spans from json_data.json start_end_points (union over
+    sources), falling back to one full-length segment."""
+    meta_path = Path(folder) / "json_data.json"
+    if not meta_path.exists():
+        return [(0, total)]  # the caller may VAD instead (see --use_vad)
+    with open(meta_path) as f:
+        meta = json.load(f)
+    spans = []
+    for key, src in meta.items():
+        if key.startswith("source") and "start_end_points" in src:
+            spans.extend(tuple(p) for p in src["start_end_points"])
+    if not spans:
+        return [(0, total)]
+    spans.sort()
+    merged = [list(spans[0])]
+    for s, e in spans[1:]:
+        if s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return [(s, min(e, total)) for s, e in merged if e - s > MIN_SEGMENT]
+
+
+def evaluate_split(model, test_dir, save_file, sample_rate: int = 16000,
+                   num_spks: int = 2, limit: int | None = None, bf16: bool = False,
+                   use_vad: bool = False, extra_metrics: dict | None = None,
+                   bucket: int = 0) -> dict:
+    """The CLI's loop; returns what ``audio_test.evaluate_remix`` returns.
+    ``bucket`` > 0 zero-pads each span up to a multiple of ``bucket``
+    samples for the forward and cuts the estimate back (padding moves the
+    global norms' statistics slightly)."""
+    device = model_device(model)
+    fwd = make_forward(model, bf16)
+    ds = MovingTestDataset(speech_dir=str(test_dir), sample_rate=sample_rate,
+                           num_spks=num_spks, return_path=True)
+    tracker = MetricsTracker(save_file, extra_metrics=extra_metrics, device=device)
+    n = len(ds) if limit is None else min(limit, len(ds))
+    forward_s = metrics_s = 0.0
+    spans_done = 0
+    for i in range(n):
+        mix, targets, folder = ds[i]
+        spans = (segment_mixture(mix, ds.sample_rate) if use_vad
+                 else metadata_segments(folder, mix.shape[-1]))
+        for s, e in spans:
+            seg_mix = mix[s:e]
+            run_mix = seg_mix
+            if bucket:
+                padded = -((s - e) // bucket) * bucket
+                run_mix = np.pad(seg_mix, (0, padded - (e - s)))
+            t0 = time.perf_counter()
+            est = fwd(torch.from_numpy(np.ascontiguousarray(run_mix))[None].to(device))
+            est = est[0].cpu().numpy()[..., :e - s]
+            t1 = time.perf_counter()
+            tracker(seg_mix, targets[:, s:e], est, f"{Path(folder).name}:{s}")
+            forward_s += t1 - t0
+            metrics_s += time.perf_counter() - t1
+            spans_done += 1
+        print(f"[{i + 1}/{n}] {Path(folder).name} running={tracker.update()}", flush=True)
+    return dict(final=tracker.final(), csv=tracker.save_file, mixtures=n,
+                spans=spans_done, skipped_silent=tracker.skipped_silent,
+                forward_s=forward_s, metrics_s=metrics_s)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--conf_dir", required=True)
+    ap.add_argument("--model_path", default=None)
+    ap.add_argument("--limit", type=int, default=None)
+    ap.add_argument("--bf16", action="store_true", help="run the model in bfloat16")
+    ap.add_argument("--use_vad", action="store_true",
+                    help="segment with the energy VAD instead of json_data.json spans")
+    ap.add_argument("--dnsmos_dir", default=None, help="not ported: ROADMAP A10")
+    ap.add_argument("--sigmos_path", default=None, help="not ported: ROADMAP A10")
+    ap.add_argument("--no_pesq", action="store_true",
+                    help="drop the default pesq_nb/pesq_wb columns")
+    ap.add_argument("--whisper", default=None, metavar="MODEL_SIZE",
+                    help="not ported: ROADMAP A10")
+    ap.add_argument("--vad_ckpt", default=None, metavar="CKPT",
+                    help="not ported: ROADMAP A10")
+    ap.add_argument("--bucket", type=int, default=0, metavar="SAMPLES",
+                    help="zero-pad spans up to multiples of SAMPLES for the "
+                    "forward (default 0: exact lengths)")
+    ap.add_argument("--device", default=None,
+                    help="where the model and the SDRs run (default: the card; "
+                    "cpu for the CPU)")
+    args = ap.parse_args(argv)
+    refuse_unported(args, ("--vad_ckpt", "--dnsmos_dir", "--sigmos_path", "--whisper"))
+    strict_float32()
+
+    cfg = load_config(args.conf_dir)
+    exp_dir = Path(cfg["exp"]["dir"]) / cfg["exp"]["name"]
+    model = from_pretrain(args.model_path or exp_dir / "best_model.pkl", device=args.device)
+    result = evaluate_split(
+        model, cfg["datas"]["test_dir"], exp_dir / "results" / "metrics.csv",
+        sample_rate=int(cfg["datas"].get("sample_rate", 16000)),
+        num_spks=int(cfg["datas"].get("num_spks", 2)), limit=args.limit,
+        bf16=args.bf16, use_vad=args.use_vad,
+        extra_metrics=None if args.no_pesq else pesq_columns(), bucket=args.bucket)
+    print("final:", result["final"])
+    print(f"{result['spans']} spans of {result['mixtures']} mixtures: forward "
+          f"{result['forward_s']:.3f} s, metrics {result['metrics_s']:.3f} s")
+    return result
+
+
+if __name__ == "__main__":
+    main()

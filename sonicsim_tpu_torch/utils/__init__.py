@@ -1,5 +1,6 @@
-"""Host helpers of SonicSet generation: WAV I/O, seeding, audio and list
-helpers, transcripts (port of the generation part of ``sonicsim_tpu.utils``)."""
+"""Host helpers: WAV I/O, seeding, audio and list helpers, transcripts, the
+component registry and the YAML config system (port of
+``sonicsim_tpu.utils``)."""
 
 from .audio import (
     all_pairs,
@@ -12,14 +13,20 @@ from .audio import (
     pcm16_quantize,
     sum_arrays_with_different_length,
 )
+from .config import import_target, instantiate, load_config, save_config
+from .registry import Registry
 from .seeding import stable_seed
 from .transcripts import load_transcripts, process_librispeech
 from .wavio import read_wav, resample, wav_num_frames, write_wav
 
 __all__ = [
+    "Registry",
     "all_pairs",
     "clip_all",
     "clip_two",
+    "import_target",
+    "instantiate",
+    "load_config",
     "load_transcripts",
     "make_pad_mask",
     "normalize",
@@ -29,6 +36,7 @@ __all__ = [
     "process_librispeech",
     "read_wav",
     "resample",
+    "save_config",
     "stable_seed",
     "sum_arrays_with_different_length",
     "wav_num_frames",

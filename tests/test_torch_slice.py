@@ -163,7 +163,9 @@ def test_rendered_bank_to_mixture_slice():
 def test_port_imports_no_jax(tmp_path):
     """Importing the port and its ``sim`` subpackage, and running a small
     bank render, moving render, mixture step and ``generate_split`` on the
-    CPU, loads neither jax nor the JAX package."""
+    CPU, then the serving CLIs (``audio_test`` over the generated split and
+    ``inference`` on one of its tracks) from the repo's ConvTasNet YAML
+    config with ``--device cpu``, loads neither jax nor the JAX package."""
     code = """
 import sys
 import numpy as np
@@ -206,6 +208,23 @@ produced = generate_split(
     ["r"], dirs[:3], scan_audio_lengths(dirs[3]), scan_audio_lengths(dirs[4]),
     root / "out", duration=1.0)
 assert len(produced) == 1 and (produced[0] / "json_data.json").exists()
+
+from sonicsim_tpu_torch.models import save_model
+from sonicsim_tpu_torch.scripts import audio_test, inference
+from sonicsim_tpu_torch.utils import instantiate, load_config, save_config
+
+cfg = load_config("configs/separation/convtasnet.yaml")
+cfg["model"].update(N=16, L=16, B=8, H=16, X=1, R=1)
+cfg["exp"] = {"dir": str(root / "exp"), "name": "ctn"}
+cfg["datas"]["test_dir"] = str(root / "out")
+save_model(instantiate(cfg["model"], device="cpu"), root / "exp" / "ctn" / "best_model.pkl")
+save_config(cfg, root / "cfg.yaml")
+res = audio_test.main(["--conf_dir", str(root / "cfg.yaml"), "--device", "cpu"])
+assert res["spans"] == 1 and np.isfinite(res["final"]["si-snr"]), res
+inference.main(["--model_path", str(root / "exp" / "ctn" / "best_model.pkl"), "--mix",
+                str(produced[0] / "moving_audio_1.wav"), "--out_dir", str(root / "sep"),
+                "--device", "cpu"])
+assert (root / "sep" / "s2_est.wav").exists()
 loaded =sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "sonicsim_tpu"))
 assert not loaded, loaded
 print("ok")
@@ -213,7 +232,7 @@ print("ok")
     r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "ok"
+    assert r.stdout.strip().splitlines()[-1] == "ok"  # the CLIs print before it
 
 
 def test_port_sources_never_import_jax():
