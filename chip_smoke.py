@@ -59,7 +59,23 @@ Phases, one line each:
    metadata spans, with the default columns and PESQ, its wall split into
    forward and tracker time and ``metrics.csv``'s avg/std rows; the tracker
    on the card against the CPU on one segment. Serving launches neither
-   kernel.
+   kernel;
+10. ConvTasNet training at the same width from phase 9's seeded weights,
+    with the config's Adam, clip and PIT neg-SNR loss: the train step's time
+    (CUDA-event median of 10 after 3), audio-s/s and peak extra memory in
+    fp32 and bf16 on B=8 x 4 s crops of phase 8's split; one fp32 step on
+    B=2 x 1 s against the CPU (loss and the clipped gradients); bf16
+    against fp32 over 6 steps on one batch (both losses fall, the first
+    within the JAX package's bound); a 2-epoch fit over phase 8's split
+    through the train CLI's path (8 samples of 4 s, batch 2, val on the
+    split's fixed remix), resumed for a third epoch, its artifacts checked
+    and its checkpoints read back by ``from_pretrain`` bit-equal to the
+    trained model; seconds per epoch. Training launches neither kernel.
+
+Phase 6 also prints, for the source of the bank's largest error against
+the CPU, where the two sides' renders part op by op and the image delays
+near that error (ROADMAP C9); ``--trace-dir DIR`` writes the whole trace
+to ``DIR/c9_*.json``.
 
 Then a JSON line of the kernels' numbers, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -71,8 +87,9 @@ main path (``torch.profiler``): wall and device-busy time per call, device
 ops per call, the top device ops and the peak device memory, of the headline
 render, the fused mixture step, the RIR-bank render (with the share of
 its device time in the placement product, ``aten::bmm``), one generated
-60 s mixture with the disk sink and one with the device sink, and
-ConvTasNet's forward (``serve-fp32-60s``, ``serve-bf16-B16``).
+60 s mixture with the disk sink and one with the device sink,
+ConvTasNet's forward (``serve-fp32-60s``, ``serve-bf16-B16``) and its
+train step (``train-fp32-B8``, ``train-bf16-B8``).
 ``--port-root`` measures the port found under another checkout, so two
 commits compare in one run on one card.
 """
@@ -113,6 +130,7 @@ BANK_MIXTURE = dict(duration=60.0, iters=3, speech_lufs=(-17.0, -17.0, -17.0),
 # The bank on the card vs the same port function on the CPU: the JAX
 # package's bank-vs-serial tolerance (tests/test_bank_render.py:51).
 BANK_ATOL, BANK_RTOL = 5e-5, 1e-3  # atol is a fraction of the peak
+C9_WINDOW, C9_PRINT = 128, 48  # samples around the bank's largest error; rows printed
 RAMP_ATOL = 1e-6  # expected 0: each op rounded as in the plain version
 # Generation end to end (phase 8): SonicSet's widths, a synthetic corpus of
 # LibriSpeech-, FSD50K- and FMA-like lengths.
@@ -131,6 +149,15 @@ SERVE = dict(model=dict(N=512, L=32, B=128, H=512, P=3, X=8, R=3, norm="gLN",
 SERVE_REL = 1e-4  # float32 on the card vs the port on the CPU, of max|ref|
 BF16_REL_L2 = 0.05  # bf16 vs float32 (tests/test_metrics_infer.py's bound)
 SISNR_DB, SDR_DB = 1e-3, 1e-2  # the tracker on the card vs on the CPU
+# Phase 10: ConvTasNet training at the same width, the config's optimizer,
+# clip and loss (configs/separation/convtasnet.yaml), phase 9's seeded
+# weights; the step timed at B=8 x 4 s (BENCH_CLEAN_r05.json's "training
+# step" lines), checked on B=2 x 1 s; a short fit over phase 8's split.
+TRAIN = dict(seed=0, lr=1e-3, clip=5.0, batch=8, crop_s=4.0, reps=10, warmup=3,
+             check_batch=2, check_s=1.0, bf16_steps=6, fit_samples=8, fit_batch=2,
+             fit_epochs=2)
+TRAIN_LOSS_REL = 1e-5  # one float32 step, the card vs the CPU
+TRAIN_GRAD_REL = 1e-4  # of max|g_cpu|: the clipped gradients Adam takes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -212,13 +239,18 @@ def phase_env():
     info = Path("/proc/cpuinfo")
     lines = info.read_text().splitlines() if info.exists() else []
     cpu = next((ln.split(":", 1)[1].strip() for ln in lines if ln.startswith("vendor_id")), "?")
+    # ROADMAP C9: what could switch float32 matmuls to a reduced precision.
+    knobs = {k: v for k, v in os.environ.items()
+             if k.startswith(("TORCH", "NVIDIA_TF32", "CUBLAS", "CUDNN"))}
+    model = next((ln.split(":", 1)[1].strip() for ln in lines if ln.startswith("model name")), "?")
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} triton {triton_v} "
           f"nvcc-on-PATH {shutil.which('nvcc')} nvcc {nvcc} "
           f"({nvcc_v[-1] if nvcc_v else '?'}) device {props} "
           f"count {torch.cuda.device_count()} nvidia-smi {nv_version} host CPU {cpu} "
-          f"{os.cpu_count()} cores, torch CPU capability "
-          f"{torch.backends.cpu.get_cpu_capability()}", flush=True)
+          f"({model}) {os.cpu_count()} cores, torch CPU capability "
+          f"{torch.backends.cpu.get_cpu_capability()}, float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()}, environment {knobs}", flush=True)
     return torch.device("cuda", 0), smi
 
 
@@ -644,7 +676,8 @@ def bank_scene(cfg, walls: bool = False, device=None):
 def _bank_vs_cpu(oracle, channel, srcs, mic):
     """The first sources' items rendered on the oracle's device and on the
     CPU by the same port function, un-normalised: (max abs err, peak, excess
-    over BANK_ATOL·peak + BANK_RTOL·|cpu|)."""
+    over BANK_ATOL·peak + BANK_RTOL·|cpu|, (source, channel, sample) of the
+    max abs err)."""
     from sonicsim_tpu_torch.sim import render_bank_batched
 
     got = render_bank_batched(oracle, srcs, mic, channel, peak_normalize=False)
@@ -653,10 +686,126 @@ def _bank_vs_cpu(oracle, channel, srcs, mic):
     peak = float(np.abs(ref).max())
     err = np.abs(got - ref)
     excess = float((err - BANK_ATOL * peak - BANK_RTOL * np.abs(ref)).max())
-    return float(err.max()), peak, excess
+    s, _, c, n = np.unravel_index(int(np.argmax(err)), err.shape)
+    return float(err.max()), peak, excess, (int(s), int(c), int(n))
 
 
-def phase_bank(device, cfg):
+def _op_trace():
+    """A ``TorchFunctionMode`` that keeps, in ``.ops``, a CPU copy of every
+    tensor each torch call returns, in call order (ROADMAP C9: the same
+    Python code on two devices calls the same ops in the same order, so op
+    i of one run pairs with op i of the other)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class OpTrace(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.ops.append((getattr(func, "__name__", repr(func)),
+                                     t.detach().to("cpu", copy=True)))
+            return out
+
+    return OpTrace()
+
+
+def _bank_parting(oracle, channel, srcs, mic, where, label: str, trace_dir) -> None:
+    """ROADMAP C9: the items of the source of the largest device-vs-CPU
+    error, rendered again on both sides under :func:`_op_trace`, op by op:
+    the first op whose integer or boolean output parts between the two
+    sides, and the first float op off by more than 1e-5 of its magnitude;
+    and the image delays within ±C9_WINDOW samples of the error
+    (``delays_s·fs``, its floor, ``valid``, the tap block of
+    ``image_source.tap_grid``; the nearest C9_PRINT and every one that
+    parts). Prints one line; with ``trace_dir``, writes the whole trace
+    and window to ``trace_dir/c9_<label>.json``."""
+    import torch
+
+    from sonicsim_tpu_torch.sim import bank_render
+    from sonicsim_tpu_torch.sim.image_source import tap_grid
+
+    s, c, n = where
+    room = bank_render._bank_params(oracle)
+    flat = bank_render._flatten_items(oracle, [srcs[s]], mic, channel, [90.0] * len(mic))
+    traces, delays = {}, {}
+    for side, dev in (("device", bank_render._device(oracle, None)), ("cpu", torch.device("cpu"))):
+        items = {k: torch.tensor(v, device=dev) for k, v in zip(
+            ("srcs", "recvs", "normals", "chan_idx", "seeds"), flat)}
+        items["chan_idx"], items["seeds"] = items["chan_idx"].long(), items["seeds"].long()
+        with bank_render._full_float32():
+            with _op_trace() as mode:
+                bank_render._render_core(
+                    items, room, n_bands=oracle.n_bands, channel_type=channel.channel_type,
+                    channel_order=channel.channel_order, max_order=oracle.max_order,
+                    sample_rate=oracle.sample_rate,
+                    diffraction=bool(getattr(oracle.room, "diffraction", True)))
+            delays_s, _, _, valid = bank_render._device_geometry(
+                torch.tensor(room.dims, device=dev), items["srcs"], items["recvs"],
+                oracle.max_order, room.ir_seconds)
+            d = (delays_s[c] * oracle.sample_rate).cpu()
+        traces[side] = mode.ops
+        delays[side] = dict(d=d, floor=torch.floor(d), valid=valid[c].cpu(), blk=tap_grid(d)[1])
+    rows, first_int, first_float = [], None, None
+    for i, ((name, a), (name_c, b)) in enumerate(zip(traces["device"], traces["cpu"])):
+        row = {"op": i, "name": name, "dtype": str(b.dtype), "shape": list(b.shape)}
+        rows.append(row)
+        if name != name_c or a.shape != b.shape or a.dtype != b.dtype:
+            row["diverged"] = [name_c, list(a.shape), str(a.dtype)]
+            break
+        if b.is_floating_point() or b.is_complex():
+            err = float((a - b).abs().max()) if b.numel() else 0.0
+            ref = float(b.abs().max()) if b.numel() else 0.0
+            row["max_abs_err"], row["max_abs"] = err, ref
+            if first_float is None and err > 1e-5 * max(ref, 1e-30):
+                first_float = row
+        else:
+            row["n_diff"] = int((a != b).sum())
+            if row["n_diff"] and first_int is None:
+                first_int = row
+                row["where"] = torch.nonzero(a != b)[:8].tolist()
+
+    dv, cp = delays["device"], delays["cpu"]
+    near = (cp["d"] - n).abs()
+    win = sorted(torch.nonzero(near <= C9_WINDOW)[:, 0].tolist(), key=lambda i: float(near[i]))
+    keys = ("floor", "valid", "blk")
+    window = [{"image": i, **{side: [float(v["d"][i])] + [int(v[k][i]) for k in keys]
+                              for side, v in delays.items()}} for i in win]
+    parts = {k: int((dv[k] != cp[k]).sum()) for k in keys}
+    if trace_dir is not None:
+        Path(trace_dir).mkdir(parents=True, exist_ok=True)
+        (Path(trace_dir) / f"c9_{label}.json").write_text(json.dumps(
+            {"label": label, "source": s, "channel": c, "sample": n, "ops": rows,
+             "window_columns": "d = delays_s*fs, floor(d), valid, block", "window": window}))
+    # The window's images, nearest first (every one where the sides part):
+    # image:d_cpu:d_device-d_cpu:floor:valid:block, or both sides' values.
+    shown = []
+    for row in window:
+        a, b = row["device"], row["cpu"]
+        if a[1:] != b[1:]:
+            shown.append(f"{row['image']}:device{a}:cpu{b}")
+        elif len(shown) < C9_PRINT:
+            shown.append(f"{row['image']}:{b[0]:.3f}:{a[0] - b[0]:+.2g}:{b[1]}:{b[2]}:{b[3]}")
+    off = " ".join(f"{r['op']}:{r['name']}:{r['max_abs_err'] / r['max_abs']:.2g}"
+                   for r in rows if r.get("max_abs_err", 0.0) > 1e-4 * r.get("max_abs", 0.0))
+    print(f"bank[C9 {label}]: largest error at source {s}, channel {c}, sample {n}; "
+          f"{len(rows)} ops traced on both sides (the render's output max abs err "
+          f"{rows[-1].get('max_abs_err')}); first integer/mask op that parts: "
+          f"{json.dumps(first_int)}; first float op off by > 1e-5 of its magnitude: "
+          f"{json.dumps(first_float)}; float ops off by > 1e-4 of their magnitude (op:name:"
+          f"rel): {off}; image delays d = delays_s·fs of channel {c}: floor "
+          f"parts at {parts['floor']}, valid at {parts['valid']}, block at {parts['blk']} "
+          f"of {dv['d'].numel()}, max |d_device - d_cpu| "
+          f"{float((dv['d'] - cp['d']).abs().max()):.3g} samples; {len(win)} within "
+          f"±{C9_WINDOW} samples of the error (image:d:Δd:floor:valid:block): "
+          f"{' '.join(shown)}", flush=True)
+
+
+def phase_bank(device, cfg, trace_dir=None):
     """The RIR-bank render at bench_all.py's shapes: 3 banks x 40 waypoints,
     one binaural receiver, 32 bands, order 4. Returns the three banks and
     their waypoints, and a 2-source static bank, all on the device."""
@@ -704,7 +853,8 @@ def phase_bank(device, cfg):
               f"bank shape {tuple(b.shape)}")
         check(bool(torch.isfinite(b).all()), "bank not finite")
         check(abs(float(b.abs().max()) - 1.0) <= 1e-6, "bank peak is not 1")
-    err, peak, excess = _bank_vs_cpu(oracle, channel, ways[0][:cfg["n_check"]], mic)
+    err, peak, excess, where = _bank_vs_cpu(oracle, channel, ways[0][:cfg["n_check"]], mic)
+    _bank_parting(oracle, channel, ways[0][:cfg["n_check"]], mic, where, "room", trace_dir)
     check(excess <= 0.0, f"bank on the device vs the CPU: max abs err {err} "
           f"(peak {peak}, atol {BANK_ATOL}·peak, rtol {BANK_RTOL})")
     print(f"bank: {nb} banks x {n} waypoints x {channel.count} ch = "
@@ -727,8 +877,10 @@ def phase_bank(device, cfg):
                               out_device=True)[0]
     check(bool(torch.isfinite(w_bank).all()), "per-wall bank not finite")
     check(abs(float(w_bank.abs().max()) - 1.0) <= 1e-6, "per-wall bank peak is not 1")
-    w_err, w_peak, w_excess = _bank_vs_cpu(w_oracle, w_channel,
-                                           ways[0][:cfg["n_check"]], mic)
+    w_err, w_peak, w_excess, w_where = _bank_vs_cpu(w_oracle, w_channel,
+                                                    ways[0][:cfg["n_check"]], mic)
+    _bank_parting(w_oracle, w_channel, ways[0][:cfg["n_check"]], mic, w_where, "per-wall",
+                  trace_dir)
     check(w_excess <= 0.0, f"per-wall bank on the device vs the CPU: max abs "
           f"err {w_err} (peak {w_peak})")
     print(f"bank[per-wall materials]: r={r_amp}, Q={q_tail}, ir_len "
@@ -1285,8 +1437,173 @@ def phase_serving(device, cfg, folders, root: Path, smi) -> None:
           f"(tol {SDR_DB})", flush=True)
 
 
+def _training_config(model_cfg, cfg, split: Path, val: Path, exp: Path) -> dict:
+    """configs/separation/convtasnet.yaml as a dict (the card's host may
+    have no pyyaml), over phase 8's split, cut to ``cfg``'s samples, batch
+    and epochs."""
+    def pit(sdr_type):
+        return {"_target_": "sonicsim_tpu.losses.PITLossWrapper",
+                "loss_func": {"_target_": "sonicsim_tpu.losses.PairwiseNegSDR",
+                              "sdr_type": sdr_type},
+                "pit_from": "pw_mtx", "threshold_byloss": False}
+
+    return {
+        "exp": {"dir": str(exp), "name": "Conv-TasNet"},
+        "datas": {"_target_": "sonicsim_tpu.dataset.MovingDataModule", "train_dir": str(split),
+                  "val_dir": str(val), "test_dir": str(val), "num_spks": 2, "sample_rate": SR,
+                  "num_samples": cfg["fit_samples"], "duration": cfg["crop_s"],
+                  "batch_size": cfg["fit_batch"], "is_mono": True, "noise_type": "noise",
+                  "seed": cfg["seed"]},
+        "model": {"_target_": "sonicsim_tpu.models.ConvTasNet", **model_cfg},
+        "optimizer": {"lr": cfg["lr"], "weight_decay": 0.0},
+        "scheduler": {"patience": 10, "factor": 0.5},
+        "loss": pit("snr"),
+        "metrics": pit("sisdr"),
+        "early_stopping": {"patience": 20},
+        "checkpoint": {"save_top_k": 5},
+        "trainer": {"max_epochs": cfg["fit_epochs"], "gradient_clip_val": cfg["clip"]},
+    }
+
+
+def phase_training(device, cfg, model_cfg, folders, root: Path, smi) -> None:
+    """Phase 10: ConvTasNet training on the device. The train step's time
+    and peak extra memory in fp32 and bf16; one fp32 step against the CPU;
+    bf16 against fp32 over a few steps; a short fit over phase 8's split
+    through the train CLI's path, resumed for one more epoch, and its
+    ``best_model.pkl`` read back by ``from_pretrain``."""
+    import torch
+
+    from sonicsim_tpu_torch import bridge
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
+    from sonicsim_tpu_torch.models import ConvTasNet, from_pretrain
+    from sonicsim_tpu_torch.scripts import generate_fixed_eval
+    from sonicsim_tpu_torch.scripts.train import train_from_config
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+    from sonicsim_tpu_torch.utils import wav_num_frames
+
+    root.mkdir()
+    split = folders[0].parent.parent
+    weights = bridge.convtasnet_state_dict(seeded_convtasnet(model_cfg, cfg["seed"]))
+    loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), pit_from="pw_mtx", threshold_byloss=False)
+
+    def fresh(dev, precision="f32"):
+        model = ConvTasNet(**model_cfg, device=dev)
+        model.load_state_dict(weights)
+        opt = make_optimizer(model.parameters(), cfg["lr"])
+        return model, make_train_step(model, loss_fn, opt, precision, clip_norm=cfg["clip"])
+
+    t_crop = int(cfg["crop_s"] * SR)
+    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                          duration=cfg["crop_s"], num_samples=cfg["batch"],
+                          batch_size=cfg["batch"], seed=cfg["seed"])
+    mix, tgt = next(iter(dm.train_batches(0)))
+    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
+    check(tuple(y.shape) == (cfg["batch"], 2, t_crop), f"train batch {tuple(y.shape)}")
+    audio_s = cfg["batch"] * cfg["crop_s"]
+    stats = {}
+    for precision in ("f32", "bf16"):
+        _, step = fresh(device, precision)
+        check(bool(torch.isfinite(step(x, y))), f"{precision} step: loss not finite")
+        ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
+                       warmup=cfg["warmup"])
+        stats[precision] = (ms, audio_s / (ms / 1e3), _peak_mib(device, lambda step=step: step(x, y)))
+
+    # One fp32 step, the device against the CPU, from the same weights and
+    # batch. Parameters after it are not compared: at step 1 Adam moves each
+    # by lr·g/(|g| + eps), so a near-zero gradient whose sign differs between
+    # the two sides moves its parameter by up to 2·lr.
+    n_chk = int(cfg["check_s"] * SR)
+    xc, yc = (torch.from_numpy(a[:cfg["check_batch"], ..., :n_chk].copy()) for a in (mix, tgt))
+    sides = {}
+    for side, dev in (("device", device), ("cpu", torch.device("cpu"))):
+        model, step = fresh(dev)
+        t0 = time.perf_counter()
+        loss = float(step(xc.to(dev), yc.to(dev)))
+        sides[side] = (loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
+                       time.perf_counter() - t0)
+    (l_dev, g_dev, _), (l_cpu, g_cpu, cpu_s) = sides["device"], sides["cpu"]
+    g_max = max(float(g.abs().max()) for g in g_cpu.values())
+    g_err = max(float((g_dev[n] - g).abs().max()) for n, g in g_cpu.items())
+    l_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    check(l_rel <= TRAIN_LOSS_REL and g_err <= TRAIN_GRAD_REL * g_max,
+          f"fp32 step on the device vs the CPU: loss {l_dev} vs {l_cpu} (rel {l_rel}), "
+          f"gradients max abs err {g_err} of max|g| {g_max}")
+
+    # bf16 against fp32: the same weights, a few steps each on one batch.
+    traces = {}
+    for precision in ("f32", "bf16"):
+        model, step = fresh(device, precision)
+        traces[precision] = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
+        check(all(p.dtype == torch.float32 for p in model.parameters()),
+              f"{precision}: master weights are not float32")
+    f32, bf16 = traces["f32"], traces["bf16"]
+    check(all(np.isfinite(t).all() and t[-1] < t[0] for t in (f32, bf16)),
+          f"the loss did not fall: fp32 {f32}, bf16 {bf16}")
+    check(abs(bf16[0] - f32[0]) < 0.1 * abs(f32[0]) + 0.5,
+          f"first bf16 loss {bf16[0]} vs fp32 {f32[0]} (tests/test_train.py's bound)")
+    print(f"training: ConvTasNet N={model_cfg['N']} X={model_cfg['X']} R={model_cfg['R']}, "
+          f"Adam lr {cfg['lr']}, optax clip {cfg['clip']}, PIT neg-SNR, B={cfg['batch']} x "
+          f"{cfg['crop_s']:g} s from phase 8's split: "
+          + " | ".join(f"{k}: {v[0]:.4f} ms/step = {v[1]:.1f} audio-s/s, peak extra memory "
+                       f"{v[2] if v[2] is None else round(v[2], 1)} MiB" for k, v in stats.items())
+          + f" (CUDA-event median of {cfg['reps']} after {cfg['warmup']}); fp32 step on "
+          f"B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU ({cpu_s:.3f} s there): "
+          f"loss rel {l_rel:.3g} (tol {TRAIN_LOSS_REL}), gradients max abs err {g_err:.3g} of "
+          f"max|g| {g_max:.3g} (tol {TRAIN_GRAD_REL}·max|g|); {cfg['bf16_steps']} steps fp32 "
+          f"{[round(v, 4) for v in f32]}, bf16 {[round(v, 4) for v in bf16]}; {smi}", flush=True)
+
+    # A short fit over phase 8's split: val on its fixed remix
+    # (scripts.generate_fixed_eval), then one more epoch from the resume point.
+    val = generate_fixed_eval.main(["--in_dir", str(split), "--out_dir", str(root / "val"),
+                                    "--seed", str(cfg["seed"]), "--device", str(device)])
+    conf = _training_config(model_cfg, cfg, split, val, root / "exp")
+    exp = root / "exp" / "Conv-TasNet"
+    train_from_config(conf, device)
+    records = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()]
+    want = list(range(-1, cfg["fit_epochs"]))
+    check([r["epoch"] for r in records] == want, f"metrics.jsonl epochs {records}")
+    check(all(np.isfinite(r["val_loss"]) for r in records), f"val losses {records}")
+    check({"meta.json", "state.pt"} <= {p.name for p in (exp / "checkpoints" / "last").iterdir()},
+          "no resume point")
+    resumed = train_from_config(conf, device, max_epochs=cfg["fit_epochs"] + 1, resume=True)
+    after = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()]
+    check([r["epoch"] for r in after] == want + [cfg["fit_epochs"]]
+          and [r["epoch"] for r in resumed.history] == want + [cfg["fit_epochs"]],
+          f"the resumed fit did not pick up at epoch {cfg['fit_epochs']}: {after}")
+    top = json.loads((exp / "best_k_models.json").read_text())
+    best = min(top, key=top.get)
+    check((exp / "best_model.pkl").read_bytes() == Path(best).read_bytes(),
+          "best_model.pkl is not the best top-k checkpoint")
+    last = [p for p in top if Path(p).name.startswith(f"epoch={cfg['fit_epochs']}-")]
+    check(len(last) == 1, f"the last epoch's checkpoint is not in the top-k: {top}")
+    # The pack of the epoch whose weights the trainer holds, read back on the
+    # device, against the trainer's model: bit-equal; and best_model.pkl
+    # against it where the last epoch is the best.
+    xv = x[:2]
+    with torch.inference_mode():
+        want_out = resumed.model.eval()(xv)
+        packs = {"last epoch": last[0]} | ({"best_model.pkl": str(exp / "best_model.pkl")}
+                                           if best == last[0] else {})
+        for name, path in packs.items():
+            check(torch.equal(from_pretrain(path, device=device)(xv), want_out),
+                  f"from_pretrain({name}) is not bit-equal to the trained model")
+    val_s = [wav_num_frames(d / "mix.wav") / SR for d in sorted(val.iterdir())]
+    print(f"training[fit]: {cfg['fit_samples']} samples x {cfg['crop_s']:g} s per epoch, batch "
+          f"{cfg['fit_batch']}, val on the split's fixed remix ({len(val_s)} x {max(val_s):g} s, "
+          f"{cfg['crop_s']:g} s crops), TF32 off: s/epoch "
+          f"{[round(r['seconds'], 3) for r in after]} (epochs {[r['epoch'] for r in after]}, -1 the "
+          f"baseline val, {cfg['fit_epochs']} resumed), train loss "
+          f"{[round(r['train_loss'], 4) for r in after if 'train_loss' in r]}, val neg-SI-SDR "
+          f"{[round(r['val_loss'], 4) for r in after]}; metrics.jsonl, top-k ({len(top)}), "
+          f"best_model.pkl = {Path(best).name}; the resume picked up at epoch "
+          f"{cfg['fit_epochs']}; from_pretrain bit-equal to the trained model for "
+          f"{list(packs)}", flush=True)
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
-        bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE) -> None:
+        bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
+        train_cfg=TRAIN, trace_dir=None) -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     head = headline_plan(head_cfg)
@@ -1302,7 +1619,7 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     kernels.reset_launch_counts()
     phase_mixture(device, mix, mix_cfg)
     counts["mixture"] = dict(kernels.LAUNCHES)
-    banks, ways, static = phase_bank(device, bank_cfg)
+    banks, ways, static = phase_bank(device, bank_cfg, trace_dir)
     kernels.reset_launch_counts()
     phase_bank_mixture(device, banks, ways, static, bank_mix_cfg)
     counts["bank->mixture"] = dict(kernels.LAUNCHES)
@@ -1315,7 +1632,12 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         kernels.reset_launch_counts()
         phase_serving(device, serve_cfg, runs["disk"]["produced"], Path(tmp) / "serve", smi)
         serving = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        phase_training(device, train_cfg, serve_cfg["model"], runs["disk"]["produced"],
+                       Path(tmp) / "train", smi)
+        training = dict(kernels.LAUNCHES)
     check(not any(serving.values()), f"serving launched a kernel: {serving}")
+    check(not any(training.values()), f"training launched a kernel: {training}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
     if device.type == "cuda":
@@ -1328,8 +1650,8 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     print(f"launches on the main paths: {counts} (the select form is off "
           f"the main paths; the bank render has no kernel of its own; "
           f"generation takes the fused form alone); serving (phase 9) launches "
-          f"neither kernel: {serving} (ConvTasNet has no Pallas counterpart)",
-          flush=True)
+          f"neither kernel: {serving}, nor does training (phase 10): {training} "
+          f"(ConvTasNet has no Pallas counterpart)", flush=True)
 
     report = {"kernels": [
         {
@@ -1371,16 +1693,18 @@ def _busy_us(intervals) -> float:
 
 
 def phase_profile(device, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
-                  gen_cfg=GENERATION, serve_cfg=SERVE, reps: int = 10):
+                  gen_cfg=GENERATION, serve_cfg=SERVE, train_cfg=TRAIN, reps: int = 10):
     """The main paths under ``torch.profiler``: for the headline render, the
     fused mixture step, the RIR-bank render, one generated mixture with
     the disk sink and with the device sink (where the port has
-    ``dataset``), and ConvTasNet's forward on 60 s in fp32 and on a batch
-    of 4 s crops in bf16 (where the port has ``models``), ``reps`` calls
-    after a warm-up."""
+    ``dataset``), ConvTasNet's forward on 60 s in fp32 and on a batch of
+    4 s crops in bf16 (where the port has ``models``), and its train step
+    in fp32 and bf16 (where it has ``train``), ``reps`` calls after a
+    warm-up."""
     tmp = Path(tempfile.mkdtemp())
     try:
-        _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, reps, tmp)
+        _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg,
+                       reps, tmp)
     finally:
         shutil.rmtree(tmp)
 
@@ -1399,6 +1723,33 @@ def _serving_paths(device, cfg, root: Path) -> dict:
     xb = 0.1 * torch.randn((cfg["batch"], int(cfg["crop_s"] * SR)), generator=g, device=device)
     fwd32, fwd16 = make_forward(model), make_forward(model, bf16=True)
     return {"serve-fp32-60s": lambda: fwd32(x60), "serve-bf16-B16": lambda: fwd16(xb)}
+
+
+def _training_paths(device, cfg, model_cfg) -> dict:
+    """One full-width train step (phase 10's seeded weights, optimizer,
+    clip and loss) on B=``cfg["batch"]`` seeded-noise crops of
+    ``cfg["crop_s"]``, in fp32 and in bf16."""
+    import torch
+
+    from sonicsim_tpu_torch import bridge
+    from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
+    from sonicsim_tpu_torch.models import ConvTasNet
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+
+    weights = bridge.convtasnet_state_dict(seeded_convtasnet(model_cfg, cfg["seed"]))
+    loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), threshold_byloss=False)
+    g = torch.Generator(device=device).manual_seed(cfg["seed"])
+    n = int(cfg["crop_s"] * SR)
+    x = 0.1 * torch.randn((cfg["batch"], n), generator=g, device=device)
+    y = 0.1 * torch.randn((cfg["batch"], 2, n), generator=g, device=device)
+    paths = {}
+    for precision in ("fp32", "bf16"):
+        model = ConvTasNet(**model_cfg, device=device)
+        model.load_state_dict(weights)
+        step = make_train_step(model, loss_fn, make_optimizer(model.parameters(), cfg["lr"]),
+                               "f32" if precision == "fp32" else "bf16", cfg["clip"])
+        paths[f"train-{precision}-B{cfg['batch']}"] = lambda step=step: step(x, y)
+    return paths
 
 
 def _generation_paths(device, cfg, root: Path) -> dict:
@@ -1426,7 +1777,8 @@ def _generation_paths(device, cfg, root: Path) -> dict:
     }
 
 
-def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, reps, tmp):
+def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg, reps,
+                   tmp):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1458,6 +1810,8 @@ def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, reps
         paths.update(_generation_paths(device, gen_cfg, tmp))
     if importlib.util.find_spec("sonicsim_tpu_torch.models"):
         paths.update(_serving_paths(device, serve_cfg, tmp))
+    if importlib.util.find_spec("sonicsim_tpu_torch.train"):
+        paths.update(_training_paths(device, train_cfg, serve_cfg["model"]))
     report = {"port": sonicsim_tpu_torch.__file__}
     for name, fn in paths.items():
         fn()
@@ -1516,6 +1870,8 @@ def main() -> int:
                     help="profile the main path instead of the smoke phases")
     ap.add_argument("--port-root", default=None,
                     help="import sonicsim_tpu_torch from this checkout")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write phase 6's op-by-op trace of the bank (ROADMAP C9) here")
     args = ap.parse_args()
     if args.port_root:
         sys.path.insert(0, args.port_root)
@@ -1531,7 +1887,7 @@ def main() -> int:
             phase_profile(device)
             print(smi, flush=True)
         else:
-            run(device, smi)
+            run(device, smi, trace_dir=args.trace_dir)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,9 +1,9 @@
-"""SonicSet generation and evaluation data (port of ``sonicsim_tpu.dataset``
-but its training modules): seeded plans, dry-track assembly on the host or
-on the device, the per-mixture render, the split loop, and the eval
-samplers that read a generated split. The training-data modules
-(datamodule, loader, remix, the training sampler) come with the training
-slice (ROADMAP A7)."""
+"""SonicSet generation, training and evaluation data (port of
+``sonicsim_tpu.dataset``): seeded plans, dry-track assembly on the host or
+on the device, the per-mixture render, the split loop, the samplers that
+read a generated split, the prefetching loader and ``MovingDataModule``.
+The remix training set (``dataset/remix.py``) is not ported (ROADMAP
+A7c)."""
 
 from .assemble import (
     assemble_long_audio,
@@ -11,6 +11,7 @@ from .assemble import (
     render_moving_source,
     render_static_source,
 )
+from .datamodule import MovingDataModule
 from .device_assembly import UtteranceCache, assemble_plans_on_device
 from .generate import (
     ArtifactWriter,
@@ -23,6 +24,7 @@ from .generate import (
     remove_existing_speakers,
     render_mixture,
 )
+from .loader import batched_loader, prefetch_iter
 from .plan import (
     LUFS_JITTER,
     LUFS_MUSIC,
@@ -41,6 +43,7 @@ from .plan import (
 from .sampler import (
     MovingTestDataset,
     MovingTestEvalDataset,
+    MovingTrainDataset,
     apply_sir,
     apply_snr,
     find_bottom_directories,
@@ -56,14 +59,17 @@ __all__ = [
     "LUFS_SPEECH",
     "LongAudioPlan",
     "MixturePlan",
+    "MovingDataModule",
     "MovingTestDataset",
     "MovingTestEvalDataset",
+    "MovingTrainDataset",
     "Placement",
     "UtteranceCache",
     "apply_sir",
     "apply_snr",
     "assemble_long_audio",
     "assemble_plans_on_device",
+    "batched_loader",
     "dispatch_mixture",
     "finalize_mixture",
     "find_bottom_directories",
@@ -77,6 +83,7 @@ __all__ = [
     "plan_background_audio",
     "plan_long_audio",
     "plan_mixture",
+    "prefetch_iter",
     "remove_existing_speakers",
     "render_mixture",
     "render_moving_source",

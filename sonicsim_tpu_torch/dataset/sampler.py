@@ -1,10 +1,12 @@
-"""Eval samplers over generated SonicSet trees (port of the eval part of
+"""Training and eval samplers over generated SonicSet trees (port of
 ``sonicsim_tpu.dataset.sampler``, numpy on the host).
 
 Reference separation/look2hear/datas/movingdatamodule.py and the
-enhancement variant, with explicit seeding: item ``idx`` of the remix draws
-from ``default_rng((seed, idx))``, as in the JAX package. The training
-sampler (``MovingTrainDataset``) comes with the training slice.
+enhancement variant, with explicit seeding, as in the JAX package: item
+``idx`` of the training set in epoch ``epoch`` draws from
+``default_rng((seed·1,000,003 + epoch·num_samples + idx) mod 2^63)``, and
+item ``idx`` of the eval remix from ``default_rng((seed, idx))``. The draws
+come in the JAX package's order, so both packages give equal arrays.
 """
 
 from __future__ import annotations
@@ -63,6 +65,84 @@ def overlap_audio(wav: np.ndarray, sample_rate: int, delay: float = 6.0) -> np.n
     fwd = np.concatenate([np.zeros(d, x.dtype), x])[: len(x)]
     bwd = np.concatenate([x, np.zeros(d, x.dtype)])[-len(x):]
     return (fwd + bwd + x).astype(np.float32)
+
+
+@dataclass
+class MovingTrainDataset:
+    """Dynamic-remix training set (movingdatamodule.py:34-126).
+
+    Per item: random leaf dir; ``num_spks`` of the 3 moving tracks; 4 s crop
+    rejecting segments where any speaker's RMS < −40 dB (≤100 retries);
+    SIR ~ U(−6,6) per interferer; SNR ~ U(10,20) on the summed noise.
+    """
+
+    speech_dir: str
+    sample_rate: int = 16000
+    duration: float = 4.0
+    num_samples: int = 1000
+    num_spks: int = 2
+    is_mono: bool = True
+    noise_type: str = "noise"
+    sir_range: tuple[float, float] = (-6.0, 6.0)
+    snr_range: tuple[float, float] = (10.0, 20.0)
+    silence_db: float = -40.0
+    seed: int = 0
+    epoch: int = 0
+    data_dirs: list[str] = field(default_factory=list)
+
+    def __post_init__(self):
+        if not self.data_dirs:
+            self.data_dirs = find_bottom_directories(self.speech_dir)
+        if not self.data_dirs:
+            raise ValueError(f"no sample dirs under {self.speech_dir}")
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + self.epoch * self.num_samples + idx) % (2**63)
+        )
+        folder = self.data_dirs[rng.integers(len(self.data_dirs))]
+        ids = rng.permutation(3)[: self.num_spks] + 1
+        speakers = np.stack(
+            [
+                _load_mono(f"{folder}/moving_audio_{i}.wav", self.is_mono)
+                for i in ids
+            ]
+        )
+        noise_types = ["music", "noise"] if self.noise_type == "all" else [self.noise_type]
+        noises = np.stack(
+            [_load_mono(f"{folder}/{n}_audio.wav", self.is_mono) for n in noise_types]
+        )
+
+        crop = int(self.sample_rate * self.duration)
+        t = speakers.shape[-1]
+        start = 0
+        for _ in range(101):
+            # +1: the reference's random.randint(0, t - crop) is
+            # INCLUSIVE of the final valid window (movingdatamodule.py:87).
+            start = int(rng.integers(0, max(t - crop + 1, 1)))
+            seg = speakers[..., start : start + crop]
+            if all(rms_db(seg[i]) >= self.silence_db for i in range(self.num_spks)):
+                break
+        speakers = speakers[..., start : start + crop]
+        noises = noises[..., start : start + crop]
+
+        if self.num_spks > 1:
+            sirs = rng.uniform(*self.sir_range, size=self.num_spks - 1)
+            speakers = apply_sir(speakers, sirs)
+        all_speech = speakers.sum(axis=0)
+        all_noise = noises.sum(axis=0)
+        all_noise = apply_snr(all_speech, all_noise, float(rng.uniform(*self.snr_range)))
+        mix = (all_speech + all_noise).astype(np.float32)
+        targets = speakers.astype(np.float32)
+        if self.num_spks == 1:
+            targets = targets[0]  # enhancement: clean target (enh :170)
+        return mix, targets
 
 
 @dataclass

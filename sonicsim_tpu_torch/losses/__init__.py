@@ -1,6 +1,6 @@
-"""Separation losses (port of the serving part of ``sonicsim_tpu.losses``):
-SI-SDR/SNR/SD-SDR and PIT. The STFT losses and the enhancement losses wait
-for the training slice and ROADMAP A9."""
+"""Separation losses (port of the separation part of ``sonicsim_tpu.losses``):
+SI-SDR/SNR/SD-SDR and PIT, for training and evaluation. The STFT losses
+wait for ROADMAP A7c and the enhancement losses for A9."""
 
 from .pit import PITLossWrapper, find_best_perm, reorder_sources
 from .sdr import (

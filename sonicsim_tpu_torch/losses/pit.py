@@ -1,11 +1,11 @@
-"""Permutation-invariant training (PIT) wrapper, forward only.
+"""Permutation-invariant training (PIT) wrapper.
 
 Port of ``sonicsim_tpu.losses.pit`` (reference separation/look2hear/
 losses/pit_wrapper.py:7-148): the one-hot permutation search up to 6
 sources and a Hungarian assignment (scipy, on the host) beyond;
 ``threshold_byloss`` as a masked mean over losses > −30. It is the configs'
-``metrics:`` node and the tracker's PIT alignment; its use as a training
-loss comes with the training slice.
+``loss:`` node in training (its gradient is ``jax.value_and_grad``'s of the
+JAX wrapper), their ``metrics:`` node, and the tracker's PIT alignment.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ def find_best_perm(pair_wise_losses: torch.Tensor) -> tuple[torch.Tensor, torch.
         perms, one_hot = _perm_matrix(n_src)
         one_hot = torch.as_tensor(one_hot, device=dev, dtype=pwl.dtype)
         loss_set = torch.einsum("bij,pij->bp", pwl, one_hot) / n_src
+        # amin's gradient is jnp.min's: split evenly over tied permutations.
+        min_loss = loss_set.amin(dim=1)
         idx = torch.argmin(loss_set, dim=1)  # the first minimum, as jnp.argmin
-        min_loss = loss_set.gather(1, idx[:, None])[:, 0]
         return min_loss, torch.as_tensor(perms, device=dev)[idx]
 
     from scipy.optimize import linear_sum_assignment
@@ -106,7 +107,7 @@ class PITLossWrapper:
         loss_set = torch.stack([self.loss_func(ests[:, list(perm)], targets)
                                 for perm in perms], dim=1)
         idx = torch.argmin(loss_set, dim=1)
-        mean_loss = loss_set.gather(1, idx[:, None]).mean()
+        mean_loss = loss_set.amin(dim=1).mean()
         if not return_ests:
             return mean_loss
         return mean_loss, reorder_sources(ests, torch.as_tensor(perms, device=ests.device)[idx])

@@ -2,8 +2,8 @@
 
 Reference separation/look2hear/losses/matrix.py:5-140 (PairwiseNegSDR,
 SingleSrcNegSDR, MultiSrcNegSDR): the same zero-mean, eps and log
-conventions. The STFT losses (``FreqMAE*``) are training-only and wait for
-the training slice.
+conventions. The STFT losses (``FreqMAE*``), which no ConvTasNet config
+uses, are not ported (ROADMAP A7c).
 """
 
 from __future__ import annotations
