@@ -70,12 +70,24 @@ Phases, one line each:
     through the train CLI's path (8 samples of 4 s, batch 2, val on the
     split's fixed remix), resumed for a third epoch, its artifacts checked
     and its checkpoints read back by ``from_pretrain`` bit-equal to the
-    trained model; seconds per epoch. Training launches neither kernel.
+    trained model; seconds per epoch. Training launches neither kernel;
+11. the separation zoo: DPRNN-TasNet, SuDORMRF, AFRCNN, TDANet, DPTNet,
+    BSRNN, TF-GridNet, MossFormer and MossFormer2 at the full width of
+    their configs/separation/*.yaml, each built through the config's
+    ``_target_`` with seeded weights in the JAX package's flax layout, saved
+    with ``save_model`` and loaded with ``from_pretrain`` on the card: fp32
+    against the port on the CPU on a 4 s crop of phase 8's first mixture;
+    the forward's time on B=1 x 10 s (CUDA-event median of 5 after 2),
+    audio-s/s and peak extra memory; the inference CLI on phase 8's first
+    60 s mixture; then DPRNN's train step (dprnn.yaml's Adam, clip and PIT
+    neg-SNR) timed on B=8 x 4 s and held to the CPU on B=2 x 1 s. The zoo
+    launches neither kernel.
 
 Phase 6 also prints, for the source of the bank's largest error against
-the CPU, where the two sides' renders part op by op and the image delays
-near that error (ROADMAP C9); ``--trace-dir DIR`` writes the whole trace
-to ``DIR/c9_*.json``.
+the CPU, where the two sides' renders part op by op, the image delays
+near that error, and each side's distance from the same items rendered in
+float64 on the CPU (ROADMAP C9); ``--trace-dir DIR`` writes the whole trace
+to ``DIR/c9_*.json``. Phase 1's line is printed again before phase 6.
 
 Then a JSON line of the kernels' numbers, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -89,7 +101,8 @@ render, the fused mixture step, the RIR-bank render (with the share of
 its device time in the placement product, ``aten::bmm``), one generated
 60 s mixture with the disk sink and one with the device sink,
 ConvTasNet's forward (``serve-fp32-60s``, ``serve-bf16-B16``) and its
-train step (``train-fp32-B8``, ``train-bf16-B8``).
+train step (``train-fp32-B8``, ``train-bf16-B8``), and each zoo model's
+10 s forward (``zoo-<name>-10s``).
 ``--port-root`` measures the port found under another checkout, so two
 commits compare in one run on one card.
 """
@@ -158,6 +171,44 @@ TRAIN = dict(seed=0, lr=1e-3, clip=5.0, batch=8, crop_s=4.0, reps=10, warmup=3,
              fit_epochs=2)
 TRAIN_LOSS_REL = 1e-5  # one float32 step, the card vs the CPU
 TRAIN_GRAD_REL = 1e-4  # of max|g_cpu|: the clipped gradients Adam takes
+# Phase 11: the separation zoo at the full width of the model node of each
+# configs/separation/*.yaml but skim.yaml (written out here, as SERVE's; the
+# CPU tests hold these to the files), in porting order; each built through
+# the config's ``_target_``; held to the CPU on a 4 s crop (each model's CPU
+# forward of 4 s took under 17 s on the card's 8-core host).
+ZOO_MODELS = {
+    "DPRNNTasNet": dict(in_channels=512, out_channels=64, hidden_channels=128, kernel_size=4,
+                        rnn_type="LSTM", norm="gln", dropout=0, bidirectional=False,
+                        num_layers=4, K=250, num_spks=2, sample_rate=SR),
+    "SuDORMRF": dict(out_channels=256, in_channels=512, num_blocks=16, upsampling_depth=5,
+                     enc_kernel_size=21, enc_num_basis=512, num_sources=2, sample_rate=SR),
+    "AFRCNN": dict(out_channels=512, in_channels=512, num_blocks=16, upsampling_depth=5,
+                   enc_kernel_size=41, enc_num_basis=512, num_sources=2, sample_rate=SR),
+    "TDANet": dict(out_channels=128, in_channels=512, num_blocks=16, upsampling_depth=5,
+                   enc_kernel_size=2, num_sources=2, sample_rate=SR),
+    "DPTNetModel": dict(channel=64, kernel_size=4, stride=2, num_spk=2, layer=6,
+                        bidirectional=True, unit=128, att_heads=4, activation="relu",
+                        segment_size=360, nonlinear="relu", sample_rate=SR),
+    "BSRNN": dict(sample_rate=SR, win=512, stride=128, feature_dim=128, num_repeat=12,
+                  num_output=2),
+    "TFGridNet": dict(input_dim=64, n_srcs=2, n_fft=512, stride=128, window="hann", n_imics=1,
+                      n_layers=6, lstm_hidden_units=192, attn_n_head=4, attn_approx_qk_dim=512,
+                      emb_dim=48, emb_ks=4, emb_hs=1, activation="prelu", eps=1.0e-5,
+                      sample_rate=SR),
+    "MossFormer": dict(kernel_size=16, stride=8, bias=False, out_channels=512, in_channels=512,
+                       num_blocks=24, d_model=512, attn_dropout=0.1, group_size=256,
+                       query_key_dim=128, expansion_factor=4.0, causal=False, norm="ln",
+                       num_spks=2),
+    "MossFormer2": dict(kernel_size=16, stride=8, bias=False, out_channels=512, in_channels=512,
+                        num_blocks=24, d_model=512, attn_dropout=0.1, group_size=256,
+                        query_key_dim=128, expansion_factor=4.0, causal=False, norm="ln",
+                        num_spks=2),
+}
+ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=5, warmup=2,
+           segment_s=10.0, train_model="DPRNNTasNet", lr=1e-3, clip=5.0, batch=8,
+           train_crop_s=4.0, train_reps=5, train_warmup=2, check_batch=2, check_s=1.0,
+           profile_reps=3)  # the recurrent models launch thousands of kernels a call
+ZOO_REL = 1e-4  # float32 on the card vs the port on the CPU, of max|ref| (SERVE_REL)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -243,15 +294,16 @@ def phase_env():
     knobs = {k: v for k, v in os.environ.items()
              if k.startswith(("TORCH", "NVIDIA_TF32", "CUBLAS", "CUDNN"))}
     model = next((ln.split(":", 1)[1].strip() for ln in lines if ln.startswith("model name")), "?")
-    print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} triton {triton_v} "
-          f"nvcc-on-PATH {shutil.which('nvcc')} nvcc {nvcc} "
-          f"({nvcc_v[-1] if nvcc_v else '?'}) device {props} "
-          f"count {torch.cuda.device_count()} nvidia-smi {nv_version} host CPU {cpu} "
-          f"({model}) {os.cpu_count()} cores, torch CPU capability "
-          f"{torch.backends.cpu.get_cpu_capability()}, float32 matmul precision "
-          f"{torch.get_float32_matmul_precision()}, environment {knobs}", flush=True)
-    return torch.device("cuda", 0), smi
+    line = (f"env: python {sys.version.split()[0]} torch {torch.__version__} "
+            f"cuda {torch.version.cuda} triton {triton_v} "
+            f"nvcc-on-PATH {shutil.which('nvcc')} nvcc {nvcc} "
+            f"({nvcc_v[-1] if nvcc_v else '?'}) device {props} "
+            f"count {torch.cuda.device_count()} nvidia-smi {nv_version} host CPU {cpu} "
+            f"({model}) {os.cpu_count()} cores, torch CPU capability "
+            f"{torch.backends.cpu.get_cpu_capability()}, float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()}, environment {knobs}")
+    print(line, flush=True)
+    return torch.device("cuda", 0), smi, line
 
 
 def phase_build() -> None:
@@ -690,6 +742,59 @@ def _bank_vs_cpu(oracle, channel, srcs, mic):
     return float(err.max()), peak, excess, (int(s), int(c), int(n))
 
 
+def _float64_mode():
+    """A ``TorchFunctionMode`` under which every torch call computes in
+    float64 (complex128): float32 tensor arguments are widened and float32
+    dtype arguments read as float64, but for ``view``, whose dtype
+    reinterprets bits (the tail noise's uniforms), whose result the next call
+    widens (ROADMAP C9: the same port function as a higher-precision
+    reference for both sides)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._pytree import tree_map
+
+    wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+    def up(v):
+        if isinstance(v, torch.Tensor) and v.dtype in wide:
+            return v.to(wide[v.dtype])
+        return wide.get(v, v) if isinstance(v, torch.dtype) else v
+
+    class Float64(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name == "view":
+                return func(*args, **(kwargs or {}))
+            if name == "float":
+                func = torch.Tensor.double
+            return func(*tree_map(up, args), **tree_map(up, kwargs or {}))
+
+    return Float64()
+
+
+def _bank_f64(oracle, channel, src, mic, where, label: str) -> None:
+    """ROADMAP C9: the items of the source of the largest device-vs-CPU error
+    rendered in float64 on the CPU (:func:`_float64_mode`), and the card's
+    and the CPU float32's distances from it, at the error's sample and over
+    the items. Prints one line."""
+    from sonicsim_tpu_torch.sim import render_bank_batched
+
+    cpu = dataclasses.replace(oracle, device="cpu")
+    dev = render_bank_batched(oracle, [src], mic, channel, peak_normalize=False)
+    f32 = render_bank_batched(cpu, [src], mic, channel, peak_normalize=False)
+    with _float64_mode():
+        f64 = render_bank_batched(cpu, [src], mic, channel, peak_normalize=False)
+    f64 = np.asarray(f64, np.float64)
+    _, c, n = where
+    dist = {side: (float(abs(float(a[0, 0, c, n]) - f64[0, 0, c, n])),
+                   float(np.abs(a.astype(np.float64) - f64).max()))
+            for side, a in (("device", dev), ("cpu float32", f32))}
+    print(f"bank[C9 {label} float64]: the source of the largest error rendered in float64 "
+          f"on the CPU (value {f64[0, 0, c, n]:.9g} at channel {c}, sample {n}; peak "
+          f"{np.abs(f64).max():.6g}); distance from it at that sample / over the source's "
+          + "; ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}" for k, v in dist.items()), flush=True)
+
+
 def _op_trace():
     """A ``TorchFunctionMode`` that keeps, in ``.ops``, a CPU copy of every
     tensor each torch call returns, in call order (ROADMAP C9: the same
@@ -855,6 +960,7 @@ def phase_bank(device, cfg, trace_dir=None):
         check(abs(float(b.abs().max()) - 1.0) <= 1e-6, "bank peak is not 1")
     err, peak, excess, where = _bank_vs_cpu(oracle, channel, ways[0][:cfg["n_check"]], mic)
     _bank_parting(oracle, channel, ways[0][:cfg["n_check"]], mic, where, "room", trace_dir)
+    _bank_f64(oracle, channel, ways[0][where[0]], mic, where, "room")
     check(excess <= 0.0, f"bank on the device vs the CPU: max abs err {err} "
           f"(peak {peak}, atol {BANK_ATOL}·peak, rtol {BANK_RTOL})")
     print(f"bank: {nb} banks x {n} waypoints x {channel.count} ch = "
@@ -881,6 +987,7 @@ def phase_bank(device, cfg, trace_dir=None):
                                                     ways[0][:cfg["n_check"]], mic)
     _bank_parting(w_oracle, w_channel, ways[0][:cfg["n_check"]], mic, w_where, "per-wall",
                   trace_dir)
+    _bank_f64(w_oracle, w_channel, ways[0][w_where[0]], mic, w_where, "per-wall")
     check(w_excess <= 0.0, f"per-wall bank on the device vs the CPU: max abs "
           f"err {w_err} (peak {w_peak})")
     print(f"bank[per-wall materials]: r={r_amp}, Q={q_tail}, ir_len "
@@ -1209,15 +1316,11 @@ def check_generation(device, cfg, gen, runs, smi):
     return generation_case(plans[0], int(bank_len), int(n_ch))
 
 
-def seeded_convtasnet(model_cfg, seed: int) -> dict:
-    """ConvTasNet weights from ``default_rng(seed)`` as numpy arrays in the
-    JAX package's flax layout, leaves drawn in sorted key order: kernels
-    N(0, 1/fan_in), gammas 1 + N(0, 0.01), PReLU slopes 0.25, biases and
-    betas N(0, 0.01). The tree's shapes come from the port's model through
-    the bridge."""
-    from sonicsim_tpu_torch import bridge
-    from sonicsim_tpu_torch.models import ConvTasNet
-
+def seeded_flax(tree: dict, seed: int) -> dict:
+    """A flax parameter tree's shapes filled from ``default_rng(seed)`` as
+    float32 numpy, leaves drawn in sorted key order: kernels N(0, 1/fan_in),
+    gains (``gamma``, ``scale``, ``g``, …) 1 + N(0, 0.01), PReLU slopes 0.25,
+    biases, betas and offsets N(0, 0.01)."""
     rng = np.random.default_rng(seed)
 
     def draw(node):
@@ -1229,16 +1332,42 @@ def seeded_convtasnet(model_cfg, seed: int) -> dict:
                 continue
             if key == "kernel":
                 a = rng.standard_normal(v.shape) / np.sqrt(np.prod(v.shape[:-1]))
-            elif key == "gamma":
+            elif "gamma" in key or key in ("scale", "g"):
                 a = 1.0 + 0.1 * rng.standard_normal(v.shape)
-            elif key == "alpha":
+            elif key in ("alpha", "attn_prelu", "prelu_alpha") or key.startswith("prelu_"):
                 a = np.full(v.shape, 0.25)
             else:
                 a = 0.1 * rng.standard_normal(v.shape)
             out[key] = a.astype(np.float32)
         return out
 
-    return draw(bridge.convtasnet_flax_params(ConvTasNet(**model_cfg, device="cpu").state_dict()))
+    return draw(tree)
+
+
+def seeded_convtasnet(model_cfg, seed: int) -> dict:
+    """ConvTasNet weights from :func:`seeded_flax` in the JAX package's flax
+    layout; the tree's shapes come from the port's model through the
+    bridge."""
+    from sonicsim_tpu_torch import bridge
+    from sonicsim_tpu_torch.models import ConvTasNet
+
+    return seeded_flax(bridge.convtasnet_flax_params(
+        ConvTasNet(**model_cfg, device="cpu").state_dict()), seed)
+
+
+def seeded_zoo(name: str, model_args: dict, seed: int):
+    """Zoo model ``name`` built on the CPU through the config's ``_target_``
+    (``sonicsim_tpu.models.<name>``, read as the port's), with
+    :func:`seeded_flax` weights in the JAX package's flax layout carried in
+    by the bridge."""
+    from sonicsim_tpu_torch.models import base
+    from sonicsim_tpu_torch.utils import instantiate
+
+    model = instantiate({"_target_": f"sonicsim_tpu.models.{name}", **model_args}, device="cpu")
+    args = model.model_args()
+    params = seeded_flax(base.to_flax(name, model.state_dict(), args), seed)
+    model.load_state_dict(base.to_state_dict(name, params, args))
+    return model.eval()
 
 
 def serving_models(device, cfg, root: Path):
@@ -1601,9 +1730,180 @@ def phase_training(device, cfg, model_cfg, folders, root: Path, smi) -> None:
           f"{list(packs)}", flush=True)
 
 
+def _mono_mixes(folders) -> list:
+    """Each generated mixture's five tracks summed (binaural), and mono."""
+    from sonicsim_tpu_torch.utils import read_wav
+
+    return [np.sum([read_wav(f / n)[0] for n in sorted(p.name for p in f.glob("*_audio*.wav"))],
+                   axis=0, dtype=np.float32).mean(axis=0) for f in folders]
+
+
+def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
+    """Phase 11: each zoo model from a pack on the device; its fp32 forward
+    against the port on the CPU on a crop of phase 8's first mixture, its
+    10 s forward's time and peak extra memory, the inference CLI on that
+    60 s mixture; then the train step of ``cfg["train_model"]``, timed and
+    held to the CPU. Returns each model's numbers."""
+    import torch
+
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
+    from sonicsim_tpu_torch.models import from_pretrain, get, save_model
+    from sonicsim_tpu_torch.scripts import inference
+    from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+    from sonicsim_tpu_torch.utils import read_wav, write_wav
+
+    strict_float32()
+    root.mkdir()
+    mono = _mono_mixes(folders)
+    mix_path = root / "mix.wav"
+    write_wav(mix_path, mono[0][None], SR, encoding="float32")
+    t_mix, t_win = mono[0].shape[-1], int(cfg["window_s"] * SR)
+    x10 = torch.from_numpy(mono[0][None, :t_win].copy()).to(device)
+    stats, cpu_models = {}, {}
+    for name, args in cfg["models"].items():
+        t0 = time.perf_counter()
+        cpu = seeded_zoo(name, args, cfg["seed"])
+        pack = root / f"{name}.pkl"
+        save_model(cpu, pack)
+        model = from_pretrain(pack, device=device)
+        check(type(model).__name__ == name, f"{name}: from_pretrain built {type(model).__name__}")
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        fwd = make_forward(model)
+        crop_s = cfg["crop_s"]
+        crop = torch.from_numpy(mono[0][None, :int(crop_s * SR)].copy())
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = cpu(crop)
+        cpu_s = time.perf_counter() - t0
+        got = fwd(crop.to(device)).cpu()
+        err, peak = float((got - ref).abs().max()), float(ref.abs().max())
+        check(tuple(got.shape) == (1, 2, crop.shape[-1]) and bool(torch.isfinite(got).all()),
+              f"{name}: output {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        check(err <= ZOO_REL * peak,
+              f"{name} on the device vs the CPU: max abs err {err} (max|ref| {peak})")
+        ms = median_ms(lambda fwd=fwd: fwd(x10), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        mib = _peak_mib(device, lambda fwd=fwd: fwd(x10))
+        argv = ["--model_path", str(pack), "--mix", str(mix_path), "--out_dir",
+                str(root / f"sep_{name}"), "--segment_seconds", str(cfg["segment_s"]),
+                "--device", str(device)]
+        t0 = time.perf_counter()
+        inference.main(argv)
+        cli_s = time.perf_counter() - t0
+        for i in range(2):
+            est, _ = read_wav(root / f"sep_{name}" / f"s{i + 1}_est.wav")
+            check(est.shape == (1, t_mix) and bool(np.isfinite(est).all()),
+                  f"{name} inference: s{i + 1}_est.wav {est.shape}")
+        stats[name] = dict(params=n_params, crop_s=crop_s, err=err, max_ref=peak, cpu_s=cpu_s,
+                           ms=ms, audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib,
+                           cli_s=cli_s, build_s=build_s)
+        print(f"zoo[{name}]: {n_params} parameters, seeded, from {pack.name} via "
+              f"from_pretrain ({build_s:.2f} s with the build on the CPU); fp32 vs the port on "
+              f"the CPU on a {crop_s:g} s crop of phase 8's first mixture ({cpu_s:.2f} s there): "
+              f"max abs err {err:.3g} of max|ref| {peak:.3g} (tol {ZOO_REL}·max|ref|); "
+              f"B=1 x {cfg['window_s']:g} s: {ms:.4f} ms = "
+              f"{stats[name]['audio_s_per_s']:.1f} audio-s/s (CUDA-event median of "
+              f"{cfg['reps']} after {cfg['warmup']}), peak extra memory "
+              f"{mib if mib is None else round(mib, 1)} MiB; inference CLI on the "
+              f"{t_mix / SR:g} s mixture ({cfg['segment_s']:g} s windows, load and WAV I/O "
+              f"included, no warm-up of its own): {cli_s:.4f} s; {smi}", flush=True)
+        cpu_models[name] = cpu
+        del model, fwd
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # The train step of the config (dprnn.yaml: Adam, clip 5, PIT neg-SNR).
+    name = cfg["train_model"]
+    weights = cpu_models[name].state_dict()
+    loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), pit_from="pw_mtx", threshold_byloss=False)
+
+    def fresh(dev, dtype=torch.float32):
+        model = get(name)(**cfg["models"][name], device=dev).to(dtype)
+        model.load_state_dict(weights)
+        opt = make_optimizer(model.parameters(), cfg["lr"])
+        return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
+
+    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True):
+        """One step's loss and (clipped) gradients, float64 on the host."""
+        enabled = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            model, step = fresh(dev, dtype)
+            loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
+        finally:
+            torch.backends.cudnn.enabled = enabled
+        return loss, {n: p.grad.double().cpu() for n, p in model.named_parameters()
+                      if p.requires_grad}
+
+    split = folders[0].parent.parent
+    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                          duration=cfg["train_crop_s"], num_samples=cfg["batch"],
+                          batch_size=cfg["batch"], seed=cfg["seed"])
+    mix, tgt = next(iter(dm.train_batches(0)))
+    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
+    _, step = fresh(device)
+    check(bool(torch.isfinite(step(x, y))), f"{name} step: loss not finite")
+    step_ms = median_ms(lambda: step(x, y), device, reps=cfg["train_reps"],
+                        warmup=cfg["train_warmup"])
+    step_mib = _peak_mib(device, lambda: step(x, y))
+    n_chk = int(cfg["check_s"] * SR)
+    xc, yc = (torch.from_numpy(a[:cfg["check_batch"], ..., :n_chk].copy()) for a in (mix, tgt))
+    (l_dev, g_dev), (l_cpu, g_cpu) = step1(device, xc, yc), step1("cpu", xc, yc)
+    g_max = max(float(g.abs().max()) for g in g_cpu.values())
+    g_err = max(float((g_dev[n] - g).abs().max()) for n, g in g_cpu.items())
+    l_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    check(l_rel <= TRAIN_LOSS_REL and g_err <= TRAIN_GRAD_REL * g_max,
+          f"{name} fp32 step on the device vs the CPU: loss {l_dev} vs {l_cpu} (rel {l_rel}), "
+          f"gradients max abs err {g_err} of max|g| {g_max}")
+    audio_s = cfg["batch"] * cfg["train_crop_s"]
+    stats["train"] = dict(model=name, ms=step_ms, audio_s_per_s=audio_s / (step_ms / 1e3),
+                          peak_mib=step_mib, loss_rel=l_rel, grad_err=g_err, grad_max=g_max)
+    print(f"zoo[train {name}]: Adam lr {cfg['lr']}, optax clip {cfg['clip']}, PIT neg-SNR, "
+          f"fp32, B={cfg['batch']} x {cfg['train_crop_s']:g} s from phase 8's split: "
+          f"{step_ms:.4f} ms/step = {audio_s / (step_ms / 1e3):.1f} audio-s/s (CUDA-event median "
+          f"of {cfg['train_reps']} after {cfg['train_warmup']}), peak extra memory "
+          f"{step_mib if step_mib is None else round(step_mib, 1)} MiB; one step on "
+          f"B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU: loss rel {l_rel:.3g} (tol "
+          f"{TRAIN_LOSS_REL}), gradients max abs err {g_err:.3g} of max|g| {g_max:.3g} (tol "
+          f"{TRAIN_GRAD_REL}·max|g|); {smi}", flush=True)
+
+    # ROADMAP C12: each side's step-1 gradients against float64 on the CPU,
+    # on the check batch and on seeded noise (tests/test_torch_zoo_cuda.py's
+    # kind of batch), with the card's LSTMs in cuDNN and in PyTorch's own
+    # CUDA LSTM; and the step's time with cuDNN off.
+    rng = np.random.default_rng(cfg["seed"])
+    xn = torch.from_numpy(rng.standard_normal(tuple(xc.shape)).astype(np.float32))
+    yn = torch.from_numpy(0.5 * rng.standard_normal(tuple(yc.shape)).astype(np.float32))
+    parts = []
+    for label, (xb, yb) in (("phase 8's crops", (xc, yc)), ("seeded noise", (xn, yn))):
+        _, g64 = step1("cpu", xb, yb, torch.float64)
+        top = max(float(g.abs().max()) for g in g64.values())
+        dist = {}
+        for side, dev, cudnn in (("card", device, True), ("card with cuDNN off", device, False),
+                                 ("CPU float32", "cpu", True)):
+            g = step1(dev, xb, yb, cudnn=cudnn)[1]
+            worst = max(g64, key=lambda n: float((g[n] - g64[n]).abs().max()))
+            dist[side] = f"{float((g[worst] - g64[worst]).abs().max()) / top:.3g} ({worst})"
+        parts.append(f"{label}: " + ", ".join(f"{k} {v}" for k, v in dist.items()))
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        _, step = fresh(device)
+        off_ms = median_ms(lambda: step(x, y), device, reps=3, warmup=1)
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    print(f"zoo[train {name} vs float64]: step-1 gradients' max abs distance from float64 on "
+          f"the CPU, of its max|g| (worst parameter): " + "; ".join(parts)
+          + f"; the B={cfg['batch']} step with cuDNN off {off_ms:.4f} ms (median of 3) against "
+          f"{step_ms:.4f} ms; {smi}", flush=True)
+    return stats
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
-        train_cfg=TRAIN, trace_dir=None) -> None:
+        train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     head = headline_plan(head_cfg)
@@ -1619,6 +1919,9 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     kernels.reset_launch_counts()
     phase_mixture(device, mix, mix_cfg)
     counts["mixture"] = dict(kernels.LAUNCHES)
+    # Phase 1's line again next to phase 6's (ROADMAP C9): the output's head
+    # may be cut from a long run's log.
+    print(env_line, flush=True)
     banks, ways, static = phase_bank(device, bank_cfg, trace_dir)
     kernels.reset_launch_counts()
     phase_bank_mixture(device, banks, ways, static, bank_mix_cfg)
@@ -1636,8 +1939,12 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         phase_training(device, train_cfg, serve_cfg["model"], runs["disk"]["produced"],
                        Path(tmp) / "train", smi)
         training = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        phase_zoo(device, zoo_cfg, runs["disk"]["produced"], Path(tmp) / "zoo", smi)
+        zoo = dict(kernels.LAUNCHES)
     check(not any(serving.values()), f"serving launched a kernel: {serving}")
     check(not any(training.values()), f"training launched a kernel: {training}")
+    check(not any(zoo.values()), f"the zoo launched a kernel: {zoo}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
     if device.type == "cuda":
@@ -1650,8 +1957,8 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     print(f"launches on the main paths: {counts} (the select form is off "
           f"the main paths; the bank render has no kernel of its own; "
           f"generation takes the fused form alone); serving (phase 9) launches "
-          f"neither kernel: {serving}, nor does training (phase 10): {training} "
-          f"(ConvTasNet has no Pallas counterpart)", flush=True)
+          f"neither kernel: {serving}, nor does training (phase 10): {training}, nor "
+          f"the zoo (phase 11): {zoo} (no zoo model has a Pallas counterpart)", flush=True)
 
     report = {"kernels": [
         {
@@ -1693,18 +2000,21 @@ def _busy_us(intervals) -> float:
 
 
 def phase_profile(device, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
-                  gen_cfg=GENERATION, serve_cfg=SERVE, train_cfg=TRAIN, reps: int = 10):
+                  gen_cfg=GENERATION, serve_cfg=SERVE, train_cfg=TRAIN, zoo_cfg=ZOO,
+                  reps: int = 10, only: str | None = None):
     """The main paths under ``torch.profiler``: for the headline render, the
     fused mixture step, the RIR-bank render, one generated mixture with
     the disk sink and with the device sink (where the port has
     ``dataset``), ConvTasNet's forward on 60 s in fp32 and on a batch of
-    4 s crops in bf16 (where the port has ``models``), and its train step
-    in fp32 and bf16 (where it has ``train``), ``reps`` calls after a
-    warm-up."""
+    4 s crops in bf16 (where the port has ``models``), its train step in
+    fp32 and bf16 (where it has ``train``), and each zoo model's 10 s
+    forward (where it has the zoo), ``reps`` calls after a warm-up
+    (``zoo_cfg["profile_reps"]`` for the zoo); with ``only``, the paths
+    whose name starts with it alone."""
     tmp = Path(tempfile.mkdtemp())
     try:
         _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg,
-                       reps, tmp)
+                       zoo_cfg, reps, tmp, only)
     finally:
         shutil.rmtree(tmp)
 
@@ -1752,6 +2062,24 @@ def _training_paths(device, cfg, model_cfg) -> dict:
     return paths
 
 
+def _zoo_paths(device, cfg) -> dict:
+    """Each zoo model's forward (phase 11's seeded weights) on B=1 x
+    ``cfg["window_s"]`` of seeded noise, in fp32."""
+    import torch
+
+    from sonicsim_tpu_torch.scripts.common import make_forward
+
+    g = torch.Generator(device=device).manual_seed(cfg["seed"])
+    x = 0.1 * torch.randn((1, int(cfg["window_s"] * SR)), generator=g, device=device)
+    paths = {}
+    for name, args in cfg["models"].items():
+        model = seeded_zoo(name, args, cfg["seed"])
+        model.place(device)
+        fwd = make_forward(model)
+        paths[f"zoo-{name.lower()}-{cfg['window_s']:g}s"] = lambda fwd=fwd: fwd(x)
+    return paths
+
+
 def _generation_paths(device, cfg, root: Path) -> dict:
     """One 60 s mixture of phase 8's corpus, planned from a fixed seed, as
     ``render_mixture`` with the disk sink and with the device sink (a warm
@@ -1777,8 +2105,8 @@ def _generation_paths(device, cfg, root: Path) -> dict:
     }
 
 
-def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg, reps,
-                   tmp):
+def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg, zoo_cfg,
+                   n_reps, tmp, only=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1812,8 +2140,13 @@ def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, trai
         paths.update(_serving_paths(device, serve_cfg, tmp))
     if importlib.util.find_spec("sonicsim_tpu_torch.train"):
         paths.update(_training_paths(device, train_cfg, serve_cfg["model"]))
+    if importlib.util.find_spec("sonicsim_tpu_torch.models.tfgridnet"):
+        paths.update(_zoo_paths(device, zoo_cfg))
     report = {"port": sonicsim_tpu_torch.__file__}
     for name, fn in paths.items():
+        if only and not name.startswith(only):
+            continue
+        reps = zoo_cfg["profile_reps"] if name.startswith("zoo-") else n_reps
         fn()
         sync(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -1868,6 +2201,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the main path instead of the smoke phases")
+    ap.add_argument("--only", default=None, metavar="PREFIX",
+                    help="with --profile, the paths whose name starts with PREFIX alone")
     ap.add_argument("--port-root", default=None,
                     help="import sonicsim_tpu_torch from this checkout")
     ap.add_argument("--trace-dir", default=None,
@@ -1881,13 +2216,13 @@ def main() -> int:
         print("FAIL: torch is not importable", file=sys.stderr)
         return 1
     try:
-        device, smi = phase_env()
+        device, smi, env_line = phase_env()
         phase_build()
         if args.profile:
-            phase_profile(device)
+            phase_profile(device, only=args.only)
             print(smi, flush=True)
         else:
-            run(device, smi, trace_dir=args.trace_dir)
+            run(device, smi, trace_dir=args.trace_dir, env_line=env_line)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -3,7 +3,8 @@
 The port of ``sonicsim_tpu`` (JAX/XLA/Pallas), which stays the reference it
 is held against. This package imports neither jax nor ``sonicsim_tpu``.
 Ported so far: the moving-source render, the RIR-bank render, SonicSet
-generation end to end, and ConvTasNet serving, evaluation and training.
+generation end to end, ConvTasNet serving, evaluation and training, and
+the separation zoo but SkiM.
 
 * ``ops`` — trajectory plans, FFT convolutions, BS.1770 loudness, levels,
   and the two Hopper kernels (``ops.kernels``, sources in ``csrc/``).
@@ -14,8 +15,11 @@ generation end to end, and ConvTasNet serving, evaluation and training.
   per-mixture render and ``generate_split``; the training and eval
   samplers that read generated splits, the prefetching loader and
   ``MovingDataModule``.
-* ``models`` — ConvTasNet, the registry and checkpoints in the JAX
-  package's pack format (``from_pretrain``, ``save_model``).
+* ``models`` — ConvTasNet, DPRNN-TasNet, SuDORMRF, AFRCNN, TDANet, DPTNet,
+  BSRNN, TF-GridNet, MossFormer and MossFormer2 (with their shared
+  ``zoo_layers`` and the free filterbank ``enc_dec``), the registry and
+  checkpoints in the JAX package's pack format (``from_pretrain``,
+  ``save_model``).
 * ``infer`` — bf16 inference, segment stitching, the energy VAD.
 * ``losses`` and ``metrics`` — SI-SDR/SNR, PIT, BSS SDR, STOI, PESQ and
   the ``MetricsTracker``.

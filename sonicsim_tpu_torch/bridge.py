@@ -221,3 +221,558 @@ def convtasnet_state_dict(params: dict) -> dict:
     sd["decoder.decoder.bias"] = np.asarray(p["decoder"]["bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+# --- The separation zoo's weights --------------------------------------------
+#
+# Each model's bridge pair is a spec: a list of (flax path, torch key, kind),
+# where a kind is a pair of functions (state dict, torch key) → flax node and
+# (flax node, torch key) → torch entries. ``<name>_flax_params`` is the port's
+# copy of the JAX package's converter (models/torch_import.py), and
+# ``<name>_state_dict`` its inverse, read off the same spec. The layer counts
+# each spec needs are read from the keys of the side it starts from.
+
+
+def _arr(v) -> np.ndarray:
+    return np.ascontiguousarray(_np(v))
+
+
+def _with_bias(out: dict, sd: dict, key: str) -> dict:
+    if f"{key}.bias" in sd:
+        out["bias"] = _np(sd[f"{key}.bias"])
+    return out
+
+
+def _bias_back(node: dict, key: str, sd: dict) -> dict:
+    if "bias" in node:
+        sd[f"{key}.bias"] = np.asarray(node["bias"])
+    return sd
+
+
+# Conv1d (O, I, k) ↔ (k, I, O); Linear (O, I) ↔ (I, O); Conv2d (O, I, kh, kw)
+# ↔ (kh, kw, I, O); ConvTranspose1d/2d (I, O, k…) ↔ (k…, I, O) with the
+# kernel's spatial axes flipped (flax's ConvTranspose does not flip them).
+_CONV1D = (
+    lambda sd, k: _with_bias({"kernel": _arr(_np(sd[f"{k}.weight"]).transpose(2, 1, 0))}, sd, k),
+    lambda n, k: _bias_back(n, k, {f"{k}.weight": np.asarray(n["kernel"]).transpose(2, 1, 0)}))
+_LINEAR = (
+    lambda sd, k: _with_bias({"kernel": _arr(_np(sd[f"{k}.weight"]).T)}, sd, k),
+    lambda n, k: _bias_back(n, k, {f"{k}.weight": np.asarray(n["kernel"]).T}))
+_CONV2D = (
+    lambda sd, k: _with_bias({"kernel": _arr(_np(sd[f"{k}.weight"]).transpose(2, 3, 1, 0))},
+                             sd, k),
+    lambda n, k: _bias_back(n, k, {f"{k}.weight": np.asarray(n["kernel"]).transpose(3, 2, 0, 1)}))
+_CONVT1D = (
+    lambda sd, k: _with_bias({"kernel": _arr(_np(sd[f"{k}.weight"]).transpose(2, 0, 1)[::-1])},
+                             sd, k),
+    lambda n, k: _bias_back(n, k, {
+        f"{k}.weight": np.asarray(n["kernel"])[::-1].transpose(1, 2, 0)}))
+_CONVT2D = (
+    lambda sd, k: _with_bias(
+        {"kernel": _arr(_np(sd[f"{k}.weight"]).transpose(2, 3, 0, 1)[::-1, ::-1])}, sd, k),
+    lambda n, k: _bias_back(n, k, {
+        f"{k}.weight": np.asarray(n["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)}))
+# The zoo's gLN: gamma/beta (C,) ↔ gamma/beta (C,).
+_GLN = (
+    lambda sd, k: {"gamma": _np(sd[f"{k}.gamma"]).reshape(-1),
+                   "beta": _np(sd[f"{k}.beta"]).reshape(-1)},
+    lambda n, k: {f"{k}.gamma": np.asarray(n["gamma"]), f"{k}.beta": np.asarray(n["beta"])})
+# PReLU weight (n,) ↔ alpha (n,), as a node or (``_PRELU_RAW``) a bare leaf.
+_PRELU = (lambda sd, k: {"alpha": _np(sd[f"{k}.weight"]).reshape(-1)},
+               lambda n, k: {f"{k}.weight": np.asarray(n["alpha"])})
+_PRELU_RAW = (lambda sd, k: _np(sd[f"{k}.weight"]).reshape(-1),
+                   lambda n, k: {f"{k}.weight": np.asarray(n)})
+# GroupNorm(1)/LayerNorm weight, bias ↔ scale, bias; the zoo's GroupNorm1
+# wraps flax's GroupNorm as GroupNorm_0.
+_LN = (lambda sd, k: {"scale": _np(sd[f"{k}.weight"]), "bias": _np(sd[f"{k}.bias"])},
+            lambda n, k: {f"{k}.weight": np.asarray(n["scale"]),
+                          f"{k}.bias": np.asarray(n["bias"])})
+_GN = (lambda sd, k: {"GroupNorm_0": _LN[0](sd, k)},
+            lambda n, k: _LN[1](n["GroupNorm_0"], k))
+# A bare leaf under the same values (``qk_gamma``, ``g``…).
+_RAW = (lambda sd, k: _np(sd[k]), lambda n, k: {k: np.asarray(n)})
+
+
+def _lstm_to_flax(sd: dict, key: str) -> dict:
+    """torch LSTM layer → flax ``OptimizedLSTMCell_0`` (and ``_1``, the
+    backward direction, when the layer is bidirectional): per-gate input
+    denses ``i{g}`` (no bias) and hidden denses ``h{g}`` with the bias
+    ``bias_ih + bias_hh``, gates ``i f g o`` (torch_import.py:91-113)."""
+    out = {}
+    for cell, rev in (("OptimizedLSTMCell_0", ""), ("OptimizedLSTMCell_1", "_reverse")):
+        if f"{key}.weight_ih_l0{rev}" not in sd:
+            continue
+        w_ih, w_hh = _np(sd[f"{key}.weight_ih_l0{rev}"]), _np(sd[f"{key}.weight_hh_l0{rev}"])
+        b = _np(sd[f"{key}.bias_ih_l0{rev}"]) + _np(sd[f"{key}.bias_hh_l0{rev}"])
+        h = w_hh.shape[1]
+        gates = {}
+        for i, g in enumerate("ifgo"):
+            sl = slice(i * h, (i + 1) * h)
+            gates[f"i{g}"] = {"kernel": _arr(w_ih[sl].T)}
+            gates[f"h{g}"] = {"kernel": _arr(w_hh[sl].T), "bias": b[sl]}
+        out[cell] = gates
+    return out
+
+
+def _lstm_to_torch(node: dict, key: str) -> dict:
+    """The inverse: flax's summed bias goes to ``bias_ih``, ``bias_hh`` is
+    zero, so flax→torch→flax is exact and torch→flax→torch the same
+    function."""
+    sd = {}
+    for cell, rev in (("OptimizedLSTMCell_0", ""), ("OptimizedLSTMCell_1", "_reverse")):
+        if cell not in node:
+            continue
+        gates = node[cell]
+        b = np.concatenate([np.asarray(gates[f"h{g}"]["bias"]) for g in "ifgo"])
+        sd[f"{key}.weight_ih_l0{rev}"] = np.concatenate(
+            [np.asarray(gates[f"i{g}"]["kernel"]).T for g in "ifgo"])
+        sd[f"{key}.weight_hh_l0{rev}"] = np.concatenate(
+            [np.asarray(gates[f"h{g}"]["kernel"]).T for g in "ifgo"])
+        sd[f"{key}.bias_ih_l0{rev}"] = b
+        sd[f"{key}.bias_hh_l0{rev}"] = np.zeros_like(b)
+    return sd
+
+
+_LSTM = (_lstm_to_flax, _lstm_to_torch)
+
+
+def _mha_to_flax(sd: dict, key: str, heads: int) -> dict:
+    """``nn.MultiheadAttention`` → flax ``MultiHeadDotProductAttention``
+    (torch_import.py:1071-1097)."""
+    w, b = _np(sd[f"{key}.in_proj_weight"]), _np(sd[f"{key}.in_proj_bias"])
+    c = w.shape[1]
+    hd = c // heads
+
+    def proj(i):
+        return {"kernel": _arr(w[i * c:(i + 1) * c].T.reshape(c, heads, hd)),
+                "bias": b[i * c:(i + 1) * c].reshape(heads, hd)}
+
+    return {"query": proj(0), "key": proj(1), "value": proj(2),
+            "out": {"kernel": _arr(_np(sd[f"{key}.out_proj.weight"]).T.reshape(heads, hd, c)),
+                    "bias": _np(sd[f"{key}.out_proj.bias"])}}
+
+
+def _mha_to_torch(node: dict, key: str) -> dict:
+    c = np.asarray(node["out"]["bias"]).shape[0]
+    return {
+        f"{key}.in_proj_weight": np.concatenate(
+            [np.asarray(node[n]["kernel"]).reshape(c, c).T for n in ("query", "key", "value")]),
+        f"{key}.in_proj_bias": np.concatenate(
+            [np.asarray(node[n]["bias"]).reshape(c) for n in ("query", "key", "value")]),
+        f"{key}.out_proj.weight": np.asarray(node["out"]["kernel"]).reshape(c, c).T,
+        f"{key}.out_proj.bias": np.asarray(node["out"]["bias"]),
+    }
+
+
+def _mha(heads: int):
+    return (lambda sd, k: _mha_to_flax(sd, k, heads), _mha_to_torch)
+
+
+def _put(tree: dict, path: str, value) -> None:
+    *parents, leaf = path.split("/")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
+def _get(tree: dict, path: str):
+    for p in path.split("/"):
+        tree = tree[p]
+    return tree
+
+
+def _flat_keys(tree: dict, prefix: str = "") -> list[str]:
+    out = []
+    for k, v in tree.items():
+        out += _flat_keys(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k]
+    return out
+
+
+def _ids(keys, pattern: str) -> list[int]:
+    """The distinct integers that ``pattern``'s first group matches in ``keys``."""
+    rx = re.compile(pattern)
+    return sorted({int(m.group(1)) for k in keys if (m := rx.search(k))})
+
+
+def _spec_to_flax(state_dict: dict, spec: list) -> dict:
+    sd = dict(state_dict)
+    p: dict = {}
+    for fpath, tkey, kind in spec:
+        _put(p, fpath, kind[0](sd, tkey))
+    return {"params": p}
+
+
+def _spec_to_torch(params: dict, spec: list) -> dict:
+    p = params.get("params", params)
+    sd: dict = {}
+    for fpath, tkey, kind in spec:
+        sd.update(kind[1](_get(p, fpath), tkey))
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _flat(params: dict) -> list[str]:
+    """The leaf paths of a flax tree, ``/``-joined, below ``params``."""
+    return _flat_keys(params.get("params", params))
+
+
+def _dprnn_spec(layers) -> list:
+    """DPRNN-TasNet (torch_import.py:165-190)."""
+    s = "separation"
+    spec = [("encoder", "encoder.conv1d", _CONV1D), ("GroupNorm1_0", f"{s}.norm", _GN),
+            ("bottleneck", f"{s}.conv1d", _CONV1D), ("mask_conv2d", f"{s}.conv2d", _CONV2D),
+            ("end_conv1x1", f"{s}.end_conv1x1", _CONV1D), ("output", f"{s}.output.0", _CONV1D),
+            ("output_gate", f"{s}.output_gate.0", _CONV1D), ("prelu", f"{s}.prelu", _PRELU),
+            ("decoder", "decoder", _CONVT1D)]
+    for i in layers:
+        f, t = f"dual_rnn_{i}", f"{s}.dual_rnn.{i}"
+        spec += [(f"{f}/LSTMLayer_0", f"{t}.intra_rnn", _LSTM),
+                 (f"{f}/Dense_0", f"{t}.intra_linear", _LINEAR),
+                 (f"{f}/GroupNorm1_0", f"{t}.intra_norm", _GN),
+                 (f"{f}/LSTMLayer_1", f"{t}.inter_rnn", _LSTM),
+                 (f"{f}/Dense_1", f"{t}.inter_linear", _LINEAR),
+                 (f"{f}/GroupNorm1_1", f"{t}.inter_norm", _GN)]
+    return spec
+
+
+def dprnn_flax_params(state_dict: dict) -> dict:
+    """The port's (or the reference's) DPRNN-TasNet ``state_dict`` → the JAX
+    package's flax params ``{"params": {...}}`` as numpy arrays."""
+    return _spec_to_flax(state_dict, _dprnn_spec(
+        _ids(state_dict, r"^separation\.dual_rnn\.(\d+)\.")))
+
+
+def dprnn_state_dict(params: dict) -> dict:
+    """The JAX package's DPRNN-TasNet params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _dprnn_spec(_ids(_flat(params), r"^dual_rnn_(\d+)/")))
+
+
+def _cn(f: str, t: str, act: bool = False) -> list:
+    """The zoo's ConvNorm(Act): ``Conv_0``, ``GlobalLayerNorm_0`` (and
+    ``PReLU_0``) ↔ ``conv``, ``norm`` (and ``act``)."""
+    return ([(f"{f}/Conv_0", f"{t}.conv", _CONV1D), (f"{f}/GlobalLayerNorm_0", f"{t}.norm", _GLN)]
+            + ([(f"{f}/PReLU_0", f"{t}.act", _PRELU)] if act else []))
+
+
+def _masked_decoder_spec() -> list:
+    return [("encoder", "encoder", _CONV1D), ("ln", "ln", _GLN),
+            ("bottleneck", "bottleneck", _CONV1D), ("mask_prelu", "mask_net.0", _PRELU),
+            ("mask_conv", "mask_net.1", _CONV1D), ("decoder", "decoder", _CONVT1D)]
+
+
+def _sudormrf_spec(blocks, depths) -> list:
+    """SuDORMRF (torch_import.py:217-249)."""
+    spec = _masked_decoder_spec()
+    for i in blocks:
+        f, t = f"sm_{i}", f"sm.{i}"
+        spec += _cn(f"{f}/proj_1x1", f"{t}.proj_1x1", act=True) + [
+            (f"{f}/final_norm/GlobalLayerNorm_0", f"{t}.final_norm.norm", _GLN),
+            (f"{f}/final_norm/PReLU_0", f"{t}.final_norm.act", _PRELU),
+            (f"{f}/res_conv", f"{t}.res_conv", _CONV1D)]
+        for k in depths:
+            spec += _cn(f"{f}/spp_{k}", f"{t}.spp_dw.{k}")
+    return spec
+
+
+def sudormrf_flax_params(state_dict: dict) -> dict:
+    """SuDORMRF's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _sudormrf_spec(
+        _ids(state_dict, r"^sm\.(\d+)\."), _ids(state_dict, r"^sm\.0\.spp_dw\.(\d+)\.")))
+
+
+def sudormrf_state_dict(params: dict) -> dict:
+    """The JAX package's SuDORMRF params → the port's ``state_dict``."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _sudormrf_spec(_ids(keys, r"^sm_(\d+)/"),
+                                                 _ids(keys, r"^sm_0/spp_(\d+)/")))
+
+
+def _afrcnn_spec(depths) -> list:
+    """AFRCNN (torch_import.py:252-291): one shared block at ``sm.blocks``."""
+    b = "sm.blocks"
+    spec = _masked_decoder_spec() + [
+        ("concat_conv", "sm.concat_block.0", _CONV1D),
+        ("concat_prelu", "sm.concat_block.1", _PRELU),
+        ("blocks/res_conv", f"{b}.res_conv", _CONV1D)]
+    spec += _cn("blocks/proj_1x1", f"{b}.proj_1x1", act=True)
+    spec += _cn("blocks/last_layer", f"{b}.last_layer.0", act=True)
+    for k in depths:
+        spec += _cn(f"blocks/spp_{k}", f"{b}.spp_dw.{k}")
+        spec += _cn(f"blocks/concat_{k}", f"{b}.concat_layer.{k}", act=True)
+        if k >= 1:
+            spec += _cn(f"blocks/fuse_{k}_down", f"{b}.fuse_layers.{k}.0")
+    return spec
+
+
+def afrcnn_flax_params(state_dict: dict) -> dict:
+    """AFRCNN's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _afrcnn_spec(
+        _ids(state_dict, r"^sm\.blocks\.spp_dw\.(\d+)\.")))
+
+
+def afrcnn_state_dict(params: dict) -> dict:
+    """The JAX package's AFRCNN params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _afrcnn_spec(_ids(_flat(params), r"^blocks/spp_(\d+)/")))
+
+
+def _vproj_to_torch(node: dict, key: str) -> dict:
+    """TDANet's batch-axis attention keeps the value rows of
+    ``in_proj_weight`` alone; the query and key rows, which it never uses,
+    come back as zeros."""
+    w, b = np.asarray(node["kernel"]).T, np.asarray(node["bias"])
+    return {f"{key}.in_proj_weight": np.concatenate([np.zeros((2 * w.shape[0], w.shape[1]),
+                                                              w.dtype), w]),
+            f"{key}.in_proj_bias": np.concatenate([np.zeros(2 * b.shape[0], b.dtype), b])}
+
+
+def _vproj_to_flax(sd: dict, key: str) -> dict:
+    w, b = _np(sd[f"{key}.in_proj_weight"]), _np(sd[f"{key}.in_proj_bias"])
+    c = w.shape[1]
+    return {"kernel": _arr(w[2 * c:3 * c].T), "bias": b[2 * c:3 * c]}
+
+
+_VPROJ = (_vproj_to_flax, _vproj_to_torch)
+
+
+def _tdanet_spec(depths, torch_compat: bool) -> list:
+    """TDANet (torch_import.py:294-366), in either mode: the reference quirk
+    (``torch_compat``: ``v_proj`` and ``out_proj``) or the temporal
+    attention (``attn``, 8 heads)."""
+    u, ga = "sm.unet", "sm.unet.globalatt"
+    spec = _masked_decoder_spec() + [
+        ("concat_conv", "sm.concat_block.0", _CONV1D),
+        ("concat_prelu", "sm.concat_block.1", _PRELU),
+        ("unet/res_conv", f"{u}.res_conv", _CONV1D),
+        ("unet/globalatt/attn_in_norm", f"{ga}.attn.attn_in_norm", _LN),
+        ("unet/globalatt/attn_norm", f"{ga}.attn.norm", _LN),
+        ("unet/globalatt/mlp_dwconv", f"{ga}.mlp.dwconv", _CONV1D)]
+    if torch_compat:
+        spec += [("unet/globalatt/v_proj", f"{ga}.attn.attn", _VPROJ),
+                 ("unet/globalatt/out_proj", f"{ga}.attn.attn.out_proj", _LINEAR)]
+    else:
+        spec += [("unet/globalatt/attn", f"{ga}.attn.attn", _mha(8))]
+    spec += _cn("unet/proj_1x1", f"{u}.proj_1x1", act=True)
+    spec += _cn("unet/globalatt/mlp_fc1", f"{ga}.mlp.fc1") + _cn("unet/globalatt/mlp_fc2",
+                                                                 f"{ga}.mlp.fc2")
+    for k in depths:
+        spec += _cn(f"unet/spp_{k}", f"{u}.spp_dw.{k}")
+        for part in ("local_embedding", "global_act"):
+            spec += _cn(f"unet/loc_glo_fus_{k}/{part}", f"{u}.loc_glo_fus.{k}.{part}")
+    for i in depths[:-1]:
+        for part in ("local_embedding", "global_embedding", "global_act"):
+            spec += _cn(f"unet/last_layer_{i}/{part}", f"{u}.last_layer.{i}.{part}")
+    return spec
+
+
+def tdanet_flax_params(state_dict: dict, torch_compat: bool = False) -> dict:
+    """TDANet's ``state_dict`` → the JAX package's flax params for a model
+    of mode ``torch_compat`` (the JAX converter's, for reference
+    checkpoints, is ``torch_compat=True``)."""
+    return _spec_to_flax(state_dict, _tdanet_spec(
+        _ids(state_dict, r"^sm\.unet\.spp_dw\.(\d+)\."), torch_compat))
+
+
+def tdanet_state_dict(params: dict) -> dict:
+    """The JAX package's TDANet params, of either mode (read from the
+    tree), → the port's ``state_dict``."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _tdanet_spec(
+        _ids(keys, r"^unet/spp_(\d+)/"), any(k.startswith("unet/globalatt/v_proj/")
+                                             for k in keys)))
+
+
+# DPTNet's gLN: gamma/beta (1, C, 1) ↔ GroupNorm_0 scale/bias (C,).
+_DPGN = (
+    lambda sd, k: {"GroupNorm_0": {"scale": _np(sd[f"{k}.gamma"]).reshape(-1),
+                                   "bias": _np(sd[f"{k}.beta"]).reshape(-1)}},
+    lambda n, k: {f"{k}.gamma": np.asarray(n["GroupNorm_0"]["scale"]).reshape(1, -1, 1),
+                  f"{k}.beta": np.asarray(n["GroupNorm_0"]["bias"]).reshape(1, -1, 1)})
+
+
+def _dptnet_spec(layers, att_heads: int) -> list:
+    """DPTNetModel (torch_import.py:1098-1167)."""
+    core = "separator.dptnet"
+    spec = [("encoder", "encoder.conv1d", _CONV1D), ("enc_LN", "separator.enc_LN", _DPGN),
+            ("out_prelu", f"{core}.output.0", _PRELU), ("out_conv", f"{core}.output.1", _CONV2D),
+            ("output", "separator.output.0", _CONV1D),
+            ("output_gate", "separator.output_gate.0", _CONV1D),
+            ("decoder", "decoder.convtrans1d", _CONVT1D)]
+    for i in layers:
+        for side in ("row", "col"):
+            f, t = f"{side}_transformer_{i}", f"{core}.{side}_transformer.{i}"
+            spec += [(f"{f}/self_attn", f"{t}.self_attn", _mha(att_heads)),
+                     (f"{f}/norm_attn", f"{t}.norm_attn", _DPGN), (f"{f}/rnn", f"{t}.rnn", _LSTM),
+                     (f"{f}/ff_linear", f"{t}.feed_forward.2", _LINEAR),
+                     (f"{f}/norm_ff", f"{t}.norm_ff", _DPGN)]
+    return spec
+
+
+def dptnet_flax_params(state_dict: dict, att_heads: int = 4) -> dict:
+    """DPTNetModel's ``state_dict`` → the JAX package's flax params; the
+    attention's denses are split into ``att_heads`` heads."""
+    return _spec_to_flax(state_dict, _dptnet_spec(
+        _ids(state_dict, r"^separator\.dptnet\.row_transformer\.(\d+)\."), att_heads))
+
+
+def dptnet_state_dict(params: dict) -> dict:
+    """The JAX package's DPTNetModel params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _dptnet_spec(_ids(_flat(params), r"^row_transformer_(\d+)/"), 1))
+
+
+def _bsrnn_spec(bands, repeats) -> list:
+    """BSRNN (torch_import.py:369-404)."""
+    spec = []
+    for i in bands:
+        spec += [(f"bn_norm_{i}", f"BN.{i}.0", _GN), (f"bn_conv_{i}", f"BN.{i}.1", _CONV1D),
+                 (f"mask_norm_{i}", f"mask.{i}.0", _GN), (f"mask_c1_{i}", f"mask.{i}.1", _CONV1D),
+                 (f"mask_c2_{i}", f"mask.{i}.3", _CONV1D), (f"mask_c3_{i}", f"mask.{i}.5", _CONV1D)]
+    for r in repeats:
+        for part in ("band_rnn", "band_comm"):
+            f, t = f"bsnet_{r}/{part}", f"separator.{r}.{part}"
+            spec += [(f"{f}/GroupNorm1_0", f"{t}.norm", _GN),
+                     (f"{f}/LSTMLayer_0", f"{t}.rnn", _LSTM),
+                     (f"{f}/Dense_0", f"{t}.proj", _LINEAR)]
+    return spec
+
+
+def bsrnn_flax_params(state_dict: dict) -> dict:
+    """BSRNN's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _bsrnn_spec(_ids(state_dict, r"^BN\.(\d+)\."),
+                                                 _ids(state_dict, r"^separator\.(\d+)\.")))
+
+
+def bsrnn_state_dict(params: dict) -> dict:
+    """The JAX package's BSRNN params → the port's ``state_dict``."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _bsrnn_spec(_ids(keys, r"^bn_conv_(\d+)/"),
+                                              _ids(keys, r"^bsnet_(\d+)/")))
+
+
+# TF-GridNet: the sub-band projection is a Linear where the unfold's kernel
+# equals its hop, else a ConvTranspose1d (read from the weight's rank); the
+# all-head norm's per-head PReLU slope (H,) ↔ (H, 1, 1, 1); the concat norm's
+# gamma/beta (1, C, 1, F) ↔ channel-last (1, 1, F, C).
+_SUBLINEAR = (
+    lambda sd, k: (_LINEAR if _np(sd[f"{k}.weight"]).ndim == 2 else _CONVT1D)[0](sd, k),
+    lambda n, k: (_LINEAR if np.asarray(n["kernel"]).ndim == 2 else _CONVT1D)[1](n, k))
+_AHLN = (
+    lambda sd, k: {"gamma": _np(sd[f"{k}.gamma"]), "beta": _np(sd[f"{k}.beta"]),
+                   "prelu_alpha": _np(sd[f"{k}.act.weight"]).reshape(-1, 1, 1, 1)},
+    lambda n, k: {f"{k}.gamma": np.asarray(n["gamma"]), f"{k}.beta": np.asarray(n["beta"]),
+                  f"{k}.act.weight": np.asarray(n["prelu_alpha"]).reshape(-1)})
+_LN4D = (
+    lambda sd, k: {"gamma": _arr(_np(sd[f"{k}.gamma"]).transpose(0, 2, 3, 1)),
+                   "beta": _arr(_np(sd[f"{k}.beta"]).transpose(0, 2, 3, 1))},
+    lambda n, k: {f"{k}.gamma": np.asarray(n["gamma"]).transpose(0, 3, 1, 2),
+                  f"{k}.beta": np.asarray(n["beta"]).transpose(0, 3, 1, 2)})
+
+
+def _tfgridnet_spec(layers) -> list:
+    """TFGridNet (torch_import.py:754-808)."""
+    spec = [("conv", "conv.0", _CONV2D), ("conv_norm", "conv.1", _LN),
+            ("deconv", "deconv", _CONVT2D)]
+    for i in layers:
+        f, t = f"block_{i}", f"blocks.{i}"
+        for part in ("intra", "inter"):
+            spec += [(f"{f}/{part}_norm", f"{t}.{part}_norm", _LN),
+                     (f"{f}/{part}_rnn", f"{t}.{part}_rnn", _LSTM),
+                     (f"{f}/{part}_linear", f"{t}.{part}_linear", _SUBLINEAR)]
+        for q in "QKV":
+            spec += [(f"{f}/attn_conv_{q}", f"{t}.attn_conv_{q}", _CONV2D),
+                     (f"{f}/attn_norm_{q}", f"{t}.attn_norm_{q}", _AHLN)]
+        spec += [(f"{f}/attn_concat_conv", f"{t}.attn_concat_proj.0", _CONV2D),
+                 (f"{f}/attn_prelu", f"{t}.attn_concat_proj.1", _PRELU_RAW),
+                 (f"{f}/attn_concat_norm", f"{t}.attn_concat_proj.2", _LN4D)]
+    return spec
+
+
+def tfgridnet_flax_params(state_dict: dict) -> dict:
+    """TFGridNet's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _tfgridnet_spec(_ids(state_dict, r"^blocks\.(\d+)\.")))
+
+
+def tfgridnet_state_dict(params: dict) -> dict:
+    """The JAX package's TFGridNet params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _tfgridnet_spec(_ids(_flat(params), r"^block_(\d+)/")))
+
+
+# MossFormer(2). The ScaleNorm gain, the positional scale and the FLASH
+# offset-scale are bare leaves under the same values; cLN weight/bias ↔
+# gamma/beta; the FSMN memory conv, a Conv2d (C, i + 1, k, 1), ↔ (k, i + 1, C).
+_CLN = (lambda sd, k: {"gamma": _np(sd[f"{k}.weight"]), "beta": _np(sd[f"{k}.bias"])},
+             lambda n, k: {f"{k}.weight": np.asarray(n["gamma"]),
+                           f"{k}.bias": np.asarray(n["beta"])})
+_FSMN_CONV = (
+    lambda sd, k: {"kernel": _arr(_np(sd[f"{k}.weight"])[..., 0].transpose(2, 1, 0))},
+    lambda n, k: {f"{k}.weight": np.asarray(n["kernel"]).transpose(2, 1, 0)[..., None]})
+
+
+def _ffconvm_spec(f: str, t: str, scalenorm: bool = True) -> list:
+    """FFConvM (mossformer_block.py:89-103): norm, linear, depthwise conv."""
+    norm = ((f"{f}/norm/g", f"{t}.mdl.0.g", _RAW) if scalenorm
+            else (f"{f}/norm", f"{t}.mdl.0", _LN))
+    return [norm, (f"{f}/linear", f"{t}.mdl.1", _LINEAR),
+            (f"{f}/conv/dwconv", f"{t}.mdl.3.sequential.1.conv", _CONV1D)]
+
+
+def _mossformer_spec(blocks, v2: bool) -> list:
+    """MossFormer (torch_import.py:1170-1195) and MossFormer2's v2 tree
+    (:1238-1268)."""
+    mn = "mask_net"
+    core = f"{mn}.mdl.intra_mdl" if v2 else f"{mn}.mdl.att_mdl"
+    spec = [("encoder", ("enc" if v2 else "encoder") + ".conv1d", _CONV1D),
+            ("masknet_norm", f"{mn}.norm", _GN),
+            ("conv1d_encoder", f"{mn}.conv1d_encoder", _CONV1D),
+            ("pos_enc/scale", f"{mn}.pos_enc.scale", _RAW),
+            ("att_final_norm", f"{core}.norm" + ("" if v2 else ".norm"), _LN),
+            ("att_norm", f"{mn}.mdl." + ("intra_norm" if v2 else "att_norm"), _GN),
+            ("prelu", f"{mn}.prelu", _PRELU), ("conv1d_out", f"{mn}.conv1d_out", _CONV1D),
+            ("output", f"{mn}.output.0", _CONV1D), ("output_gate", f"{mn}.output_gate.0", _CONV1D),
+            ("conv1_decoder", f"{mn}.conv1_decoder", _CONV1D),
+            ("decoder", "dec" if v2 else "decoder", _CONVT1D)]
+    for i in blocks:
+        f, t = f"flash_{i}", f"{core}.mossformerM.layers.{i}"
+        for part in ("to_hidden", "to_qk", "to_out"):
+            spec += _ffconvm_spec(f"{f}/{part}", f"{t}.{part}")
+        spec += [(f"{f}/qk_gamma", f"{t}.qk_offset_scale.gamma", _RAW),
+                 (f"{f}/qk_beta", f"{t}.qk_offset_scale.beta", _RAW)]
+        if not v2:
+            continue
+        f, t = f"fsmn_{i}", f"{core}.mossformerM.fsmn.{i}"
+        g = f"{t}.gated_fsmn"
+        spec += [(f"{f}/conv1", f"{t}.conv1.0", _CONV1D),
+                 (f"{f}/conv1_prelu", f"{t}.conv1.1", _PRELU),
+                 (f"{f}/norm1", f"{t}.norm1", _CLN), (f"{f}/norm2", f"{t}.norm2", _CLN),
+                 (f"{f}/conv2", f"{t}.conv2", _CONV1D),
+                 (f"{f}/fsmn/linear", f"{g}.fsmn.linear", _LINEAR),
+                 (f"{f}/fsmn/project", f"{g}.fsmn.project", _LINEAR)]
+        spec += _ffconvm_spec(f"{f}/to_u", f"{g}.to_u", False)
+        spec += _ffconvm_spec(f"{f}/to_v", f"{g}.to_v", False)
+        for d in range(2):  # the FSMN memory's depth (fsmn.py:114-143)
+            c, tc = f"{f}/fsmn/conv", f"{g}.fsmn.conv"
+            spec += [(f"{c}/conv_{d}", f"{tc}.conv{d + 1}", _FSMN_CONV),
+                     (f"{c}/in_gamma_{d}", f"{tc}.norm{d + 1}.weight", _RAW),
+                     (f"{c}/in_beta_{d}", f"{tc}.norm{d + 1}.bias", _RAW),
+                     (f"{c}/prelu_{d}", f"{tc}.prelu{d + 1}.weight", _RAW)]
+    return spec
+
+
+def mossformer_flax_params(state_dict: dict) -> dict:
+    """MossFormer's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _mossformer_spec(
+        _ids(state_dict, r"\.mossformerM\.layers\.(\d+)\."), v2=False))
+
+
+def mossformer_state_dict(params: dict) -> dict:
+    """The JAX package's MossFormer params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _mossformer_spec(_ids(_flat(params), r"^flash_(\d+)/"), False))
+
+
+def mossformer2_flax_params(state_dict: dict) -> dict:
+    """MossFormer2's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _mossformer_spec(
+        _ids(state_dict, r"\.mossformerM\.layers\.(\d+)\."), v2=True))
+
+
+def mossformer2_state_dict(params: dict) -> dict:
+    """The JAX package's MossFormer2 params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _mossformer_spec(_ids(_flat(params), r"^flash_(\d+)/"), True))

@@ -7,8 +7,8 @@ of its input: a bfloat16 module on a bfloat16 input takes its statistics in
 bfloat16 too, as the JAX package's ``bf16_forward`` does.
 
 The JAX package's ``GroupedConv1D`` (its TPU-only shifted form of the
-depthwise conv) has no counterpart: the port's depthwise conv is
-``nn.Conv1d(groups=C)``.
+depthwise conv) has no counterpart: the port's grouped and depthwise convs
+are ``nn.Conv1d(groups=)`` under the reference's names.
 """
 
 from __future__ import annotations
@@ -71,6 +71,11 @@ class PReLU(nn.PReLU):
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def get_layer(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """String → activation (the reference's utils ``get_layer``)."""
+    return get_activation(name)
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..infer.precision import require_bf16
 from ..models.base import BaseModel, save_model
 from .schedulers import EarlyStopping, ReduceLROnPlateau
 
@@ -109,6 +110,8 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: torch.optim.
     took."""
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unsupported precision {precision!r}")
+    if precision == "bf16":
+        require_bf16(model)
     params = list(model.parameters())
 
     def forward(mix: torch.Tensor) -> torch.Tensor:

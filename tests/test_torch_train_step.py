@@ -16,7 +16,9 @@ Tolerances:
   sides, from the same weights.
 
 The clip, the optimizer names and the PIT gradient are held to optax and
-jax directly.
+jax directly. A small-width DPRNN-TasNet is held the same way: an LSTM
+model goes through the same train step unchanged, its ``bias_hh`` frozen so
+the step moves the one bias per gate that flax's cell has.
 """
 
 import jax
@@ -33,7 +35,7 @@ from sonicsim_tpu.train import make_optimizer as j_make_optimizer
 from sonicsim_tpu.train import make_train_step as j_make_train_step
 from sonicsim_tpu_torch import bridge
 from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
-from sonicsim_tpu_torch.models import ConvTasNet
+from sonicsim_tpu_torch.models import ConvTasNet, DPRNNTasNet
 from sonicsim_tpu_torch.train import (Trainer, clip_by_global_norm, make_optimizer,
                                       make_train_step, set_learning_rate)
 from sonicsim_tpu_torch.train.trainer import _val_shards
@@ -108,6 +110,59 @@ def test_f32_step_matches_optax(setup, weight_decay):
         atol = 2 * LR * STEPS if name in noise else PARAM_ATOL
         np.testing.assert_allclose(p, final[name], rtol=0, atol=atol, err_msg=name)
         assert p.dtype == torch.float32
+
+
+DPRNN = dict(in_channels=32, out_channels=16, hidden_channels=16, K=20, num_layers=2)
+DPRNN_CLIP = 0.1  # below its step-1 gradient norm (0.62), so the clip fires
+
+
+def test_f32_step_matches_optax_dprnn(setup):
+    """DPRNN-TasNet (dprnn.yaml's Adam, clip and PIT neg-SNR) at small width:
+    the losses, step 1's clipped gradients and the parameters after 3 steps
+    at the bounds above (the frozen ``bias_hh`` takes no gradient)."""
+    mix, tgt, _ = setup
+    # The loss is −SNR in dB, about 0 dB on the setup's targets, where a
+    # relative bound is ill-posed; a tenth of them puts it near 20 dB.
+    tgt = (0.1 * tgt).astype(np.float32)
+    loss, j_loss = _pit()
+    jm = JM.DPRNNTasNet(**DPRNN)
+    p0 = jax.tree.map(np.array, jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                                 jnp.zeros((1, 800), jnp.float32)))
+    j_grads = jax.jit(jax.grad(lambda p: j_loss(jm.apply(p, mix), tgt)))(p0)
+    assert float(optax.global_norm(j_grads)) > 2 * DPRNN_CLIP
+    j_clipped, _ = optax.clip_by_global_norm(DPRNN_CLIP).update(j_grads, None)
+    opt = j_make_optimizer(LR, clip_norm=DPRNN_CLIP)
+    j_step = jax.jit(j_make_train_step(jm, j_loss, opt))
+    params, state, j_losses = p0, opt.init(p0), []
+    for _ in range(STEPS):
+        params, state, val = j_step(params, state, jnp.asarray(mix), jnp.asarray(tgt))
+        j_losses.append(float(val))
+
+    model = DPRNNTasNet(**DPRNN, device="cpu")
+    model.load_state_dict(bridge.dprnn_state_dict(p0))
+    step = make_train_step(model, loss, make_optimizer(model.parameters(), LR),
+                           clip_norm=DPRNN_CLIP)
+    losses = []
+    for i in range(STEPS):
+        losses.append(float(step(torch.from_numpy(mix), torch.from_numpy(tgt))))
+        if i == 0:
+            grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.requires_grad}
+    np.testing.assert_allclose(losses, j_losses, rtol=LOSS_REL)
+
+    want = bridge.dprnn_state_dict(jax.tree.map(np.array, j_clipped))
+    assert sorted(set(want) - set(grads)) == sorted(k for k in want if ".bias_hh_" in k)
+    g_max = max(float(g.abs().max()) for g in want.values())
+    for name, g in grads.items():
+        np.testing.assert_allclose(g, want[name], rtol=0, atol=GRAD_REL * g_max, err_msg=name)
+
+    # The noise rule above, element by element: an element whose step-1
+    # gradient is float noise (|g| < 1e-6 · max|g|, here as small as Adam's
+    # eps) is held to 2 · lr · steps, every other element to 1e-6.
+    final = bridge.dprnn_state_dict(jax.tree.map(np.array, params))
+    for name, p in model.state_dict().items():
+        atol = torch.where(want[name].abs() < 1e-6 * g_max, 2 * LR * STEPS, PARAM_ATOL)
+        err = (p - final[name]).abs()
+        assert bool((err <= atol).all()), (name, float(err.max()))
 
 
 def test_bf16_step_tracks_f32_on_both_sides(setup):
