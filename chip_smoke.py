@@ -72,7 +72,7 @@ Phases, one line each:
     and its checkpoints read back by ``from_pretrain`` bit-equal to the
     trained model; seconds per epoch. Training launches neither kernel;
 11. the separation zoo: DPRNN-TasNet, SuDORMRF, AFRCNN, TDANet, DPTNet,
-    BSRNN, TF-GridNet, MossFormer and MossFormer2 at the full width of
+    BSRNN, TF-GridNet, MossFormer, MossFormer2 and SkiM at the full width of
     their configs/separation/*.yaml, each built through the config's
     ``_target_`` with seeded weights in the JAX package's flax layout, saved
     with ``save_model`` and loaded with ``from_pretrain`` on the card: fp32
@@ -80,8 +80,26 @@ Phases, one line each:
     the forward's time on B=1 x 10 s (CUDA-event median of 5 after 2),
     audio-s/s and peak extra memory; the inference CLI on phase 8's first
     60 s mixture; then DPRNN's train step (dprnn.yaml's Adam, clip and PIT
-    neg-SNR) timed on B=8 x 4 s and held to the CPU on B=2 x 1 s. The zoo
-    launches neither kernel.
+    neg-SNR) timed on B=8 x 4 s and held to the CPU on B=2 x 1 s, and each
+    side's step-1 gradients, and each LSTM's output and input gradient,
+    against float64 on the CPU (ROADMAP C12). The zoo launches neither
+    kernel;
+12. SkiM streaming: a causal SkiM at skim.yaml's widths (no segment
+    overlap) from a pack on the card, ``SkiMStreamer`` over 10 s of phase
+    8's first mixture in 500-sample (31.25 ms) chunks at depth 0 and 2 and
+    over 4 mixtures at once: per-chunk latency (median, p95) and the
+    real-time factor; the stream within rtol 1e-3 / atol 1e-4 of the
+    offline causal forward on the card, ``stream(depth)`` within 1e-6 of
+    ``step``; then ``python -m sonicsim_tpu_torch.scripts.stream`` on the
+    pack. It launches neither kernel;
+13. the enhancement zoo: the model of each configs/enhancement/*.yaml but
+    the GaGNet family's (Fullband, FullSubnet, FullSubNet+, Inter-SubNet,
+    FastFullSubnet, DCCRN, FRCRN, BSRNN-ESPnet, SuDORMRF) at full width
+    with seeded weights through the bridge and a pack: forward and
+    ``to_waveform`` in fp32 against the port on the CPU on a 4 s crop, the
+    10 s forward's time, audio-s/s and peak extra memory; FullSubnet through
+    the remix evaluation (``scripts.audio_test``'s loop, task enhancement)
+    over phase 8's split. It launches neither kernel.
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -101,8 +119,10 @@ render, the fused mixture step, the RIR-bank render (with the share of
 its device time in the placement product, ``aten::bmm``), one generated
 60 s mixture with the disk sink and one with the device sink,
 ConvTasNet's forward (``serve-fp32-60s``, ``serve-bf16-B16``) and its
-train step (``train-fp32-B8``, ``train-bf16-B8``), and each zoo model's
-10 s forward (``zoo-<name>-10s``).
+train step (``train-fp32-B8``, ``train-bf16-B8``), each zoo model's
+10 s forward (``zoo-<name>-10s``) and each enhancement model's
+(``enh-<config>-10s``); ``--only PREFIX`` builds and profiles the paths
+whose name starts with PREFIX alone.
 ``--port-root`` measures the port found under another checkout, so two
 commits compare in one run on one card.
 """
@@ -172,10 +192,10 @@ TRAIN = dict(seed=0, lr=1e-3, clip=5.0, batch=8, crop_s=4.0, reps=10, warmup=3,
 TRAIN_LOSS_REL = 1e-5  # one float32 step, the card vs the CPU
 TRAIN_GRAD_REL = 1e-4  # of max|g_cpu|: the clipped gradients Adam takes
 # Phase 11: the separation zoo at the full width of the model node of each
-# configs/separation/*.yaml but skim.yaml (written out here, as SERVE's; the
-# CPU tests hold these to the files), in porting order; each built through
-# the config's ``_target_``; held to the CPU on a 4 s crop (each model's CPU
-# forward of 4 s took under 17 s on the card's 8-core host).
+# configs/separation/*.yaml but convtasnet.yaml (written out here, as
+# SERVE's; the CPU tests hold these to the files), in porting order; each
+# built through the config's ``_target_``; held to the CPU on a 4 s crop
+# (each model's CPU forward of 4 s took under 17 s on the card's 8-core host).
 ZOO_MODELS = {
     "DPRNNTasNet": dict(in_channels=512, out_channels=64, hidden_channels=128, kernel_size=4,
                         rnn_type="LSTM", norm="gln", dropout=0, bidirectional=False,
@@ -203,12 +223,62 @@ ZOO_MODELS = {
                         num_blocks=24, d_model=512, attn_dropout=0.1, group_size=256,
                         query_key_dim=128, expansion_factor=4.0, causal=False, norm="ln",
                         num_spks=2),
+    "SkiMNet": dict(input_dim=64, causal=False, num_spk=2, nonlinear="relu", layer=6, unit=128,
+                    segment_size=250, dropout=0.1, mem_type="hc", seg_overlap=True,
+                    kernel_size=4, sample_rate=SR),
 }
 ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=5, warmup=2,
            segment_s=10.0, train_model="DPRNNTasNet", lr=1e-3, clip=5.0, batch=8,
            train_crop_s=4.0, train_reps=5, train_warmup=2, check_batch=2, check_s=1.0,
            profile_reps=3)  # the recurrent models launch thousands of kernels a call
 ZOO_REL = 1e-4  # float32 on the card vs the port on the CPU, of max|ref| (SERVE_REL)
+# Phase 12: SkiM streaming, skim.yaml's widths made causal without segment
+# overlap (the streamer's mode): 10 s of phase 8's first mixture at B=1 for
+# each depth, and the first 10 s of ``batch`` mixtures micro-batched.
+STREAMING = dict(model=dict(ZOO_MODELS["SkiMNet"], causal=True, seg_overlap=False), seed=0,
+                 seconds=10.0, depths=(0, 2), batch=4, batch_depth=2)
+STREAM_RTOL, STREAM_ATOL = 1e-3, 1e-4  # streamed vs offline (tests/test_model_zoo.py:93-121)
+STREAM_STEP_ATOL = 1e-6  # stream(depth) vs step()
+# Phase 13: the enhancement zoo, the model node of each configs/enhancement/
+# *.yaml but the GaGNet family's (ROADMAP A9), by config name (written out
+# here; the CPU tests hold these to the files).
+ENH_MODELS = {
+    "fullband": ("Fullband", dict(num_freqs=257, hidden_size=512, sequence_model="LSTM",
+                                  output_activate_function=False, look_ahead=2, n_fft=512,
+                                  hop_length=256, win_length=512)),
+    "fullsubnet": ("FullSubnet", dict(num_freqs=257, look_ahead=2, sequence_model="LSTM",
+                                      fb_num_neighbors=0, sb_num_neighbors=15,
+                                      fb_output_activate_function="ReLU",
+                                      sb_output_activate_function=False,
+                                      fb_model_hidden_size=512, sb_model_hidden_size=384,
+                                      n_fft=512, hop_length=256, win_length=512)),
+    "fullsubnet_plus": ("FullSubNet_Plus", dict(
+        num_freqs=257, look_ahead=2, sequence_model="LSTM", fb_num_neighbors=0,
+        sb_num_neighbors=15, fb_output_activate_function="ReLU",
+        sb_output_activate_function=False, fb_model_hidden_size=512, sb_model_hidden_size=384,
+        n_fft=512, hop_length=256, win_length=512, channel_attention_model="SE", output_size=2,
+        subband_num=1)),
+    "inter_subnet": ("Inter_SubNet", dict(num_freqs=257, look_ahead=2, sequence_model="LSTM",
+                                          sb_num_neighbors=15, sb_output_activate_function=False,
+                                          sb_model_hidden_size=384, n_fft=512, hop_length=256,
+                                          win_length=512, sbinter_middle_hidden_times=0.8)),
+    "fastfullsubnet": ("FastFullSubnet", dict(
+        look_ahead=2, shrink_size=2, sequence_model="LSTM", encoder_input_size=257, num_mels=64,
+        n_fft=512, hop_length=256, win_length=512, bottleneck_hidden_size=384,
+        bottleneck_num_layers=2, noisy_input_num_neighbors=5, encoder_output_num_neighbors=0)),
+    "dccrn": ("DCCRN", dict(rnn_units=256, masking_mode="E", use_clstm=True,
+                            kernel_num=[32, 64, 128, 256, 256, 256], sample_rate=SR)),
+    "frcrn": ("FRCRN", dict(complex=True, model_complexity=45, model_depth=14, log_amp=False,
+                            padding_mode="zeros", win_len=640, win_inc=320, fft_len=640,
+                            win_type="hann")),
+    "bsrnn_espnet": ("BSRNNESPNet", dict(n_fft=960, hop_length=480, num_spk=1, num_channels=256,
+                                         num_layers=12, target_fs=48000, causal=False)),
+    "sudormrf": ("SuDORMRF", dict(out_channels=256, in_channels=512, num_blocks=8,
+                                  upsampling_depth=7, enc_kernel_size=81, enc_num_basis=512,
+                                  num_sources=1)),
+}
+ENH = dict(models=ENH_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=5, warmup=2,
+           eval_model="fullsubnet")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -1749,6 +1819,7 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
     from sonicsim_tpu_torch.dataset import MovingDataModule
     from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
     from sonicsim_tpu_torch.models import from_pretrain, get, save_model
+    from sonicsim_tpu_torch.models.zoo_layers import LSTMLayer
     from sonicsim_tpu_torch.scripts import inference
     from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
     from sonicsim_tpu_torch.train import make_optimizer, make_train_step
@@ -1825,12 +1896,17 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
         opt = make_optimizer(model.parameters(), cfg["lr"])
         return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
 
-    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True):
-        """One step's loss and (clipped) gradients, float64 on the host."""
+    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True, lstm_cudnn=True, probe=None):
+        """One step's loss and (clipped) gradients, float64 on the host; with
+        ``lstm_cudnn`` off the LSTMs alone leave cuDNN; ``probe`` collects
+        each LSTM's output and the gradient at its input (float64, host)."""
         enabled = torch.backends.cudnn.enabled
         torch.backends.cudnn.enabled = cudnn
         try:
             model, step = fresh(dev, dtype)
+            for lname, m in model.named_modules():
+                if isinstance(m, LSTMLayer):
+                    _probe_lstm(m, lname, probe, lstm_cudnn)
             loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
         finally:
             torch.backends.cudnn.enabled = enabled
@@ -1876,17 +1952,25 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
     rng = np.random.default_rng(cfg["seed"])
     xn = torch.from_numpy(rng.standard_normal(tuple(xc.shape)).astype(np.float32))
     yn = torch.from_numpy(0.5 * rng.standard_normal(tuple(yc.shape)).astype(np.float32))
-    parts = []
+    parts, layers = [], []
     for label, (xb, yb) in (("phase 8's crops", (xc, yc)), ("seeded noise", (xn, yn))):
-        _, g64 = step1("cpu", xb, yb, torch.float64)
+        p64: dict = {}
+        _, g64 = step1("cpu", xb, yb, torch.float64, probe=p64)
         top = max(float(g.abs().max()) for g in g64.values())
-        dist = {}
-        for side, dev, cudnn in (("card", device, True), ("card with cuDNN off", device, False),
-                                 ("CPU float32", "cpu", True)):
-            g = step1(dev, xb, yb, cudnn=cudnn)[1]
+        dist, per_layer = {}, {}
+        for side, dev, cudnn, lstm_cudnn in (
+                ("card", device, True, True), ("card with cuDNN off", device, False, True),
+                ("card with its LSTMs off cuDNN", device, True, False),
+                ("CPU float32", "cpu", True, True)):
+            probe: dict = {}
+            g = step1(dev, xb, yb, cudnn=cudnn, lstm_cudnn=lstm_cudnn, probe=probe)[1]
             worst = max(g64, key=lambda n: float((g[n] - g64[n]).abs().max()))
             dist[side] = f"{float((g[worst] - g64[worst]).abs().max()) / top:.3g} ({worst})"
+            per_layer[side] = " ".join(
+                f"{k.split('dual_rnn.')[-1]} {_share(probe[k][0], v[0]):.2g}/"
+                f"{_share(probe[k][1], v[1]):.2g}" for k, v in p64.items())
         parts.append(f"{label}: " + ", ".join(f"{k} {v}" for k, v in dist.items()))
+        layers.append(f"{label}: " + "; ".join(f"{k}: {v}" for k, v in per_layer.items()))
     enabled = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = False
     try:
@@ -1898,12 +1982,235 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
           f"the CPU, of its max|g| (worst parameter): " + "; ".join(parts)
           + f"; the B={cfg['batch']} step with cuDNN off {off_ms:.4f} ms (median of 3) against "
           f"{step_ms:.4f} ms; {smi}", flush=True)
+    print(f"zoo[train {name} vs float64, per LSTM]: each LSTM's output / the gradient at its "
+          f"input, max abs distance from float64 on the CPU as a share of that tensor's "
+          f"max|.|, in forward order: " + " || ".join(layers), flush=True)
+    return stats
+
+
+def _share(a, b) -> float:
+    """max|a − b| / max|b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _probe_lstm(module, name: str, probe: dict | None, use_cudnn: bool) -> None:
+    """Record ``module``'s output and the gradient at its input into
+    ``probe[name]`` (float64, on the host); without ``use_cudnn`` run its
+    forward (and so its backward) outside cuDNN."""
+    import torch
+
+    if probe is not None:
+        def keep_out(mod, args, out):
+            probe[name] = [out.detach().double().cpu(), None]
+
+        def keep_grad(mod, grad_in, grad_out):
+            probe[name][1] = grad_in[0].double().cpu()
+
+        module.register_forward_hook(keep_out)
+        module.register_full_backward_hook(keep_grad)
+    if not use_cudnn:
+        forward = module.forward
+
+        def off(*args, **kwargs):
+            with torch.backends.cudnn.flags(enabled=False):
+                return forward(*args, **kwargs)
+
+        module.forward = off
+
+
+def _stream_run(streamer, x, depth: int, flush):
+    """Stream (B, n) ``x`` in the streamer's chunks and a flush chunk at
+    ``depth``: each chunk's output, its latency in ms (from the chunk's
+    feed to its output's yield), and the wall seconds."""
+    chunk = streamer.chunk_samples
+    chunks = [x[:, s:s + chunk] for s in range(0, x.shape[1], chunk)] + [flush]
+    streamer.reset(x.shape[0])
+    fed, outs, got = [], [], []
+
+    def feeder():
+        for c in chunks:
+            fed.append(time.perf_counter())
+            yield c
+
+    t0 = time.perf_counter()
+    for out in streamer.stream(feeder(), depth=depth):
+        got.append(time.perf_counter())
+        outs.append(out)
+    wall = time.perf_counter() - t0
+    return outs, (np.asarray(got) - np.asarray(fed)) * 1e3, wall
+
+
+def phase_streaming(device, cfg, folders, root: Path, smi) -> dict:
+    """Phase 12: a causal SkiM at skim.yaml's widths from a pack on the card,
+    streamed through ``SkiMStreamer`` over 10 s of phase 8's first mixture
+    at each depth and over ``batch`` mixtures at once: per-chunk latency
+    (median, p95) and the real-time factor; the stream against the offline
+    causal forward on the card, ``stream(depth)`` against ``step``; then
+    ``python -m sonicsim_tpu_torch.scripts.stream`` on the pack."""
+    import torch
+
+    from sonicsim_tpu_torch.models import SkiMStreamer, from_pretrain, save_model
+    from sonicsim_tpu_torch.scripts.common import strict_float32
+    from sonicsim_tpu_torch.utils import write_wav
+
+    strict_float32()
+    root.mkdir()
+    mono = _mono_mixes(folders)
+    n = int(cfg["seconds"] * SR)
+    cpu = seeded_zoo("SkiMNet", cfg["model"], cfg["seed"])
+    pack = root / "skim_causal.pkl"
+    save_model(cpu, pack)
+    model = from_pretrain(pack, device=device)
+    streamer = SkiMStreamer(model)
+    chunk, hop = streamer.chunk_samples, streamer.hop
+    flush = torch.zeros(1, cfg["model"]["kernel_size"] - hop, device=device)
+    x1 = torch.from_numpy(mono[0][None, :n].copy()).to(device)
+    xb = torch.from_numpy(np.stack([mono[k % len(mono)][:n] for k in range(cfg["batch"])])
+                          ).to(device)
+    # Warm-up as the CLI does: two chunks reach the segment path, then the flush.
+    for w in (chunk, chunk, flush.shape[1]):
+        streamer.step(torch.zeros(1, w, device=device))
+
+    streamer.reset()
+    steps = [streamer.step(x1[:, s:s + chunk]).cpu().numpy() for s in range(0, n, chunk)]
+    steps.append(streamer.step(flush).cpu().numpy())
+    with torch.inference_mode():
+        offline1, offline_b = model(x1).cpu().numpy(), model(xb).cpu().numpy()
+    runs, stats = {}, {}
+    for depth in cfg["depths"]:
+        runs[f"B=1 depth {depth}"] = (_stream_run(streamer, x1, depth, flush), offline1)
+    runs[f"B={cfg['batch']} depth {cfg['batch_depth']}"] = (
+        _stream_run(streamer, xb, cfg["batch_depth"], flush.expand(cfg["batch"], -1)), offline_b)
+    for label, ((outs, lat, wall), offline) in runs.items():
+        streamed = np.concatenate(outs, axis=-1)
+        m = min(streamed.shape[-1], offline.shape[-1]) - hop
+        err = np.abs(streamed[..., :m] - offline[..., :m])
+        tol = STREAM_ATOL + STREAM_RTOL * np.abs(offline[..., :m])
+        check(bool(np.isfinite(streamed).all()) and m >= n - hop and bool((err <= tol).all()),
+              f"SkiM stream {label} vs the offline causal forward: max abs err "
+              f"{float(err.max())}, worst err/tol {float((err / tol).max())}, {m} samples")
+        stats[label] = dict(p50_ms=float(np.median(lat)), p95_ms=float(np.percentile(lat, 95)),
+                            rtf=cfg["seconds"] / wall, wall_s=wall, err=float(err.max()))
+        if label.startswith("B=1"):
+            check(len(outs) == len(steps), f"{label}: {len(outs)} outputs, {len(steps)} steps")
+            d = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(outs, steps))
+            check(d <= STREAM_STEP_ATOL, f"SkiM stream {label} vs step(): max abs diff {d}")
+            stats[label]["vs_step"] = d
+
+    mix_path = root / "mix.wav"
+    write_wav(mix_path, mono[0][None, :n], SR, encoding="float32")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "sonicsim_tpu_torch.scripts.stream", "--model_path",
+                        str(pack), "--mix", str(mix_path), "--out_dir", str(root / "cli"),
+                        "--device", str(device)], cwd=str(Path(__file__).resolve().parent),
+                       capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"scripts.stream exited {r.returncode}: {r.stderr[-2000:]}")
+    cli = json.loads(r.stdout.strip().splitlines()[-1])
+    check(all(Path(o).is_file() for o in cli["outputs"]) and len(cli["outputs"]) == 2,
+          f"scripts.stream outputs: {cli['outputs']}")
+    print(f"stream[SkiM causal, skim.yaml's widths, from {pack.name} via from_pretrain]: "
+          f"chunk {chunk} samples = {1e3 * chunk / SR:g} ms, {cfg['seconds']:g} s of phase 8's "
+          f"mixture(s) | " + " | ".join(
+              f"{k}: per-chunk latency p50 {v['p50_ms']:.4f} ms, p95 {v['p95_ms']:.4f} ms, "
+              f"real-time factor {v['rtf']:.2f} (wall {v['wall_s']:.4f} s), vs offline max abs "
+              f"err {v['err']:.3g}" + (f", vs step() {v['vs_step']:.3g}" if "vs_step" in v else "")
+              for k, v in stats.items())
+          + f" (tol rtol {STREAM_RTOL} / atol {STREAM_ATOL}; step {STREAM_STEP_ATOL}); "
+          f"scripts.stream CLI: {json.dumps(cli['chunk_latency_ms'])} ms, real-time factor "
+          f"{cli['real_time_factor']}, process wall {cli_s:.2f} s; {smi}", flush=True)
+    return stats
+
+
+def phase_enhancement(device, cfg, folders, root: Path, smi) -> dict:
+    """Phase 13: each enhancement config's model from a pack on the card: its
+    fp32 forward and ``to_waveform`` against the port on the CPU on a crop
+    of phase 8's first mixture, its 10 s forward's time and peak extra
+    memory; then ``cfg["eval_model"]`` through the remix evaluation
+    (``scripts.audio_test``'s loop, task enhancement) over phase 8's split.
+    Returns each model's numbers."""
+    import csv
+
+    import torch
+
+    from sonicsim_tpu_torch.models import from_pretrain, save_model
+    from sonicsim_tpu_torch.scripts import audio_test
+    from sonicsim_tpu_torch.scripts.common import make_forward, pesq_columns, strict_float32
+
+    strict_float32()
+    root.mkdir()
+    mono = _mono_mixes(folders)
+    t_win = int(cfg["window_s"] * SR)
+    x10 = torch.from_numpy(mono[0][None, :t_win].copy()).to(device)
+    crop = torch.from_numpy(mono[0][None, :int(cfg["crop_s"] * SR)].copy())
+    stats, served = {}, {}
+    for stem, (name, args) in cfg["models"].items():
+        t0 = time.perf_counter()
+        cpu = seeded_zoo(name, args, cfg["seed"])
+        pack = root / f"{stem}.pkl"
+        save_model(cpu, pack)
+        model = from_pretrain(pack, device=device)
+        check(type(model).__name__ == name, f"{stem}: from_pretrain built {type(model).__name__}")
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        fwd = make_forward(model)
+        t0 = time.perf_counter()
+        ref = make_forward(cpu)(crop)
+        cpu_s = time.perf_counter() - t0
+        got = fwd(crop.to(device)).cpu()
+        err, peak = float((got - ref).abs().max()), float(ref.abs().max())
+        check(tuple(got.shape) == (1, 1, crop.shape[-1]) and bool(torch.isfinite(got).all()),
+              f"{stem}: output {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        check(err <= ZOO_REL * peak,
+              f"{stem} on the device vs the CPU: max abs err {err} (max|ref| {peak})")
+        ms = median_ms(lambda fwd=fwd: fwd(x10), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        mib = _peak_mib(device, lambda fwd=fwd: fwd(x10))
+        stats[stem] = dict(model=name, params=n_params, err=err, max_ref=peak, cpu_s=cpu_s, ms=ms,
+                           audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib)
+        print(f"enh[{stem}: {name}]: {n_params} parameters, seeded, from {pack.name} via "
+              f"from_pretrain ({build_s:.2f} s with the build on the CPU); fp32 forward and "
+              f"to_waveform vs the port on the CPU on a {cfg['crop_s']:g} s crop of phase 8's "
+              f"first mixture ({cpu_s:.2f} s there): max abs err {err:.3g} of max|ref| "
+              f"{peak:.3g} (tol {ZOO_REL}·max|ref|); B=1 x {cfg['window_s']:g} s: {ms:.4f} ms = "
+              f"{stats[stem]['audio_s_per_s']:.1f} audio-s/s (CUDA-event median of "
+              f"{cfg['reps']} after {cfg['warmup']}), peak extra memory "
+              f"{mib if mib is None else round(mib, 1)} MiB; {smi}", flush=True)
+        if stem == cfg["eval_model"]:
+            served = dict(model=model, stem=stem)
+        else:
+            del model
+        del fwd
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    split = folders[0].parent.parent
+    t0 = time.perf_counter()
+    res = audio_test.evaluate_remix(served["model"], split,
+                                    root / "results" / "metrics_remix-noise.csv",
+                                    task="enhancement", extra_metrics=pesq_columns(),
+                                    seed=cfg["seed"])
+    wall = time.perf_counter() - t0
+    with open(res["csv"]) as f:
+        table = list(csv.DictReader(f))
+    scored = res["spans"] - res["skipped_silent"]
+    check(res["mixtures"] == len(folders) and scored > 0 and len(table) == scored + 2,
+          f"enhancement metrics.csv has {len(table)} rows for {res['spans']} spans")
+    n = res["mixtures"]
+    print(f"enh[remix eval, {served['stem']}]: {n} mixtures x "
+          f"{len(_mono_mixes(folders[:1])[0]) / SR:g} s, moving_audio_1 + noise at an SNR "
+          f"from seed {cfg['seed']} (task enhancement): wall per mixture {wall / n:.4f} s = "
+          f"forward {res['forward_s'] / n:.4f} s + tracker {res['metrics_s'] / n:.4f} s; "
+          + "; ".join(f"metrics.csv {row['snt_id']}: " + ", ".join(
+              f"{k} {float(v):.4f}" for k, v in row.items() if k != "snt_id")
+              for row in table[-2:]), flush=True)
+    stats["eval"] = dict(model=served["stem"], wall_per_mixture_s=wall / n)
     return stats
 
 
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
-        train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, env_line: str = "") -> None:
+        train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
+        env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     head = headline_plan(head_cfg)
@@ -1942,9 +2249,15 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         kernels.reset_launch_counts()
         phase_zoo(device, zoo_cfg, runs["disk"]["produced"], Path(tmp) / "zoo", smi)
         zoo = dict(kernels.LAUNCHES)
-    check(not any(serving.values()), f"serving launched a kernel: {serving}")
-    check(not any(training.values()), f"training launched a kernel: {training}")
-    check(not any(zoo.values()), f"the zoo launched a kernel: {zoo}")
+        kernels.reset_launch_counts()
+        phase_streaming(device, stream_cfg, runs["disk"]["produced"], Path(tmp) / "stream", smi)
+        streaming = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        phase_enhancement(device, enh_cfg, runs["disk"]["produced"], Path(tmp) / "enh", smi)
+        enhancement = dict(kernels.LAUNCHES)
+    for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
+                    ("SkiM streaming", streaming), ("the enhancement zoo", enhancement)):
+        check(not any(c.values()), f"{path} launched a kernel: {c}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
     if device.type == "cuda":
@@ -1958,7 +2271,9 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"the main paths; the bank render has no kernel of its own; "
           f"generation takes the fused form alone); serving (phase 9) launches "
           f"neither kernel: {serving}, nor does training (phase 10): {training}, nor "
-          f"the zoo (phase 11): {zoo} (no zoo model has a Pallas counterpart)", flush=True)
+          f"the zoo (phase 11): {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
+          f"enhancement zoo (phase 13): {enhancement} (no zoo model has a Pallas "
+          f"counterpart)", flush=True)
 
     report = {"kernels": [
         {
@@ -2062,9 +2377,10 @@ def _training_paths(device, cfg, model_cfg) -> dict:
     return paths
 
 
-def _zoo_paths(device, cfg) -> dict:
+def _zoo_paths(device, cfg, wanted=lambda name: True) -> dict:
     """Each zoo model's forward (phase 11's seeded weights) on B=1 x
-    ``cfg["window_s"]`` of seeded noise, in fp32."""
+    ``cfg["window_s"]`` of seeded noise, in fp32; the models whose path is
+    ``wanted`` alone are built."""
     import torch
 
     from sonicsim_tpu_torch.scripts.common import make_forward
@@ -2073,10 +2389,35 @@ def _zoo_paths(device, cfg) -> dict:
     x = 0.1 * torch.randn((1, int(cfg["window_s"] * SR)), generator=g, device=device)
     paths = {}
     for name, args in cfg["models"].items():
+        path = f"zoo-{name.lower()}-{cfg['window_s']:g}s"
+        if not wanted(path):
+            continue
         model = seeded_zoo(name, args, cfg["seed"])
         model.place(device)
         fwd = make_forward(model)
-        paths[f"zoo-{name.lower()}-{cfg['window_s']:g}s"] = lambda fwd=fwd: fwd(x)
+        paths[path] = lambda fwd=fwd: fwd(x)
+    return paths
+
+
+def _enh_paths(device, cfg, wanted=lambda name: True) -> dict:
+    """Each enhancement model's forward and ``to_waveform`` (phase 13's
+    seeded weights) on B=1 x ``cfg["window_s"]`` of seeded noise, in fp32;
+    the models whose path is ``wanted`` alone are built."""
+    import torch
+
+    from sonicsim_tpu_torch.scripts.common import make_forward
+
+    g = torch.Generator(device=device).manual_seed(cfg["seed"])
+    x = 0.1 * torch.randn((1, int(cfg["window_s"] * SR)), generator=g, device=device)
+    paths = {}
+    for stem, (name, args) in cfg["models"].items():
+        path = f"enh-{stem}-{cfg['window_s']:g}s"
+        if not wanted(path):
+            continue
+        model = seeded_zoo(name, args, cfg["seed"])
+        model.place(device)
+        fwd = make_forward(model)
+        paths[path] = lambda fwd=fwd: fwd(x)
     return paths
 
 
@@ -2106,7 +2447,7 @@ def _generation_paths(device, cfg, root: Path) -> dict:
 
 
 def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg, zoo_cfg,
-                   n_reps, tmp, only=None):
+                   n_reps, tmp, only=None, enh_cfg=ENH):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2134,19 +2475,25 @@ def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, trai
     ways = [bank_ways(k, bank_cfg["n_ways"]) for k in range(bank_cfg["n_banks"])]
     paths["bank"] = lambda: render_rir_banks(oracle, ways, mic, channel,
                                              out_device=True)
-    if importlib.util.find_spec("sonicsim_tpu_torch.dataset"):
+
+    def wanted(prefix: str) -> bool:  # a path named ``prefix…`` can match ``only``
+        return not only or prefix.startswith(only) or only.startswith(prefix)
+
+    if importlib.util.find_spec("sonicsim_tpu_torch.dataset") and wanted("generation-"):
         paths.update(_generation_paths(device, gen_cfg, tmp))
-    if importlib.util.find_spec("sonicsim_tpu_torch.models"):
+    if importlib.util.find_spec("sonicsim_tpu_torch.models") and wanted("serve-"):
         paths.update(_serving_paths(device, serve_cfg, tmp))
-    if importlib.util.find_spec("sonicsim_tpu_torch.train"):
+    if importlib.util.find_spec("sonicsim_tpu_torch.train") and wanted("train-"):
         paths.update(_training_paths(device, train_cfg, serve_cfg["model"]))
-    if importlib.util.find_spec("sonicsim_tpu_torch.models.tfgridnet"):
-        paths.update(_zoo_paths(device, zoo_cfg))
+    if importlib.util.find_spec("sonicsim_tpu_torch.models.tfgridnet") and wanted("zoo-"):
+        paths.update(_zoo_paths(device, zoo_cfg, wanted))
+    if importlib.util.find_spec("sonicsim_tpu_torch.models.frcrn") and wanted("enh-"):
+        paths.update(_enh_paths(device, enh_cfg, wanted))
     report = {"port": sonicsim_tpu_torch.__file__}
     for name, fn in paths.items():
         if only and not name.startswith(only):
             continue
-        reps = zoo_cfg["profile_reps"] if name.startswith("zoo-") else n_reps
+        reps = zoo_cfg["profile_reps"] if name.startswith(("zoo-", "enh-")) else n_reps
         fn()
         sync(device)
         torch.cuda.reset_peak_memory_stats(device)

@@ -293,47 +293,64 @@ _GN = (lambda sd, k: {"GroupNorm_0": _LN[0](sd, k)},
 _RAW = (lambda sd, k: _np(sd[k]), lambda n, k: {k: np.asarray(n)})
 
 
-def _lstm_to_flax(sd: dict, key: str) -> dict:
-    """torch LSTM layer → flax ``OptimizedLSTMCell_0`` (and ``_1``, the
-    backward direction, when the layer is bidirectional): per-gate input
-    denses ``i{g}`` (no bias) and hidden denses ``h{g}`` with the bias
-    ``bias_ih + bias_hh``, gates ``i f g o`` (torch_import.py:91-113)."""
-    out = {}
-    for cell, rev in (("OptimizedLSTMCell_0", ""), ("OptimizedLSTMCell_1", "_reverse")):
-        if f"{key}.weight_ih_l0{rev}" not in sd:
-            continue
-        w_ih, w_hh = _np(sd[f"{key}.weight_ih_l0{rev}"]), _np(sd[f"{key}.weight_hh_l0{rev}"])
-        b = _np(sd[f"{key}.bias_ih_l0{rev}"]) + _np(sd[f"{key}.bias_hh_l0{rev}"])
-        h = w_hh.shape[1]
-        gates = {}
-        for i, g in enumerate("ifgo"):
-            sl = slice(i * h, (i + 1) * h)
-            gates[f"i{g}"] = {"kernel": _arr(w_ih[sl].T)}
-            gates[f"h{g}"] = {"kernel": _arr(w_hh[sl].T), "bias": b[sl]}
-        out[cell] = gates
-    return out
+def _cell_to_flax(sd: dict, key: str, suffix: str) -> dict:
+    """One direction of one layer of a torch LSTM (``weight_ih_{suffix}``…)
+    → a flax ``OptimizedLSTMCell``: per-gate input denses ``i{g}`` (no bias)
+    and hidden denses ``h{g}`` with the bias ``bias_ih + bias_hh``, gates
+    ``i f g o`` (torch_import.py:91-113)."""
+    w_ih, w_hh = _np(sd[f"{key}.weight_ih_{suffix}"]), _np(sd[f"{key}.weight_hh_{suffix}"])
+    b = _np(sd[f"{key}.bias_ih_{suffix}"]) + _np(sd[f"{key}.bias_hh_{suffix}"])
+    h = w_hh.shape[1]
+    gates = {}
+    for i, g in enumerate("ifgo"):
+        sl = slice(i * h, (i + 1) * h)
+        gates[f"i{g}"] = {"kernel": _arr(w_ih[sl].T)}
+        gates[f"h{g}"] = {"kernel": _arr(w_hh[sl].T), "bias": b[sl]}
+    return gates
 
 
-def _lstm_to_torch(node: dict, key: str) -> dict:
+def _cell_to_torch(gates: dict, key: str, suffix: str) -> dict:
     """The inverse: flax's summed bias goes to ``bias_ih``, ``bias_hh`` is
     zero, so flax→torch→flax is exact and torch→flax→torch the same
     function."""
+    b = np.concatenate([np.asarray(gates[f"h{g}"]["bias"]) for g in "ifgo"])
+    return {f"{key}.weight_ih_{suffix}": np.concatenate(
+                [np.asarray(gates[f"i{g}"]["kernel"]).T for g in "ifgo"]),
+            f"{key}.weight_hh_{suffix}": np.concatenate(
+                [np.asarray(gates[f"h{g}"]["kernel"]).T for g in "ifgo"]),
+            f"{key}.bias_ih_{suffix}": b, f"{key}.bias_hh_{suffix}": np.zeros_like(b)}
+
+
+_DIRECTIONS = (("OptimizedLSTMCell_0", "l0"), ("OptimizedLSTMCell_1", "l0_reverse"))
+
+
+def _lstm_to_flax(sd: dict, key: str) -> dict:
+    """A one-layer torch LSTM → ``OptimizedLSTMCell_0`` (and ``_1``, the
+    backward direction, when the layer is bidirectional)."""
+    return {cell: _cell_to_flax(sd, key, suffix) for cell, suffix in _DIRECTIONS
+            if f"{key}.weight_ih_{suffix}" in sd}
+
+
+def _lstm_to_torch(node: dict, key: str) -> dict:
     sd = {}
-    for cell, rev in (("OptimizedLSTMCell_0", ""), ("OptimizedLSTMCell_1", "_reverse")):
-        if cell not in node:
-            continue
-        gates = node[cell]
-        b = np.concatenate([np.asarray(gates[f"h{g}"]["bias"]) for g in "ifgo"])
-        sd[f"{key}.weight_ih_l0{rev}"] = np.concatenate(
-            [np.asarray(gates[f"i{g}"]["kernel"]).T for g in "ifgo"])
-        sd[f"{key}.weight_hh_l0{rev}"] = np.concatenate(
-            [np.asarray(gates[f"h{g}"]["kernel"]).T for g in "ifgo"])
-        sd[f"{key}.bias_ih_l0{rev}"] = b
-        sd[f"{key}.bias_hh_l0{rev}"] = np.zeros_like(b)
+    for cell, suffix in _DIRECTIONS:
+        if cell in node:
+            sd.update(_cell_to_torch(node[cell], key, suffix))
     return sd
 
 
 _LSTM = (_lstm_to_flax, _lstm_to_torch)
+# One cell ↔ a one-layer unidirectional torch LSTM (DCCRN's complex LSTM
+# keeps its real and imaginary LSTMs as cells 0 and 1 of one flax node).
+_CELL = (lambda sd, k: _cell_to_flax(sd, k, "l0"),
+         lambda n, k: _cell_to_torch(n, k, "l0"))
+# A stack of unidirectional layers (the enhancement models' SequenceModel):
+# layer i ↔ ``OptimizedLSTMCell_i``.
+_LSTM_STACK = (
+    lambda sd, k: {f"OptimizedLSTMCell_{i}": _cell_to_flax(sd, k, f"l{i}")
+                   for i in _ids(sd, rf"^{re.escape(k)}\.weight_ih_l(\d+)$")},
+    lambda n, k: {t: v for i in _ids(n, r"^OptimizedLSTMCell_(\d+)$")
+                  for t, v in _cell_to_torch(n[f"OptimizedLSTMCell_{i}"], k, f"l{i}").items()})
 
 
 def _mha_to_flax(sd: dict, key: str, heads: int) -> dict:
@@ -776,3 +793,319 @@ def mossformer2_flax_params(state_dict: dict) -> dict:
 def mossformer2_state_dict(params: dict) -> dict:
     """The JAX package's MossFormer2 params → the port's ``state_dict``."""
     return _spec_to_torch(params, _mossformer_spec(_ids(_flat(params), r"^flash_(\d+)/"), True))
+
+
+# SkiM: the reference's norms keep gamma/beta (1, C, 1); the JAX model reads
+# them as GroupNorm1's scale/bias (non-causal) or ChannelLayerNorm's
+# gamma/beta (causal).
+_SKIM_GLN = (
+    lambda sd, k: {"GroupNorm_0": {"scale": _np(sd[f"{k}.gamma"]).reshape(-1),
+                                   "bias": _np(sd[f"{k}.beta"]).reshape(-1)}},
+    lambda n, k: {f"{k}.gamma": np.asarray(n["GroupNorm_0"]["scale"]).reshape(1, -1, 1),
+                  f"{k}.beta": np.asarray(n["GroupNorm_0"]["bias"]).reshape(1, -1, 1)})
+_SKIM_CLN = (
+    lambda sd, k: {"gamma": _np(sd[f"{k}.gamma"]).reshape(-1),
+                   "beta": _np(sd[f"{k}.beta"]).reshape(-1)},
+    lambda n, k: {f"{k}.gamma": np.asarray(n["gamma"]).reshape(1, -1, 1),
+                  f"{k}.beta": np.asarray(n["beta"]).reshape(1, -1, 1)})
+
+
+def _skim_spec(layers, mems: dict, causal: bool) -> list:
+    """SkiMNet (torch_import.py:988-1032); ``mems`` maps a Mem-LSTM's index
+    to the states it refines ("h", "c")."""
+    sep, norm = "separation.skim", _SKIM_CLN if causal else _SKIM_GLN
+    spec = [("encoder", "encoder.conv1d", _CONV1D), ("out_prelu", f"{sep}.output_fc.0", _PRELU),
+            ("output_fc", f"{sep}.output_fc.1", _CONV1D), ("decoder", "decoder", _CONVT1D)]
+    for i in layers:
+        f, t = f"seg_lstm_{i}", f"{sep}.seg_lstms.{i}"
+        spec += [(f, f"{t}.lstm", _LSTM), (f"{f}/proj", f"{t}.proj", _LINEAR),
+                 (f"{f}/norm", f"{t}.norm", norm)]
+    for i, tags in mems.items():
+        f, t = f"mem_lstm_{i}", f"{sep}.mem_lstms.{i}"
+        for tag in tags:
+            spec += [(f"{f}/{tag}_net/LSTMLayer_0", f"{t}.{tag}_net.rnn", _LSTM),
+                     (f"{f}/{tag}_net/proj", f"{t}.{tag}_net.proj", _LINEAR),
+                     (f"{f}/{tag}_norm", f"{t}.{tag}_norm", norm)]
+    return spec
+
+
+def _mems(keys, pattern: str) -> dict:
+    rx = re.compile(pattern)
+    out: dict = {}
+    for k in keys:
+        if m := rx.search(k):
+            out.setdefault(int(m.group(1)), set()).add(m.group(2))
+    return {i: sorted(tags, reverse=True) for i, tags in sorted(out.items())}
+
+
+def skim_flax_params(state_dict: dict) -> dict:
+    """SkiMNet's ``state_dict`` → the JAX package's flax params (causal when
+    the SegLSTMs have no backward direction)."""
+    causal = "separation.skim.seg_lstms.0.lstm.weight_ih_l0_reverse" not in state_dict
+    return _spec_to_flax(state_dict, _skim_spec(
+        _ids(state_dict, r"^separation\.skim\.seg_lstms\.(\d+)\."),
+        _mems(state_dict, r"^separation\.skim\.mem_lstms\.(\d+)\.([hc])_net\."), causal))
+
+
+def skim_state_dict(params: dict) -> dict:
+    """The JAX package's SkiMNet params → the port's ``state_dict``."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _skim_spec(
+        _ids(keys, r"^seg_lstm_(\d+)/"), _mems(keys, r"^mem_lstm_(\d+)/([hc])_net/"),
+        any(k.startswith("seg_lstm_0/norm/gamma") for k in keys)))
+
+
+# --- The enhancement zoo's weights -------------------------------------------
+#
+# StatelessBatchNorm: scale, bias (and the frozen mean, var) ↔ weight, bias
+# (and running_mean, running_var). FRCRN's FSMN memory: a depthwise Conv2d
+# (C, 1, lorder, 1) ↔ (lorder, 1, C).
+_BN = (
+    lambda sd, k: {n: _np(sd[f"{k}.{t}"]) for n, t in _BN_NAMES if f"{k}.{t}" in sd},
+    lambda n, k: {f"{k}.{t}": np.asarray(n[f]) for f, t in _BN_NAMES if f in n})
+_BN_NAMES = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+             ("var", "running_var"))
+_FSMN_MEMORY = (
+    lambda sd, k: {"kernel": _arr(_np(sd[f"{k}.weight"])[:, 0, :, 0].T[:, None, :])},
+    lambda n, k: {f"{k}.weight": np.asarray(n["kernel"])[:, 0, :].T[:, None, :, None]})
+
+
+def _seq_model(f: str, t: str, fc: bool = True) -> list:
+    """SequenceModel (torch_import.py:476-486): ``sequence_model`` and
+    ``fc_output_layer``."""
+    return ([(f, f"{t}.sequence_model", _LSTM_STACK)]
+            + ([(f"{f}/fc_output", f"{t}.fc_output_layer", _LINEAR)] if fc else []))
+
+
+def fullband_flax_params(state_dict: dict) -> dict:
+    """Fullband's ``state_dict`` → the JAX package's flax params
+    (torch_import.py:488)."""
+    return _spec_to_flax(state_dict, _seq_model("fullband_model", "fullband_model"))
+
+
+def fullband_state_dict(params: dict) -> dict:
+    """The JAX package's Fullband params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _seq_model("fullband_model", "fullband_model"))
+
+
+_FULLSUBNET = _seq_model("fb_model", "fb_model") + _seq_model("sb_model", "sb_model")
+
+
+def fullsubnet_flax_params(state_dict: dict) -> dict:
+    """FullSubnet's ``state_dict`` → the JAX package's flax params
+    (torch_import.py:494)."""
+    return _spec_to_flax(state_dict, _FULLSUBNET)
+
+
+def fullsubnet_state_dict(params: dict) -> dict:
+    """The JAX package's FullSubnet params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _FULLSUBNET)
+
+
+_FASTFULLSUBNET = (_seq_model("encoder_0", "encoder.0", False) + _seq_model("encoder_1", "encoder.1")
+                   + _seq_model("bottleneck", "bottleneck")
+                   + _seq_model("decoder_0", "decoder_lstm.0", False)
+                   + _seq_model("decoder_1", "decoder_lstm.1"))
+
+
+def fastfullsubnet_flax_params(state_dict: dict) -> dict:
+    """FastFullSubnet's ``state_dict`` → the JAX package's flax params
+    (torch_import.py:661)."""
+    return _spec_to_flax(state_dict, _FASTFULLSUBNET)
+
+
+def fastfullsubnet_state_dict(params: dict) -> dict:
+    """The JAX package's FastFullSubnet params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _FASTFULLSUBNET)
+
+
+def _fullsubnet_plus_spec() -> list:
+    """FullSubNet_Plus (torch_import.py:668-708)."""
+    spec = []
+    for f, part in (("fb", ""), ("fbr", "_real"), ("fbi", "_imag")):
+        se, tcn = f"channel_attention{part}", f"fb_model{part}"
+        spec += [(f"{f}_se/fc1", f"{se}.fc1", _LINEAR), (f"{f}_se/fc2", f"{se}.fc2", _LINEAR),
+                 (f"{f}_tcn/fc_output", f"{tcn}.fc_output_layer", _LINEAR)]
+        for i in range(8):
+            b, t = f"{f}_tcn/tcn_{i}", f"{tcn}.sequence_model.{i}"
+            spec += [(f"{b}/conv1x1", f"{t}.conv1x1", _CONV1D),
+                     (f"{b}/prelu1", f"{t}.prelu1", _PRELU), (f"{b}/norm1", f"{t}.norm1", _GN),
+                     (f"{b}/depthwise", f"{t}.depthwise_conv", _CONV1D),
+                     (f"{b}/prelu2", f"{t}.prelu2", _PRELU), (f"{b}/norm2", f"{t}.norm2", _GN),
+                     (f"{b}/sconv", f"{t}.sconv", _CONV1D)]
+    return spec + _seq_model("sb_model", "sb_model")
+
+
+def fullsubnet_plus_flax_params(state_dict: dict) -> dict:
+    """FullSubNet_Plus's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _fullsubnet_plus_spec())
+
+
+def fullsubnet_plus_state_dict(params: dict) -> dict:
+    """The JAX package's FullSubNet_Plus params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _fullsubnet_plus_spec())
+
+
+def _inter_subnet_spec() -> list:
+    """Inter_SubNet (torch_import.py:711-735)."""
+    spec = [("fc_output", "sb_model.fc_output_layer", _LINEAR)]
+    for i in range(2):
+        f, t = f"sil_{i}", f"sb_model.sequence_list.{i}"
+        spec += [(f"{f}/OptimizedLSTMCell_0", f"{t}.RNN", _CELL), (f"{f}/norm", f"{t}.norm", _GN),
+                 (f"{f}/subinter/norm", f"{t}.SubInter.norm", _GN)]
+        for name, prelu, tkey in (("input_linear", "in_prelu", "input_linear"),
+                                  ("mean_linear", "mean_prelu", "mean_linear"),
+                                  ("output_linear", "out_prelu", "output_linear")):
+            spec += [(f"{f}/subinter/{name}", f"{t}.SubInter.{tkey}.0", _LINEAR),
+                     (f"{f}/subinter/{prelu}", f"{t}.SubInter.{tkey}.1", _PRELU)]
+    return spec
+
+
+def inter_subnet_flax_params(state_dict: dict) -> dict:
+    """Inter_SubNet's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _inter_subnet_spec())
+
+
+def inter_subnet_state_dict(params: dict) -> dict:
+    """The JAX package's Inter_SubNet params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _inter_subnet_spec())
+
+
+def _dccrn_spec(enc, rnn, projected) -> list:
+    """DCCRN (torch_import.py:430-474) but its BatchNorms (``_dccrn_bns``)."""
+    n = len(enc)
+    spec = []
+    for i in enc:
+        for part in ("real_conv", "imag_conv"):
+            spec += [(f"enc_{i}/{part}", f"encoder.{i}.0.{part}", _CONV2D),
+                     (f"dec_{i}/{part}", f"decoder.{i}.0.{part}", _CONVT2D)]
+        spec.append((f"enc_prelu_{i}", f"encoder.{i}.2", _PRELU_RAW))
+        if i < n - 1:
+            spec.append((f"dec_prelu_{i}", f"decoder.{i}.2", _PRELU_RAW))
+    for li in rnn:
+        f, t = f"clstm_{li}", f"enhance.{li}"
+        spec += [(f"{f}/OptimizedLSTMCell_0", f"{t}.real_lstm", _CELL),
+                 (f"{f}/OptimizedLSTMCell_1", f"{t}.imag_lstm", _CELL)]
+        if li in projected:
+            spec += [(f"{f}/r_trans", f"{t}.r_trans", _LINEAR),
+                     (f"{f}/i_trans", f"{t}.i_trans", _LINEAR)]
+    return spec
+
+
+def _dccrn_bns(n: int):
+    """DCCRN's BatchNorms: the torch key over [real; imag] channels and the
+    flax nodes of its two halves (``batchnorm_halves``, torch_import.py:417)."""
+    for i in range(n):
+        yield f"encoder.{i}.1", f"enc_bn_{i}", f"enc_bni_{i}"
+        if i < n - 1:
+            yield f"decoder.{i}.1", f"dec_bn_{i}", f"dec_bni_{i}"
+
+
+def dccrn_flax_params(state_dict: dict) -> dict:
+    """DCCRN's ``state_dict`` → the JAX package's flax params; the BatchNorms'
+    running statistics become ``mean``/``var`` where the port's model keeps
+    them (``torch_compat``)."""
+    enc = _ids(state_dict, r"^encoder\.(\d+)\.0\.")
+    out = _spec_to_flax(state_dict, _dccrn_spec(
+        enc, _ids(state_dict, r"^enhance\.(\d+)\."),
+        _ids(state_dict, r"^enhance\.(\d+)\.r_trans\.")))
+    for key, first, second in _dccrn_bns(len(enc)):
+        node = _BN[0](state_dict, key)
+        half = node["scale"].shape[0] // 2
+        out["params"][first] = {k: v[:half] for k, v in node.items()}
+        out["params"][second] = {k: v[half:] for k, v in node.items()}
+    return out
+
+
+def dccrn_state_dict(params: dict) -> dict:
+    """The JAX package's DCCRN params, with or without the frozen statistics,
+    → the port's ``state_dict``."""
+    keys = _flat(params)
+    enc = _ids(keys, r"^enc_(\d+)/")
+    sd = _spec_to_torch(params, _dccrn_spec(enc, _ids(keys, r"^clstm_(\d+)/"),
+                                            _ids(keys, r"^clstm_(\d+)/r_trans/")))
+    p = params.get("params", params)
+    for key, first, second in _dccrn_bns(len(enc)):
+        halves = (_BN[1](p[first], key), _BN[1](p[second], key))
+        sd.update({k: torch.from_numpy(np.concatenate([halves[0][k], halves[1][k]])
+                                       .astype(np.float32)) for k in halves[0]})
+    return sd
+
+
+def _fsmn(f: str, t: str) -> list:
+    """UniDeepFsmn (torch_import.py:913-922)."""
+    return [(f"{f}/linear", f"{t}.linear", _LINEAR), (f"{f}/project", f"{t}.project", _LINEAR),
+            (f"{f}/conv1", f"{t}.conv1", _FSMN_MEMORY)]
+
+
+def _frcrn_spec() -> list:
+    """FRCRN's two UNets (torch_import.py:943-985)."""
+    spec = []
+    for u in ("unet", "unet2"):
+        spec += [(f"{u}/linear_re", f"{u}.linear.conv_re", _CONV2D),
+                 (f"{u}/linear_im", f"{u}.linear.conv_im", _CONV2D)]
+        for layer in ("L1", "L2"):
+            spec += (_fsmn(f"{u}/fsmn/re_{layer}", f"{u}.fsmn.fsmn_re_{layer}")
+                     + _fsmn(f"{u}/fsmn/im_{layer}", f"{u}.fsmn.fsmn_im_{layer}"))
+        for i in range(7):
+            for part in ("re", "im"):
+                spec += [(f"{u}/encoder_{i}/conv_{part}", f"{u}.encoder{i}.conv.conv_{part}",
+                          _CONV2D),
+                         (f"{u}/encoder_{i}/bn_{part}", f"{u}.encoder{i}.bn.bn_{part}", _BN),
+                         (f"{u}/decoder_{i}/conv_{part}",
+                          f"{u}.decoder{i}.transconv.tconv_{part}", _CONVT2D),
+                         (f"{u}/decoder_{i}/bn_{part}", f"{u}.decoder{i}.bn.bn_{part}", _BN)]
+            stages = [("se_enc", "se_layer_enc")] + ([("se_dec", "se_layer_dec")] if i < 5 else [])
+            for f, t in stages:
+                for part in ("r", "i"):
+                    spec += [(f"{u}/{f}_{i}/fc_{part}_1", f"{u}.{t}{i}.fc_{part}.0", _LINEAR),
+                             (f"{u}/{f}_{i}/fc_{part}_2", f"{u}.{t}{i}.fc_{part}.2", _LINEAR)]
+            fsmns = ([("fsmn_enc", "fsmn_enc")] if i > 0 else []) + (
+                [("fsmn_dec", "fsmn_dec")] if i < 6 else [])
+            for f, t in fsmns:
+                spec += (_fsmn(f"{u}/{f}_{i}/re_L1", f"{u}.{t}{i}.fsmn_re_L1")
+                         + _fsmn(f"{u}/{f}_{i}/im_L1", f"{u}.{t}{i}.fsmn_im_L1"))
+    return spec
+
+
+def frcrn_flax_params(state_dict: dict) -> dict:
+    """FRCRN's ``state_dict`` → the JAX package's flax params (with the
+    frozen statistics where the port's model keeps them)."""
+    return _spec_to_flax(state_dict, _frcrn_spec())
+
+
+def frcrn_state_dict(params: dict) -> dict:
+    """The JAX package's FRCRN params → the port's ``state_dict``."""
+    return _spec_to_torch(params, _frcrn_spec())
+
+
+def _bsrnn_espnet_spec(bands, layers) -> list:
+    """BSRNNESPNet (torch_import.py:1035-1068)."""
+    bs = "separator.bsrnn"
+    spec = []
+    for i in bands:
+        spec += [(f"band_split/norm_{i}", f"{bs}.band_split.norm.{i}", _GN),
+                 (f"band_split/fc_{i}", f"{bs}.band_split.fc.{i}", _CONV1D)]
+        for tag, tkey in (("mask", "mlp_mask"), ("residual", "mlp_residual")):
+            f, t = f"mask_decoder/{tag}_{i}", f"{bs}.mask_decoder.{tkey}.{i}"
+            spec += [(f"{f}_norm", f"{t}.0", _GN), (f"{f}_c1", f"{t}.1", _CONV1D),
+                     (f"{f}_c2", f"{t}.3", _CONV1D)]
+    for i in layers:
+        for part in ("time", "freq"):
+            spec += [(f"norm_{part}_{i}", f"{bs}.norm_{part}.{i}", _GN),
+                     (f"rnn_{part}_{i}", f"{bs}.rnn_{part}.{i}", _LSTM),
+                     (f"fc_{part}_{i}", f"{bs}.fc_{part}.{i}", _LINEAR)]
+    return spec
+
+
+def bsrnn_espnet_flax_params(state_dict: dict) -> dict:
+    """BSRNNESPNet's ``state_dict`` → the JAX package's flax params."""
+    return _spec_to_flax(state_dict, _bsrnn_espnet_spec(
+        _ids(state_dict, r"\.band_split\.fc\.(\d+)\."), _ids(state_dict, r"\.rnn_time\.(\d+)\.")))
+
+
+def bsrnn_espnet_state_dict(params: dict) -> dict:
+    """The JAX package's BSRNNESPNet params → the port's ``state_dict``."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _bsrnn_espnet_spec(_ids(keys, r"^band_split/fc_(\d+)/"),
+                                                     _ids(keys, r"^rnn_time_(\d+)/")))

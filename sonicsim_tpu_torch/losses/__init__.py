@@ -1,6 +1,7 @@
 """Separation losses (port of the separation part of ``sonicsim_tpu.losses``):
-SI-SDR/SNR/SD-SDR and PIT, for training and evaluation. The STFT losses
-wait for ROADMAP A7c and the enhancement losses for A9."""
+SI-SDR/SNR/SD-SDR and PIT, for training and evaluation. ``losses.cirm``
+holds the cIRM's inference half; the STFT losses wait for ROADMAP A7c and
+the enhancement training losses for A9b."""
 
 from .pit import PITLossWrapper, find_best_perm, reorder_sources
 from .sdr import (

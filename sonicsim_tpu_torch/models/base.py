@@ -45,6 +45,15 @@ _FLAX_LAYOUT = {
     "tfgridnet": (bridge.tfgridnet_flax_params, bridge.tfgridnet_state_dict),
     "mossformer": (bridge.mossformer_flax_params, bridge.mossformer_state_dict),
     "mossformer2": (bridge.mossformer2_flax_params, bridge.mossformer2_state_dict),
+    "skimnet": (bridge.skim_flax_params, bridge.skim_state_dict),
+    "fullband": (bridge.fullband_flax_params, bridge.fullband_state_dict),
+    "fullsubnet": (bridge.fullsubnet_flax_params, bridge.fullsubnet_state_dict),
+    "fastfullsubnet": (bridge.fastfullsubnet_flax_params, bridge.fastfullsubnet_state_dict),
+    "fullsubnet_plus": (bridge.fullsubnet_plus_flax_params, bridge.fullsubnet_plus_state_dict),
+    "inter_subnet": (bridge.inter_subnet_flax_params, bridge.inter_subnet_state_dict),
+    "dccrn": (bridge.dccrn_flax_params, bridge.dccrn_state_dict),
+    "frcrn": (bridge.frcrn_flax_params, bridge.frcrn_state_dict),
+    "bsrnnespnet": (bridge.bsrnn_espnet_flax_params, bridge.bsrnn_espnet_state_dict),
 }
 
 
@@ -119,8 +128,8 @@ def save_model(model: BaseModel, path: str | Path) -> None:
 
 # Models whose reference checkpoints were trained under a quirk the port
 # replicates only on request (torch_import.py:144-145): TDANet's attention
-# over the batch axis.
-_REFERENCE_ARGS = {"tdanet": {"torch_compat": True}}
+# over the batch axis, DCCRN's and FRCRN's frozen BatchNorm statistics.
+_REFERENCE_ARGS = {name: {"torch_compat": True} for name in ("tdanet", "dccrn", "frcrn")}
 
 
 def _build(pack: dict, state_dict: dict, device, reference: bool = False) -> BaseModel:

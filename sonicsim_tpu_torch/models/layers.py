@@ -6,9 +6,10 @@ reference ``state_dict`` loads as it is. Every layer computes in the dtype
 of its input: a bfloat16 module on a bfloat16 input takes its statistics in
 bfloat16 too, as the JAX package's ``bf16_forward`` does.
 
-The JAX package's ``GroupedConv1D`` (its TPU-only shifted form of the
-depthwise conv) has no counterpart: the port's grouped and depthwise convs
-are ``nn.Conv1d(groups=)`` under the reference's names.
+``GroupedConv1D`` is the JAX package's grouped/depthwise conv with its
+padding rules; the JAX module computes the depthwise case as shifted
+multiply-adds (the grouped lowering was slow on the TPU), the port as
+``nn.Conv1d(groups=)``, with the same parameters (``bridge``'s Conv1d map).
 """
 
 from __future__ import annotations
@@ -91,3 +92,28 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
         return table[name]
     except KeyError:
         raise ValueError(f"unsupported activation {name!r}") from None
+
+
+class GroupedConv1D(nn.Conv1d):
+    """``nn.Conv1d(groups=)`` on (B, C, T) with the JAX ``GroupedConv1D``'s
+    padding: an explicit ``(left, right)`` pair, ``"VALID"`` or ``"SAME"``
+    (at stride 1, the extra sample on the right)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding="SAME", dilation: int = 1, groups: int = 1,
+                 bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         dilation=dilation, groups=groups, bias=bias)
+        eff = dilation * (kernel_size - 1)
+        if padding == "VALID":
+            self.pad_lr = (0, 0)
+        elif padding == "SAME" and stride == 1:
+            self.pad_lr = (eff // 2, eff - eff // 2)
+        elif isinstance(padding, (tuple, list)) and len(padding) == 2:
+            self.pad_lr = tuple(int(p) for p in padding)
+        else:
+            raise ValueError(f"GroupedConv1D padding {padding!r}: a (left, right) pair, "
+                             "'VALID', or 'SAME' at stride 1")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return super().forward(F.pad(x, self.pad_lr))

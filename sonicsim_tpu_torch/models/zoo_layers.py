@@ -187,8 +187,9 @@ class DilatedConvNorm(nn.Module):
 
 
 class LSTMLayer(nn.LSTM):
-    """One uni- or bidirectional LSTM layer over axis 1 of (B, T, C) →
-    (B, T, H · directions), zero initial state.
+    """A uni- or bidirectional LSTM over axis 1 of (B, T, C) →
+    (B, T, H · directions), zero initial state: one layer, or a stack of
+    ``num_layers`` (the enhancement models' ``SequenceModel``).
 
     ``bias_hh`` is frozen (``requires_grad=False``): flax's cell has one bias
     per gate, ``bias_ih + bias_hh`` here, so training moves ``bias_ih``
@@ -197,8 +198,9 @@ class LSTMLayer(nn.LSTM):
     is optax's. A reference checkpoint's ``bias_hh`` still loads and adds
     in."""
 
-    def __init__(self, input_size: int, hidden: int, bidirectional: bool = False):
-        super().__init__(input_size, hidden, num_layers=1, batch_first=True,
+    def __init__(self, input_size: int, hidden: int, bidirectional: bool = False,
+                 num_layers: int = 1):
+        super().__init__(input_size, hidden, num_layers=num_layers, batch_first=True,
                          bidirectional=bidirectional)
         for name, p in self.named_parameters():
             if name.startswith("bias_hh"):
@@ -206,6 +208,11 @@ class LSTMLayer(nn.LSTM):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
         return super().forward(x)[0]
+
+    def run(self, x: torch.Tensor, hx=None):
+        """``nn.LSTM``'s own call: ``(output, (h_n, c_n))`` from the initial
+        state ``hx = (h_0, c_0)``, each (directions, B, H), or zeros."""
+        return super().forward(x, hx)
 
 
 class ResRNN(nn.Module):

@@ -94,8 +94,8 @@ def test_to_waveform():
     np.testing.assert_array_equal(ours.numpy(), np.asarray(JI.to_waveform(model, jnp.asarray(out), 800)))
     assert TI.to_waveform(model, torch.from_numpy(out[:, 0]), 800).shape == (2, 1, 800)
 
-    class FullSubnet:  # an enhancement family: its converter waits for A9
+    class GaGNet:  # the GaGNet family: its converter waits for A9
         pass
 
     with pytest.raises(NotImplementedError, match="A9"):
-        TI.to_waveform(FullSubnet(), torch.from_numpy(out), 800)
+        TI.to_waveform(GaGNet(), torch.from_numpy(out), 800)
