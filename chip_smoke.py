@@ -80,10 +80,11 @@ Phases, one line each:
     the forward's time on B=1 x 10 s (CUDA-event median of 5 after 2),
     audio-s/s and peak extra memory; the inference CLI on phase 8's first
     60 s mixture; then DPRNN's train step (dprnn.yaml's Adam, clip and PIT
-    neg-SNR) timed on B=8 x 4 s and held to the CPU on B=2 x 1 s, and each
-    side's step-1 gradients, and each LSTM's output and input gradient,
-    against float64 on the CPU (ROADMAP C12). The zoo launches neither
-    kernel;
+    neg-SNR) timed on B=8 x 4 s, with its LSTMs through cuDNN's RNN (the
+    training path), through PyTorch's own CUDA LSTM and with cuDNN off, and
+    held to the CPU on B=2 x 1 s, and each side's step-1 gradients, and each
+    LSTM's output and input gradient, against float64 on the CPU (ROADMAP
+    C12). The zoo launches neither kernel;
 12. SkiM streaming: a causal SkiM at skim.yaml's widths (no segment
     overlap) from a pack on the card, ``SkiMStreamer`` over 10 s of phase
     8's first mixture in 500-sample (31.25 ms) chunks at depth 0 and 2 and
@@ -92,14 +93,28 @@ Phases, one line each:
     offline causal forward on the card, ``stream(depth)`` within 1e-6 of
     ``step``; then ``python -m sonicsim_tpu_torch.scripts.stream`` on the
     pack. It launches neither kernel;
-13. the enhancement zoo: the model of each configs/enhancement/*.yaml but
-    the GaGNet family's (Fullband, FullSubnet, FullSubNet+, Inter-SubNet,
-    FastFullSubnet, DCCRN, FRCRN, BSRNN-ESPnet, SuDORMRF) at full width
+13. the enhancement zoo: the model of each configs/enhancement/*.yaml
+    (Fullband, FullSubnet, FullSubNet+, Inter-SubNet, FastFullSubnet, DCCRN,
+    FRCRN, BSRNN-ESPnet, SuDORMRF, GaGNet, G2Net, TaylorSENet) at full width
     with seeded weights through the bridge and a pack: forward and
     ``to_waveform`` in fp32 against the port on the CPU on a 4 s crop, the
     10 s forward's time, audio-s/s and peak extra memory; FullSubnet through
     the remix evaluation (``scripts.audio_test``'s loop, task enhancement)
-    over phase 8's split. It launches neither kernel.
+    over phase 8's split. It launches neither kernel;
+14. enhancement training: each of those twelve models with its config's
+    loss and metric, Adam (lr 1e-3) and clip (5), in fp32 from phase 13's
+    seeded weights: the train step's time (CUDA-event median of 3 after 1),
+    audio-s/s and peak extra memory at the configs' B=2 x 4 s on phase 8's
+    split, and one step on B=2 x 1 s against the same step on the CPU, each
+    side on the device's branch at every kinked activation (loss rel 1e-5,
+    clipped gradients 1e-4 · max|g|, phase 10's bounds; for a model whose
+    own float32 steps on the CPU lie further than that from its float64
+    step, ILL_FACTOR = 2 times that distance: ``enh_step_check``), and the
+    LSTM models' device step again with the LSTMs off cuDNN; then a
+    2-epoch ``train_from_config`` fit of fullsubnet.yaml over the split
+    with a ``generate_fixed_eval --task enhancement`` val set
+    (``target_names: [clean]``), resumed for a third, its best checkpoint
+    read back by ``from_pretrain``. It launches neither kernel.
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -135,6 +150,7 @@ import importlib.util
 import json
 import logging
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -227,7 +243,7 @@ ZOO_MODELS = {
                     segment_size=250, dropout=0.1, mem_type="hc", seg_overlap=True,
                     kernel_size=4, sample_rate=SR),
 }
-ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=5, warmup=2,
+ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=3, warmup=1,
            segment_s=10.0, train_model="DPRNNTasNet", lr=1e-3, clip=5.0, batch=8,
            train_crop_s=4.0, train_reps=5, train_warmup=2, check_batch=2, check_s=1.0,
            profile_reps=3)  # the recurrent models launch thousands of kernels a call
@@ -240,8 +256,8 @@ STREAMING = dict(model=dict(ZOO_MODELS["SkiMNet"], causal=True, seg_overlap=Fals
 STREAM_RTOL, STREAM_ATOL = 1e-3, 1e-4  # streamed vs offline (tests/test_model_zoo.py:93-121)
 STREAM_STEP_ATOL = 1e-6  # stream(depth) vs step()
 # Phase 13: the enhancement zoo, the model node of each configs/enhancement/
-# *.yaml but the GaGNet family's (ROADMAP A9), by config name (written out
-# here; the CPU tests hold these to the files).
+# *.yaml by config name (written out here; the CPU tests hold these to the
+# files).
 ENH_MODELS = {
     "fullband": ("Fullband", dict(num_freqs=257, hidden_size=512, sequence_model="LSTM",
                                   output_activate_function=False, look_ahead=2, n_fft=512,
@@ -276,9 +292,35 @@ ENH_MODELS = {
     "sudormrf": ("SuDORMRF", dict(out_channels=256, in_channels=512, num_blocks=8,
                                   upsampling_depth=7, enc_kernel_size=81, enc_num_basis=512,
                                   num_sources=1)),
+    "gagnet": ("GaGNet", dict(fft_num=320, n_fft=320, hop_length=160, win_length=320)),
+    "g2net": ("G2Net", dict(fft_num=320, n_fft=320, hop_length=160, win_length=320)),
+    "taylorsenet": ("TaylorSENet", dict(fft_num=320, n_fft=320, hop_length=160,
+                                        win_length=320)),
 }
-ENH = dict(models=ENH_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=5, warmup=2,
+ENH = dict(models=ENH_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=3, warmup=1,
            eval_model="fullsubnet")
+# Phase 14: enhancement training, each config's loss and metric node
+# (written out, as ENH_MODELS; the CPU tests hold them to the files) by
+# config name, its Adam (lr 1e-3) and clip (5), float32. The step timed at
+# the configs' batch and duration (2 x 4 s), held to the CPU on B=2 x 1 s.
+_CIRM_STFT = dict(n_fft=512, hop_length=256, win_length=512)
+_GAG_STFT = dict(n_fft=320, hop_length=160, win_length=320)
+ENH_LOSSES = {
+    **{stem: (("FullbandLoss", _CIRM_STFT), ("FullbandEval", _CIRM_STFT))
+       for stem in ("fullband", "fullsubnet", "fullsubnet_plus", "inter_subnet",
+                    "fastfullsubnet")},
+    "dccrn": (("DCCRNLoss", {}), ("DCCRNEval", {})),
+    "sudormrf": (("DCCRNLoss", {}), ("DCCRNEval", {})),
+    "frcrn": (("FRCRNLoss", {}), ("FRCRNEval", {})),
+    "bsrnn_espnet": (("BSRNNESPNetLoss", {}), ("BSRNNESPNetEval", {})),
+    "gagnet": (("GaGNetLoss", _GAG_STFT), ("GaGNetEval", _GAG_STFT)),
+    "g2net": (("GaGNetLoss", _GAG_STFT), ("GaGNetEval", _GAG_STFT)),
+    "taylorsenet": (("TaylorSENetLoss", _GAG_STFT), ("TaylorSENetEval", _GAG_STFT)),
+}
+PACK_REL = 1e-5  # a reloaded LSTM model vs the trained one, of max|out|
+ENH_TRAIN = dict(losses=ENH_LOSSES, seed=0, lr=1e-3, clip=5.0, batch=2, crop_s=4.0, reps=3,
+                 warmup=1, check_batch=2, check_s=1.0, fit_model="fullsubnet", fit_samples=4,
+                 fit_epochs=2)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -1896,12 +1938,16 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
         opt = make_optimizer(model.parameters(), cfg["lr"])
         return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
 
-    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True, lstm_cudnn=True, probe=None):
+    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True, lstm_cudnn=True, probe=None,
+              threads=None):
         """One step's loss and (clipped) gradients, float64 on the host; with
-        ``lstm_cudnn`` off the LSTMs alone leave cuDNN; ``probe`` collects
-        each LSTM's output and the gradient at its input (float64, host)."""
-        enabled = torch.backends.cudnn.enabled
+        ``lstm_cudnn`` off the LSTMs alone leave cuDNN for PyTorch's own CUDA
+        LSTM (ROADMAP C12); ``probe`` collects each LSTM's output and the
+        gradient at its input (float64, host); ``threads`` sets the CPU's
+        intra-op threads, another summation order."""
+        enabled, n = torch.backends.cudnn.enabled, torch.get_num_threads()
         torch.backends.cudnn.enabled = cudnn
+        torch.set_num_threads(threads or n)
         try:
             model, step = fresh(dev, dtype)
             for lname, m in model.named_modules():
@@ -1910,6 +1956,7 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
             loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
         finally:
             torch.backends.cudnn.enabled = enabled
+            torch.set_num_threads(n)
         return loss, {n: p.grad.double().cpu() for n, p in model.named_parameters()
                       if p.requires_grad}
 
@@ -1946,29 +1993,41 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
           f"{TRAIN_GRAD_REL}·max|g|); {smi}", flush=True)
 
     # ROADMAP C12: each side's step-1 gradients against float64 on the CPU,
-    # on the check batch and on seeded noise (tests/test_torch_zoo_cuda.py's
-    # kind of batch), with the card's LSTMs in cuDNN and in PyTorch's own
-    # CUDA LSTM; and the step's time with cuDNN off.
-    rng = np.random.default_rng(cfg["seed"])
+    # on the check batch and on tests/test_torch_zoo_cuda.py's batch of
+    # seeded noise, with the card's LSTMs in PyTorch's own CUDA LSTM and in
+    # cuDNN, and the CPU in two summation orders; the card against the CPU
+    # as the test holds it; and the step's time with cuDNN off.
+    rng = np.random.default_rng(1)
     xn = torch.from_numpy(rng.standard_normal(tuple(xc.shape)).astype(np.float32))
     yn = torch.from_numpy(0.5 * rng.standard_normal(tuple(yc.shape)).astype(np.float32))
     parts, layers = [], []
-    for label, (xb, yb) in (("phase 8's crops", (xc, yc)), ("seeded noise", (xn, yn))):
+    for label, (xb, yb) in (("phase 8's crops", (xc, yc)), ("the card test's noise", (xn, yn))):
         p64: dict = {}
         _, g64 = step1("cpu", xb, yb, torch.float64, probe=p64)
         top = max(float(g.abs().max()) for g in g64.values())
-        dist, per_layer = {}, {}
-        for side, dev, cudnn, lstm_cudnn in (
-                ("card", device, True, True), ("card with cuDNN off", device, False, True),
-                ("card with its LSTMs off cuDNN", device, True, False),
-                ("CPU float32", "cpu", True, True)):
+        dist, per_layer, sides = {}, {}, {}
+        for side, dev, cudnn, lstm_cudnn, threads in (
+                ("card", device, True, True, None),
+                ("card with cuDNN off", device, False, True, None),
+                ("card with its LSTMs off cuDNN", device, True, False, None),
+                ("CPU float32", "cpu", True, True, None),
+                ("CPU float32 on two threads", "cpu", True, True, 2)):
             probe: dict = {}
-            g = step1(dev, xb, yb, cudnn=cudnn, lstm_cudnn=lstm_cudnn, probe=probe)[1]
+            g = step1(dev, xb, yb, cudnn=cudnn, lstm_cudnn=lstm_cudnn, probe=probe,
+                      threads=threads)[1]
+            sides[side] = g
             worst = max(g64, key=lambda n: float((g[n] - g64[n]).abs().max()))
             dist[side] = f"{float((g[worst] - g64[worst]).abs().max()) / top:.3g} ({worst})"
             per_layer[side] = " ".join(
                 f"{k.split('dual_rnn.')[-1]} {_share(probe[k][0], v[0]):.2g}/"
                 f"{_share(probe[k][1], v[1]):.2g}" for k, v in p64.items())
+        g_cpu = sides["CPU float32"]
+        g_top = max(float(g.abs().max()) for g in g_cpu.values())
+        for side in ("card", "card with its LSTMs off cuDNN", "CPU float32 on two threads"):
+            worst = max(g_cpu, key=lambda n: float((sides[side][n] - g_cpu[n]).abs().max()))
+            dist[f"{side} vs the CPU float32"] = (
+                f"{float((sides[side][worst] - g_cpu[worst]).abs().max()) / g_top:.3g} of its "
+                f"max|g| ({worst})")
         parts.append(f"{label}: " + ", ".join(f"{k} {v}" for k, v in dist.items()))
         layers.append(f"{label}: " + "; ".join(f"{k}: {v}" for k, v in per_layer.items()))
     enabled = torch.backends.cudnn.enabled
@@ -1978,9 +2037,18 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
         off_ms = median_ms(lambda: step(x, y), device, reps=3, warmup=1)
     finally:
         torch.backends.cudnn.enabled = enabled
+    model, step = fresh(device)
+    for lname, m in model.named_modules():
+        if isinstance(m, LSTMLayer):
+            _probe_lstm(m, lname, None, False)
+    lstm_off_ms = median_ms(lambda: step(x, y), device, reps=cfg["train_reps"],
+                            warmup=cfg["train_warmup"])
+    stats["train"].update(lstm_off_ms=lstm_off_ms, cudnn_off_ms=off_ms)
     print(f"zoo[train {name} vs float64]: step-1 gradients' max abs distance from float64 on "
           f"the CPU, of its max|g| (worst parameter): " + "; ".join(parts)
-          + f"; the B={cfg['batch']} step with cuDNN off {off_ms:.4f} ms (median of 3) against "
+          + f"; the B={cfg['batch']} step with its LSTMs off cuDNN {lstm_off_ms:.4f} "
+          f"ms (CUDA-event median of {cfg['train_reps']} after {cfg['train_warmup']}), with "
+          f"cuDNN off {off_ms:.4f} ms (median of 3), against "
           f"{step_ms:.4f} ms; {smi}", flush=True)
     print(f"zoo[train {name} vs float64, per LSTM]: each LSTM's output / the gradient at its "
           f"input, max abs distance from float64 on the CPU as a share of that tensor's "
@@ -1996,7 +2064,8 @@ def _share(a, b) -> float:
 def _probe_lstm(module, name: str, probe: dict | None, use_cudnn: bool) -> None:
     """Record ``module``'s output and the gradient at its input into
     ``probe[name]`` (float64, on the host); without ``use_cudnn`` run its
-    forward (and so its backward) outside cuDNN."""
+    forward (and so its backward) through PyTorch's own CUDA LSTM, cuDNN
+    off for that call alone (ROADMAP C12)."""
     import torch
 
     if probe is not None:
@@ -2012,8 +2081,12 @@ def _probe_lstm(module, name: str, probe: dict | None, use_cudnn: bool) -> None:
         forward = module.forward
 
         def off(*args, **kwargs):
-            with torch.backends.cudnn.flags(enabled=False):
+            enabled = torch.backends.cudnn.enabled
+            torch.backends.cudnn.enabled = False
+            try:
                 return forward(*args, **kwargs)
+            finally:
+                torch.backends.cudnn.enabled = enabled
 
         module.forward = off
 
@@ -2207,15 +2280,343 @@ def phase_enhancement(device, cfg, folders, root: Path, smi) -> dict:
     return stats
 
 
+def _flat_leaves(tree: dict, prefix: str = "") -> list:
+    """A pack's flax tree as sorted (path, array) pairs."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _flat_leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k,
+                                                                               np.asarray(v))]
+    return out
+
+
+def _instantiate_loss(node):
+    """A loss or metric node of ENH_LOSSES, ``(class name, arguments)``,
+    built through its config ``_target_`` (read as the port's)."""
+    from sonicsim_tpu_torch.utils import instantiate
+
+    name, args = node
+    return instantiate({"_target_": f"sonicsim_tpu.losses.{name}", **args})
+
+
+def _enh_fit_config(cfg, name: str, args: dict, split: Path, val: Path, exp: Path) -> dict:
+    """configs/enhancement/<fit_model>.yaml as a dict (the card's host may
+    have no pyyaml), over phase 8's split, cut to ``cfg``'s samples and
+    epochs; the val set's targets are ``clean.wav`` (ROADMAP C13)."""
+    loss, metric = cfg["losses"][cfg["fit_model"]]
+    return {
+        "exp": {"dir": str(exp), "name": name},
+        "datas": {"_target_": "sonicsim_tpu.dataset.MovingDataModule", "train_dir": str(split),
+                  "val_dir": str(val), "test_dir": str(val), "num_spks": 1, "sample_rate": SR,
+                  "num_samples": cfg["fit_samples"], "duration": cfg["crop_s"],
+                  "batch_size": cfg["batch"], "is_mono": True, "noise_type": "noise",
+                  "seed": cfg["seed"], "target_names": ["clean"]},
+        "model": {"_target_": f"sonicsim_tpu.models.{name}", **args},
+        "loss": {"_target_": f"sonicsim_tpu.losses.{loss[0]}", **loss[1]},
+        "metrics": {"_target_": f"sonicsim_tpu.losses.{metric[0]}", **metric[1]},
+        "optimizer": {"lr": cfg["lr"], "weight_decay": 0.0},
+        "scheduler": {"patience": 5, "factor": 0.5},
+        "early_stopping": {"patience": 20},
+        "checkpoint": {"save_top_k": 5},
+        "trainer": {"max_epochs": cfg["fit_epochs"], "gradient_clip_val": cfg["clip"]},
+    }
+
+
+# An ill-conditioned model's bound, in units of the CPU's float32 distance
+# from float64: a device whose own float32 error is no larger than the
+# CPU's lies within twice that of the CPU (the triangle inequality).
+ILL_FACTOR = 2
+KINK_REL = ZOO_REL  # of max|x|: how near 0 an input the two sides may send apart lies
+
+
+def _kink_tape(model, tape: list, flips: dict | None) -> None:
+    """Forward hooks on ``model``'s kinked activations (``nn.ReLU``,
+    ``nn.PReLU``, the GaGNet family's ``ChannelPReLU``). With ``flips``
+    None they record, in call order and on the host, the side of 0 each
+    one sends each element of its input by its own rule; else each call
+    replays the tape's side (``where(side, x, slope · x)``) and ``flips``
+    counts the elements whose own side differs, with the largest such |x|
+    as a share of max|x| of the call.
+
+    A pre-activation within rounding of 0 takes either branch, and the
+    gradient that flows back through it changes by a whole term: in the
+    GaGNet family the float32 and float64 steps part by about 1e-2·max|g|
+    for that alone. Replayed, every side evaluates the branch the device
+    took."""
+    import torch
+    from torch import nn
+
+    from sonicsim_tpu_torch.models.gagnet import ChannelPReLU
+
+    calls = iter(tape)
+
+    def hook(mod, args, out):
+        x = args[0]
+        xd = x.detach()
+        own = xd >= 0 if isinstance(mod, ChannelPReLU) else xd > 0
+        if flips is None:
+            tape.append(own.cpu())
+            return None
+        side = next(calls).to(x.device)
+        apart = side != own
+        if bool(apart.any()):
+            flips["n"] += int(apart.sum())
+            flips["rel"] = max(flips["rel"], float(xd[apart].abs().max() / xd.abs().max()))
+        if isinstance(mod, nn.ReLU):
+            return torch.where(side, x, torch.zeros_like(x))
+        w = mod.weight
+        w = w.reshape((-1,) + (1,) * (x.dim() - 2)) if w.numel() > 1 else w
+        return torch.where(side, x, w * x)
+
+    for m in model.modules():
+        if isinstance(m, (nn.ReLU, nn.PReLU, ChannelPReLU)):
+            m.register_forward_hook(hook)
+
+
+def enh_step_check(fresh, xb, yb, device) -> dict:
+    """One float32 train step from the same weights on ``device`` and on the
+    CPU, and the CPU's float64 step (``fresh(dev)`` builds the model and its
+    step there): the loss's relative distance, the clipped gradients' largest
+    distance (and where), each side's distance from float64 as a share of
+    max|g64|, and the bound the device's gradients are held to. Every side
+    after the device's replays the device's branch at each kinked
+    activation (``_kink_tape``); an element sent apart must lie within
+    ``KINK_REL`` · max|x| of 0. A model with LSTMs also takes a device step
+    with its LSTMs off cuDNN, reported beside the others (ROADMAP C12).
+
+    The CPU's float32 distance ``cpu_vs_f64`` is the larger distance from
+    float64 of two CPU summation orders: its default thread count and two
+    threads. Where it is within phase 10's ``TRAIN_GRAD_REL``, the bound is
+    ``TRAIN_GRAD_REL · max|g|``; past it (an ill-conditioned model), the
+    bound is ``ILL_FACTOR · cpu_vs_f64 · max|g|``."""
+    import torch
+
+    from sonicsim_tpu_torch.models.zoo_layers import LSTMLayer
+
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    tape: list = []
+    flips = dict(n=0, rel=0.0)
+    sides = {}
+    plan = [("device", device, torch.float32, threads, True),
+            ("cpu", cpu, torch.float32, threads, True),
+            ("cpu2", cpu, torch.float32, 2, True),
+            ("f64", cpu, torch.float64, threads, True),
+            ("device_lstm_off", device, torch.float32, threads, False)]
+    for side, dev, dtype, n, lstm_cudnn in plan:
+        torch.set_num_threads(n)
+        try:
+            model, step = fresh(dev)
+            lstms = [m for m in model.modules() if isinstance(m, LSTMLayer)]
+            if not lstm_cudnn:
+                if not lstms:
+                    continue
+                for m in lstms:
+                    _probe_lstm(m, "", None, False)
+            model.to(dtype)
+            _kink_tape(model, tape, None if side == "device" else flips)
+            t0 = time.perf_counter()
+            loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
+            elapsed = time.perf_counter() - t0
+        finally:
+            torch.set_num_threads(threads)
+        sides[side] = (loss, {n_: p.grad.double().cpu() for n_, p in model.named_parameters()
+                              if p.grad is not None}, elapsed)
+        del model, step
+    (l_dev, g_dev, _), (l_cpu, g_cpu, cpu_s) = sides["device"], sides["cpu"]
+    g64 = sides["f64"][1]
+    g_max = max(float(g.abs().max()) for g in g_cpu.values())
+    top64 = max(float(g.abs().max()) for g in g64.values())
+
+    def dist(a, b):
+        worst = max(b, key=lambda n: float((a[n] - b[n]).abs().max()))
+        return float((a[worst] - b[worst]).abs().max()), worst
+
+    g_err, worst = dist(g_dev, g_cpu)
+    cpu_vs_f64 = max(dist(sides[k][1], g64)[0] for k in ("cpu", "cpu2")) / top64
+    ill = cpu_vs_f64 > TRAIN_GRAD_REL
+    out = dict(loss=(l_dev, l_cpu), loss_rel=abs(l_dev - l_cpu) / abs(l_cpu), grad_err=g_err,
+               worst=worst, grad_max=g_max, cpu_vs_f64=cpu_vs_f64,
+               device_vs_f64=dist(g_dev, g64)[0] / top64,
+               bound=(ILL_FACTOR * cpu_vs_f64 if ill else TRAIN_GRAD_REL) * g_max, ill=ill,
+               kinks=len(tape), flips=flips["n"], flip_rel=flips["rel"], cpu_s=cpu_s,
+               params=sum(g.numel() for g in g_cpu.values()))
+    if "device_lstm_off" in sides:
+        g_off = sides["device_lstm_off"][1]
+        out.update(lstm_off_err=dist(g_off, g_cpu)[0], lstm_off_vs_f64=dist(g_off, g64)[0] / top64)
+    return out
+
+
+def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
+    """Phase 14: each enhancement config's model trained in float32 with
+    its config's loss, Adam and clip, from phase 13's seeded weights: the
+    step's time and peak extra memory at the configs' batch and duration on
+    phase 8's split, the metric on that batch, and one step on the device
+    against the same step on the CPU (loss and clipped gradients); then a
+    2 + 1 epoch ``train_from_config`` fit of ``cfg["fit_model"]`` over the
+    split with a ``generate_fixed_eval --task enhancement`` val set, its
+    best checkpoint read back by ``from_pretrain``. Returns each model's
+    numbers."""
+    import torch
+
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.models import from_pretrain, get, serialize
+    from sonicsim_tpu_torch.scripts import generate_fixed_eval
+    from sonicsim_tpu_torch.scripts.common import strict_float32
+    from sonicsim_tpu_torch.scripts.train import train_from_config
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+
+    strict_float32()
+    root.mkdir()
+    split = folders[0].parent.parent
+    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                          num_spks=1, duration=cfg["crop_s"], num_samples=cfg["batch"],
+                          batch_size=cfg["batch"], seed=cfg["seed"])
+    mix, tgt = next(iter(dm.train_batches(0)))
+    t_crop = int(cfg["crop_s"] * SR)
+    check(tuple(tgt.shape) == (cfg["batch"], t_crop), f"enhancement batch {tuple(tgt.shape)}")
+    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
+    # The check window: the one where the quietest item's target is loudest
+    # (the GaGNet family's losses RMS-normalise the target).
+    n_chk = int(cfg["check_s"] * SR)
+    energy = np.cumsum(np.concatenate([np.zeros((cfg["check_batch"], 1)),
+                                       np.square(tgt[:cfg["check_batch"]])], axis=1), axis=1)
+    start = int(np.argmax((energy[:, n_chk:] - energy[:, :-n_chk]).min(axis=0)))
+    xc, yc = (torch.from_numpy(a[:cfg["check_batch"], start:start + n_chk].copy())
+              for a in (mix, tgt))
+    audio_s = cfg["batch"] * cfg["crop_s"]
+    stats = {}
+    for stem, (name, args) in models.items():
+        loss_node, metric_node = cfg["losses"][stem]
+        loss_fn, metric_fn = _instantiate_loss(loss_node), _instantiate_loss(metric_node)
+        weights = seeded_zoo(name, args, cfg["seed"]).state_dict()
+
+        def fresh(dev, name=name, args=args, weights=weights, loss_fn=loss_fn):
+            model = get(name)(**args, device=dev)
+            model.load_state_dict(weights)
+            opt = make_optimizer(model.parameters(), cfg["lr"])
+            return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
+
+        model, step = fresh(device)
+        check(bool(torch.isfinite(step(x, y))), f"{stem} step: loss not finite")
+        ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
+                       warmup=cfg["warmup"])
+        mib = _peak_mib(device, lambda step=step: step(x, y))
+        with torch.no_grad():
+            metric = float(metric_fn(model(x), y))
+        check(np.isfinite(metric), f"{stem}: metric {metric}")
+        del model, step
+        chk = enh_step_check(fresh, xc, yc, device)
+        check(chk["loss_rel"] <= TRAIN_LOSS_REL and chk["grad_err"] <= chk["bound"]
+              and chk["flip_rel"] <= KINK_REL,
+              f"{stem} fp32 step on the device vs the CPU: loss {chk['loss']} (rel "
+              f"{chk['loss_rel']}), gradients max abs err {chk['grad_err']} ({chk['worst']}) "
+              f"over the bound {chk['bound']} (max|g| {chk['grad_max']}, the CPU's float32 "
+              f"{chk['cpu_vs_f64']}·max|g64| from float64), or a kinked activation's input "
+              f"{chk['flip_rel']}·max|x| from 0 sent apart (tol {KINK_REL})")
+        stats[stem] = dict(model=name, params=chk["params"], ms=ms,
+                           audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, metric=metric,
+                           **{k: v for k, v in chk.items() if k not in ("params", "ill")})
+        rel = chk["bound"] / chk["grad_max"]
+        off = ("" if "lstm_off_err" not in chk else
+               f"; with its LSTMs off cuDNN the device's gradients "
+               f"{chk['lstm_off_err'] / chk['grad_max']:.3g}·max|g| from the CPU's and "
+               f"{chk['lstm_off_vs_f64']:.3g}·max|g64| from float64")
+        print(f"enh-train[{stem}: {name}]: {chk['params']} trained parameters, seeded, "
+              f"{loss_node[0]} / {metric_node[0]}, Adam lr {cfg['lr']}, optax clip "
+              f"{cfg['clip']}, fp32, B={cfg['batch']} x {cfg['crop_s']:g} s from phase 8's split: "
+              f"{ms:.4f} ms/step = {audio_s / (ms / 1e3):.1f} audio-s/s (CUDA-event median of "
+              f"{cfg['reps']} after {cfg['warmup']}), peak extra memory "
+              f"{mib if mib is None else round(mib, 1)} MiB, {metric_node[0]} {metric:.4f}; one "
+              f"step on B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU "
+              f"({chk['cpu_s']:.2f} s there), every side on the device's branch at each of "
+              f"{chk['kinks']} kinked activation calls ({chk['flips']} elements sent apart, within "
+              f"{chk['flip_rel']:.3g}·max|x| of 0, tol {KINK_REL}): loss rel "
+              f"{chk['loss_rel']:.3g} (tol {TRAIN_LOSS_REL}), gradients max abs err "
+              f"{chk['grad_err']:.3g} ({chk['worst']}) of max|g| {chk['grad_max']:.3g} = "
+              f"{chk['grad_err'] / chk['grad_max']:.3g}·max|g| (tol {rel:.3g}·max|g|"
+              f"{f', {ILL_FACTOR} times the CPU float32 distance from float64' if chk['ill'] else ''}"
+              f"; the CPU's float32 {chk['cpu_vs_f64']:.3g} (the larger of its default and two "
+              f"threads), the device's {chk['device_vs_f64']:.3g}·max|g64| from float64 on the "
+              f"CPU{off}); {smi}", flush=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # A short fit of one config through the train CLI's path, resumed for one
+    # more epoch; val on the split's fixed enhancement remix.
+    name, args = models[cfg["fit_model"]]
+    val = generate_fixed_eval.main(["--in_dir", str(split), "--out_dir", str(root / "val-enh"),
+                                    "--task", "enhancement", "--seed", str(cfg["seed"]),
+                                    "--device", str(device)])
+    conf = _enh_fit_config(cfg, name, args, split, val, root / "exp")
+    exp = root / "exp" / name
+    train_from_config(conf, device)
+    resumed = train_from_config(conf, device, max_epochs=cfg["fit_epochs"] + 1, resume=True)
+    records = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()]
+    want = list(range(-1, cfg["fit_epochs"] + 1))
+    check([r["epoch"] for r in records] == want and all(np.isfinite(r["val_loss"])
+                                                        for r in records),
+          f"{name} fit: metrics.jsonl {records}")
+    top = json.loads((exp / "best_k_models.json").read_text())
+    best = min(top, key=top.get)
+    check((exp / "best_model.pkl").read_bytes() == Path(best).read_bytes(),
+          "best_model.pkl is not the best top-k checkpoint")
+    last = [p for p in top if Path(p).name.startswith(f"epoch={cfg['fit_epochs']}-")]
+    xv = x[:1]
+    with torch.inference_mode():
+        reloaded = from_pretrain(exp / "best_model.pkl", device=device)
+        check(type(reloaded).__name__ == name, f"best_model.pkl built {type(reloaded).__name__}")
+        out = reloaded(xv)
+        check(all(bool(torch.isfinite(o).all()) for o in out), "best_model.pkl: output not finite")
+        if last:
+            # The pack holds flax's one LSTM bias per gate (bias_ih + bias_hh),
+            # so the reloaded model is the trained one's function to float32
+            # rounding, and its pack the same tree exactly.
+            packed = serialize(resumed.model)["state_dict"]
+            with open(last[0], "rb") as f:
+                saved = pickle.load(f)["state_dict"]
+            flat = [(a, b) for a, b in zip(_flat_leaves(packed), _flat_leaves(saved))]
+            check(len(flat) == len(_flat_leaves(packed)) and all(
+                ka == kb and np.array_equal(va, vb) for (ka, va), (kb, vb) in flat),
+                "the last epoch's pack is not the trained model's")
+            want_out = resumed.model.eval()(xv)
+            got_out = from_pretrain(last[0], device=device)(xv)
+            err = max(float((a - b).abs().max()) for a, b in zip(got_out, want_out))
+            peak = max(float(a.abs().max()) for a in want_out)
+            check(err <= PACK_REL * peak, f"the last epoch's pack vs the trained model: max abs "
+                  f"err {err} (max|out| {peak})")
+    print(f"enh-train[fit {cfg['fit_model']}]: {cfg['fit_samples']} samples x "
+          f"{cfg['crop_s']:g} s per epoch, batch {cfg['batch']}, val on the split's fixed "
+          f"enhancement remix (clean.wav targets, {cfg['crop_s']:g} s crops), TF32 off: s/epoch "
+          f"{[round(r['seconds'], 3) for r in records]} (epochs {[r['epoch'] for r in records]}, "
+          f"-1 the baseline val, {cfg['fit_epochs']} resumed), train loss "
+          f"{[round(r['train_loss'], 4) for r in records if 'train_loss' in r]}, val "
+          f"{[round(r['val_loss'], 4) for r in records]}; best_model.pkl = {Path(best).name}, "
+          f"read back by from_pretrain as {name}"
+          + (f"; the last epoch's pack the trained model's tree exactly, its outputs within "
+             f"{err:.3g} of max|out| {peak:.3g} (tol {PACK_REL}·max|out|)" if last else ""),
+          flush=True)
+    stats["fit"] = dict(model=cfg["fit_model"], s_per_epoch=[r["seconds"] for r in records])
+    return stats
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
         train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
-        env_line: str = "") -> None:
+        enh_train_cfg=ENH_TRAIN, env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
+
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:  # host wall of each phase, for the call's budget
+        now = time.perf_counter()
+        seconds[name] = round(now - mark[0], 1)
+        mark[0] = now
 
     head = headline_plan(head_cfg)
     mix = mixture_inputs(mix_cfg)
     times = phase_kernels(device, head, mix, bank_cfg, bank_mix_cfg)
+    lap("kernels (3)")
 
     # The main paths: each one's launches counted from a reset just before
     # it to the read just after.
@@ -2223,40 +2624,56 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     kernels.reset_launch_counts()
     phase_headline(device, head, head_cfg)
     counts["headline"] = dict(kernels.LAUNCHES)
+    lap("headline (4)")
     kernels.reset_launch_counts()
     phase_mixture(device, mix, mix_cfg)
     counts["mixture"] = dict(kernels.LAUNCHES)
+    lap("mixture (5)")
     # Phase 1's line again next to phase 6's (ROADMAP C9): the output's head
     # may be cut from a long run's log.
     print(env_line, flush=True)
     banks, ways, static = phase_bank(device, bank_cfg, trace_dir)
+    lap("bank (6)")
     kernels.reset_launch_counts()
     phase_bank_mixture(device, banks, ways, static, bank_mix_cfg)
     counts["bank->mixture"] = dict(kernels.LAUNCHES)
+    lap("bank->mixture (7)")
     with tempfile.TemporaryDirectory() as tmp:
         gen = prepare_generation(device, gen_cfg, Path(tmp))
         kernels.reset_launch_counts()
         runs = generation_runs(device, gen_cfg, gen)
         counts["generation"] = dict(kernels.LAUNCHES)
         case = check_generation(device, gen_cfg, gen, runs, smi)
+        lap("generation (8)")
         kernels.reset_launch_counts()
         phase_serving(device, serve_cfg, runs["disk"]["produced"], Path(tmp) / "serve", smi)
         serving = dict(kernels.LAUNCHES)
+        lap("serving (9)")
         kernels.reset_launch_counts()
         phase_training(device, train_cfg, serve_cfg["model"], runs["disk"]["produced"],
                        Path(tmp) / "train", smi)
         training = dict(kernels.LAUNCHES)
+        lap("training (10)")
         kernels.reset_launch_counts()
         phase_zoo(device, zoo_cfg, runs["disk"]["produced"], Path(tmp) / "zoo", smi)
         zoo = dict(kernels.LAUNCHES)
+        lap("zoo (11)")
         kernels.reset_launch_counts()
         phase_streaming(device, stream_cfg, runs["disk"]["produced"], Path(tmp) / "stream", smi)
         streaming = dict(kernels.LAUNCHES)
+        lap("streaming (12)")
         kernels.reset_launch_counts()
         phase_enhancement(device, enh_cfg, runs["disk"]["produced"], Path(tmp) / "enh", smi)
         enhancement = dict(kernels.LAUNCHES)
+        lap("enhancement (13)")
+        kernels.reset_launch_counts()
+        phase_enh_training(device, enh_train_cfg, enh_cfg["models"], runs["disk"]["produced"],
+                           Path(tmp) / "enh_train", smi)
+        enh_training = dict(kernels.LAUNCHES)
+        lap("enhancement training (14)")
     for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
-                    ("SkiM streaming", streaming), ("the enhancement zoo", enhancement)):
+                    ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
+                    ("enhancement training", enh_training)):
         check(not any(c.values()), f"{path} launched a kernel: {c}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
@@ -2272,8 +2689,9 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"generation takes the fused form alone); serving (phase 9) launches "
           f"neither kernel: {serving}, nor does training (phase 10): {training}, nor "
           f"the zoo (phase 11): {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
-          f"enhancement zoo (phase 13): {enhancement} (no zoo model has a Pallas "
-          f"counterpart)", flush=True)
+          f"enhancement zoo (phase 13): {enhancement}, nor enhancement training (phase 14): "
+          f"{enh_training} (no zoo model has a Pallas counterpart)", flush=True)
+    print(f"phase seconds (host wall): {seconds}", flush=True)
 
     report = {"kernels": [
         {

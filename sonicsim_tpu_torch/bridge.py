@@ -1109,3 +1109,232 @@ def bsrnn_espnet_state_dict(params: dict) -> dict:
     keys = _flat(params)
     return _spec_to_torch(params, _bsrnn_espnet_spec(_ids(keys, r"^band_split/fc_(\d+)/"),
                                                      _ids(keys, r"^rnn_time_(\d+)/")))
+
+
+# --- the GaGNet family (torch_import.py:503-608, 790-870) ------------------
+# The affine instance norm under ``norm`` ↔ scale, bias; G2Net's pair of
+# gated convs (``conv.1``, ``gate_conv.1``) ↔ one conv of both halves, the
+# gate's second.
+_IN = (lambda sd, k: {"scale": _np(sd[f"{k}.norm.weight"]), "bias": _np(sd[f"{k}.norm.bias"])},
+       lambda n, k: {f"{k}.norm.weight": np.asarray(n["scale"]),
+                     f"{k}.norm.bias": np.asarray(n["bias"])})
+
+
+def _gate_pair_to_flax(sd: dict, key: str) -> dict:
+    a, g = _CONV2D[0](sd, f"{key}.conv.1"), _CONV2D[0](sd, f"{key}.gate_conv.1")
+    return {"conv": {"kernel": _arr(np.concatenate([a["kernel"], g["kernel"]], axis=-1)),
+                     "bias": np.concatenate([a["bias"], g["bias"]])}}
+
+
+def _gate_pair_to_torch(node: dict, key: str) -> dict:
+    kernel, bias = np.asarray(node["conv"]["kernel"]), np.asarray(node["conv"]["bias"])
+    half = kernel.shape[-1] // 2
+    return {**_CONV2D[1]({"kernel": kernel[..., :half], "bias": bias[:half]}, f"{key}.conv.1"),
+            **_CONV2D[1]({"kernel": kernel[..., half:], "bias": bias[half:]},
+                         f"{key}.gate_conv.1")}
+
+
+_GATE_PAIR = (_gate_pair_to_flax, _gate_pair_to_torch)
+
+
+# A gated in-conv (flax node, torch key, kernel) → spec entries: GaGNet's
+# and TaylorSENet's one conv (after a causal pad when the time kernel is
+# over 1), G2Net's pair, TaylorSENet's transposed one (before a chomp).
+def _gate(f: str, t: str, k) -> list:
+    return [(f"{f}/conv", f"{t}.conv.1" if k[0] > 1 else f"{t}.conv", _CONV2D)]
+
+
+def _gate_pair(f: str, t: str, k) -> list:
+    return [(f, t, _GATE_PAIR)]
+
+
+def _gate_t(f: str, t: str, k) -> list:
+    return [(f"{f}/conv", f"{t}.conv.0" if k[0] > 1 else f"{t}.conv", _CONVT2D)]
+
+
+def _unet_spec(f: str, t: str, k1, k2, scale: int, gate, norm) -> list:
+    """One EnUnetModule: the in-conv, then ``scale`` conv and deconv units,
+    whose pad or chomp (time kernel over 1) shifts their later slots;
+    ``norm`` is ``_IN`` or None (TaylorSENet's carry no parameters)."""
+    spec = gate(f"{f}/in_conv_gate", f"{t}.in_conv.0", k1) + [
+        (f"{f}/in_conv_prelu", f"{t}.in_conv.2", _PRELU)]
+    if norm:
+        spec.append((f"{f}/in_conv_norm", f"{t}.in_conv.1", norm))
+    c, n = (1, 2) if k2[0] > 1 else (0, 1)
+    for j in range(scale):
+        e, d = f"{t}.enco.{j}.conv", f"{t}.deco.{j}.deconv"
+        spec += [(f"{f}/enco_{j}/conv", f"{e}.{c}", _CONV2D),
+                 (f"{f}/enco_{j}/prelu", f"{e}.{c + 2}", _PRELU),
+                 (f"{f}/deco_{j}/deconv", f"{d}.0", _CONVT2D),
+                 (f"{f}/deco_{j}/prelu", f"{d}.{n + 1}", _PRELU)]
+        if norm:
+            spec += [(f"{f}/enco_{j}/norm", f"{e}.{c + 1}", norm),
+                     (f"{f}/deco_{j}/norm", f"{d}.{n}", norm)]
+    return spec
+
+
+def _u2_encoder_spec(f: str, t: str, k1, k2, first, gate, norm) -> list:
+    """U2Encoder (torch_import.py:547-576): four UNet modules and the last
+    gated conv."""
+    spec = []
+    for i, (k, scale) in enumerate([(first, 4), (k1, 3), (k1, 2), (k1, 1)]):
+        spec += _unet_spec(f"{f}/unet_{i}", f"{t}.meta_unet_list.{i}", k, k2, scale, gate, norm)
+    spec += gate(f"{f}/last_gate", f"{t}.last_conv.0", k1) + [
+        (f"{f}/last_prelu", f"{t}.last_conv.2", _PRELU)]
+    return spec + ([(f"{f}/last_norm", f"{t}.last_conv.1", norm)] if norm else [])
+
+
+def _squeezed_tcm(f: str, t: str) -> list:
+    """GaGNet's SqueezedTCM (torch_import.py:520-529)."""
+    return [(f"{f}/in_conv", f"{t}.in_conv", _CONV1D),
+            (f"{f}/d_prelu", f"{t}.d_conv.0", _PRELU), (f"{f}/d_norm", f"{t}.d_conv.1", _IN),
+            (f"{f}/d_conv", f"{t}.d_conv.3", _CONV1D),
+            (f"{f}/out_prelu", f"{t}.out_conv.0", _PRELU),
+            (f"{f}/out_norm", f"{t}.out_conv.1", _IN), (f"{f}/out_conv", f"{t}.out_conv.2", _CONV1D)]
+
+
+def _gated_tcm(f: str, t: str, branches, norm) -> list:
+    """G2Net's GatedSqueezedTCM (torch_import.py:580-593) or, with
+    ``left_conv``/``right_conv`` and no norm parameters, TaylorSENet's
+    (:816-829)."""
+    spec = [(f"{f}/in_conv", f"{t}.in_conv", _CONV1D),
+            (f"{f}/out_prelu", f"{t}.out_conv.0", _PRELU),
+            (f"{f}/out_conv", f"{t}.out_conv.2", _CONV1D)]
+    spec += [(f"{f}/out_norm", f"{t}.out_conv.1", norm)] if norm else []
+    for part, branch in zip(("main", "gate"), branches):
+        spec += [(f"{f}/{part}_prelu", f"{t}.{branch}.0", _PRELU),
+                 (f"{f}/{part}_conv", f"{t}.{branch}.3", _CONV1D)]
+        spec += [(f"{f}/{part}_norm", f"{t}.{branch}.1", norm)] if norm else []
+    return spec
+
+
+def _count(keys, pattern: str) -> int:
+    return len(_ids(keys, pattern))
+
+
+def _gagnet_spec(q: int, p: int, n_dil: int, k1, k2) -> list:
+    """GaGNet (torch_import.py:578-604)."""
+    spec = _u2_encoder_spec("en", "en", k1, k2, (2, 5), _gate, _IN)
+    for i in range(q):
+        f, g, z = f"gag_{i}", f"gags.{i}.glance_block", f"gags.{i}.gaze_block"
+        spec += [(f"{f}/glance_main", f"{g}.in_conv_main", _CONV1D),
+                 (f"{f}/glance_gate", f"{g}.in_conv_gate.0", _CONV1D),
+                 (f"{f}/glance_linear", f"{g}.linear_g.0", _CONV1D),
+                 (f"{f}/gaze_main", f"{z}.in_conv_main", _CONV1D),
+                 (f"{f}/gaze_gate", f"{z}.in_conv_gate.0", _CONV1D),
+                 (f"{f}/gaze_linear_r", f"{z}.linear_r", _CONV1D),
+                 (f"{f}/gaze_linear_i", f"{z}.linear_i", _CONV1D)]
+        for pp in range(p):
+            for fk, tk in ((f"glance_tcn_{pp}", f"{g}.tcn_g.{pp}"),
+                           (f"gaze_tcn_r_{pp}", f"{z}.tcm_r.{pp}"),
+                           (f"gaze_tcn_i_{pp}", f"{z}.tcm_i.{pp}")):
+                for j in range(n_dil):
+                    spec += _squeezed_tcm(f"{f}/{fk}/tcm_{j}", f"{tk}.tcns.{j}")
+    return spec
+
+
+def gagnet_flax_params(state_dict: dict, k1=(2, 3), k2=(1, 3)) -> dict:
+    """GaGNet's ``state_dict`` → the JAX package's flax params
+    (torch_import.py:578)."""
+    sd = state_dict
+    return _spec_to_flax(sd, _gagnet_spec(
+        _count(sd, r"^gags\.(\d+)\."), _count(sd, r"^gags\.0\.glance_block\.tcn_g\.(\d+)\."),
+        _count(sd, r"^gags\.0\.glance_block\.tcn_g\.0\.tcns\.(\d+)\."), tuple(k1), tuple(k2)))
+
+
+def gagnet_state_dict(params: dict, k1=(2, 3), k2=(1, 3)) -> dict:
+    """The JAX package's GaGNet params → the port's ``state_dict``."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _gagnet_spec(
+        _count(keys, r"^gag_(\d+)/"), _count(keys, r"^gag_0/glance_tcn_(\d+)/"),
+        _count(keys, r"^gag_0/glance_tcn_0/tcm_(\d+)/"), tuple(k1), tuple(k2)))
+
+
+_G2NET_HEADS = ("ri_en", "mag_en")
+
+
+def _g2net_spec(heads, stages: int, tcn_num: int, n_dil: int, k1, k2) -> list:
+    """G2Net (torch_import.py:596-628)."""
+    spec = []
+    for h in heads:
+        spec += _u2_encoder_spec(h, h, k1, k2, (2, 5), _gate_pair, _IN)
+    for i in range(stages):
+        f, g, z = f"ggm_{i}", f"ggms.{i}.glance_branch", f"ggms.{i}.gaze_branch"
+        spec += [(f"{f}/glance_in", f"{g}.in_conv", _CONV1D),
+                 (f"{f}/glance_linear", f"{g}.linear_mag", _CONV1D),
+                 (f"{f}/gaze_in_r", f"{z}.in_conv_r", _CONV1D),
+                 (f"{f}/gaze_in_i", f"{z}.in_conv_i", _CONV1D),
+                 (f"{f}/gaze_linear_r", f"{z}.linear_r", _LINEAR),
+                 (f"{f}/gaze_linear_i", f"{z}.linear_i", _LINEAR)]
+        for pp in range(tcn_num):
+            for fk, tk in ((f"glance_tcn_{pp}", f"{g}.tcn_list.{pp}"),
+                           (f"gaze_tcn_r_{pp}", f"{z}.tcn_r.{pp}"),
+                           (f"gaze_tcn_i_{pp}", f"{z}.tcn_i.{pp}")):
+                for j in range(n_dil):
+                    spec += _gated_tcm(f"{f}/{fk}/tcm_{j}", f"{tk}.tcm_list.{j}",
+                                       ("dd_conv_main", "dd_conv_gate"), _IN)
+    return spec
+
+
+def g2net_flax_params(state_dict: dict, k1=(2, 3), k2=(1, 3)) -> dict:
+    """G2Net's ``state_dict`` → the JAX package's flax params
+    (torch_import.py:628)."""
+    sd = state_dict
+    heads = [h for h in _G2NET_HEADS if any(k.startswith(f"{h}.") for k in sd)]
+    return _spec_to_flax(sd, _g2net_spec(
+        heads, _count(sd, r"^ggms\.(\d+)\."),
+        _count(sd, r"^ggms\.0\.glance_branch\.tcn_list\.(\d+)\."),
+        _count(sd, r"^ggms\.0\.glance_branch\.tcn_list\.0\.tcm_list\.(\d+)\."),
+        tuple(k1), tuple(k2)))
+
+
+def g2net_state_dict(params: dict, k1=(2, 3), k2=(1, 3)) -> dict:
+    """The JAX package's G2Net params → the port's ``state_dict``."""
+    keys = _flat(params)
+    heads = [h for h in _G2NET_HEADS if any(k.startswith(f"{h}/") for k in keys)]
+    return _spec_to_torch(params, _g2net_spec(
+        heads, _count(keys, r"^ggm_(\d+)/"), _count(keys, r"^ggm_0/glance_tcn_(\d+)/"),
+        _count(keys, r"^ggm_0/glance_tcn_0/tcm_(\d+)/"), tuple(k1), tuple(k2)))
+
+
+def _taylorsenet_spec(order_num: int, p: int, n_dil: int, k1, k2) -> list:
+    """TaylorSENet (torch_import.py:872-907): no norm parameters anywhere."""
+    spec = (_u2_encoder_spec("zero_en", "zeroorderblock.en", k1, k2, (1, 5), _gate, None)
+            + _u2_encoder_spec("separate_en", "separate_en", k1, k2, (1, 5), _gate, None))
+    de = "zeroorderblock.de"
+    for i, scale in enumerate((1, 2, 3, 4)):
+        spec += _unet_spec(f"zero_de/unet_{i}", f"{de}.meta_unet_list.{i}", k1, k2, scale,
+                           _gate_t, None)
+    spec += _gate_t("zero_de/last_gate", f"{de}.last_conv.0", (1, 5)) + [
+        ("zero_de/last_prelu", f"{de}.last_conv.2", _PRELU),
+        ("zero_de/last_conv", f"{de}.last_conv.3", _CONV2D)]
+
+    def tcms(f: str, t: str) -> list:
+        return [e for i in range(p) for j in range(n_dil)
+                for e in _gated_tcm(f"{f}_{i}/tcm_{j}", f"{t}.{i}.tcm_list.{j}",
+                                    ("left_conv", "right_conv"), None)]
+
+    spec += tcms("zero_tcm", "zeroorderblock.tcms")
+    for k in range(order_num):
+        hb = f"highorderblock_list.{k}"
+        spec += [(f"ho_{k}_in", f"{hb}.in_conv", _CONV1D),
+                 (f"ho_{k}_r", f"{hb}.real_resi", _CONV1D),
+                 (f"ho_{k}_i", f"{hb}.imag_resi", _CONV1D)] + tcms(f"ho_{k}_tcm", f"{hb}.tcms")
+    return spec
+
+
+def taylorsenet_flax_params(state_dict: dict, k1=(1, 3), k2=(2, 3)) -> dict:
+    """TaylorSENet's ``state_dict`` → the JAX package's flax params
+    (torch_import.py:872)."""
+    sd = state_dict
+    return _spec_to_flax(sd, _taylorsenet_spec(
+        _count(sd, r"^highorderblock_list\.(\d+)\."), _count(sd, r"^zeroorderblock\.tcms\.(\d+)\."),
+        _count(sd, r"^zeroorderblock\.tcms\.0\.tcm_list\.(\d+)\."), tuple(k1), tuple(k2)))
+
+
+def taylorsenet_state_dict(params: dict, k1=(1, 3), k2=(2, 3)) -> dict:
+    """The JAX package's TaylorSENet params → the port's ``state_dict``."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _taylorsenet_spec(
+        _count(keys, r"^ho_(\d+)_in/"), _count(keys, r"^zero_tcm_(\d+)/"),
+        _count(keys, r"^zero_tcm_0/tcm_(\d+)/"), tuple(k1), tuple(k2)))

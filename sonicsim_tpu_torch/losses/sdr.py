@@ -2,13 +2,15 @@
 
 Reference separation/look2hear/losses/matrix.py:5-140 (PairwiseNegSDR,
 SingleSrcNegSDR, MultiSrcNegSDR): the same zero-mean, eps and log
-conventions. The STFT losses (``FreqMAE*``), which no ConvTasNet config
-uses, are not ported (ROADMAP A7c).
+conventions; the STFT losses ``FreqMAE`` and ``FreqMAEWavL1``
+(losses/matrix.py:145-185).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.stft import hann_window, stft
 
 EPS = 1e-8
 _SDR_TYPES = ("snr", "sisdr", "sdsdr")
@@ -97,3 +99,38 @@ class SingleSrcNegSDR(_NegSDR):
 
 class MultiSrcNegSDR(_NegSDR):
     _fn = staticmethod(multisrc_neg_sdr)
+
+
+def _freq_mae(ests: torch.Tensor, targets: torch.Tensor, win: int, stride: int,
+              with_wav_l1: bool) -> torch.Tensor:
+    """(B, n_src, T) pairs → (B,): the L1 of the STFTs' real and imaginary
+    parts (Hann window), each averaged over (F, frames), plus the waveform's
+    mean L1 with ``with_wav_l1``; averaged over the sources."""
+    b, n_src, t = ests.shape
+    window = hann_window(win, device=ests.device)
+    es, ts = (stft(x.reshape(-1, t), win, stride, window) for x in (ests, targets))
+    loss = ((es.real - ts.real).abs().mean((1, 2))
+            + (es.imag - ts.imag).abs().mean((1, 2))).reshape(b, n_src).mean(-1)
+    if with_wav_l1:
+        loss = loss + (ests - targets).abs().mean(-1).reshape(b, n_src).mean(-1)
+    return loss
+
+
+class FreqMAE:
+    """STFT real + imaginary L1 (losses/matrix.py:168-185), (B,)."""
+
+    def __init__(self, win: int = 2048, stride: int = 512):
+        self.win, self.stride = win, stride
+
+    def __call__(self, ests, targets):
+        return _freq_mae(ests, targets, self.win, self.stride, False)
+
+
+class FreqMAEWavL1:
+    """STFT L1 + waveform L1 (losses/matrix.py:145-166), (B,)."""
+
+    def __init__(self, win: int = 2048, stride: int = 512):
+        self.win, self.stride = win, stride
+
+    def __call__(self, ests, targets):
+        return _freq_mae(ests, targets, self.win, self.stride, True)

@@ -1,6 +1,5 @@
 """The port's models: ConvTasNet, the separation zoo (SkiM with its
-streamer), the enhancement zoo but the GaGNet family (ROADMAP A9), and the
-registry."""
+streamer), the enhancement zoo, and the registry."""
 
 from .base import (
     MODELS,
@@ -21,6 +20,8 @@ from .dptnet import DPTNetModel
 from .enc_dec import FreeDecoder, FreeEncoder, make_enc_dec
 from .fastfullsubnet import FastFullSubnet
 from .frcrn import FRCRN
+from .g2net import G2Net
+from .gagnet import GaGNet
 from .fullsubnet import Fullband, FullSubnet
 from .fullsubnet_plus import FullSubNet_Plus
 from .inter_subnet import Inter_SubNet
@@ -28,6 +29,7 @@ from .mossformer import MossFormer
 from .mossformer2 import MossFormer2
 from .skim import SkiMNet, SkiMStreamer
 from .sudormrf import SuDORMRF
+from .taylorsenet import TaylorSENet
 from .tdanet import TDANet
 from .tfgridnet import TFGridNet
 
@@ -48,6 +50,8 @@ __all__ = [
     "Fullband",
     "FullSubnet",
     "FullSubNet_Plus",
+    "G2Net",
+    "GaGNet",
     "from_pretrain",
     "get",
     "Inter_SubNet",
@@ -60,6 +64,7 @@ __all__ = [
     "SkiMNet",
     "SkiMStreamer",
     "SuDORMRF",
+    "TaylorSENet",
     "TDANet",
     "TFGridNet",
 ]

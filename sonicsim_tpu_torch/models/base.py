@@ -54,6 +54,9 @@ _FLAX_LAYOUT = {
     "dccrn": (bridge.dccrn_flax_params, bridge.dccrn_state_dict),
     "frcrn": (bridge.frcrn_flax_params, bridge.frcrn_state_dict),
     "bsrnnespnet": (bridge.bsrnn_espnet_flax_params, bridge.bsrnn_espnet_state_dict),
+    "gagnet": (bridge.gagnet_flax_params, bridge.gagnet_state_dict),
+    "g2net": (bridge.g2net_flax_params, bridge.g2net_state_dict),
+    "taylorsenet": (bridge.taylorsenet_flax_params, bridge.taylorsenet_state_dict),
 }
 
 

@@ -59,7 +59,11 @@ def _istft_pinv(win_len: int, fft_len: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _pinv_on(win_len: int, fft_len: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_istft_pinv(win_len, fft_len)).to(device)
+    """The synthesis matrix on ``device``, kept for every later call: made
+    outside inference mode, so a cache first filled while serving can
+    still be saved for a training step's backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_istft_pinv(win_len, fft_len)).to(device)
 
 
 def conv_stft(x: torch.Tensor, win_len: int, hop: int, fft_len: int,

@@ -60,7 +60,10 @@ class PrefixTable:
         rows = self.rows
         if rows is None or rows.shape[0] < n or rows.device != torch.device(device):
             longest = max(n, 0 if rows is None else rows.shape[0])
-            self.rows = rows = torch.from_numpy(self.make(longest)).to(device)
+            # Outside inference mode: a table first made while serving is
+            # still usable in a training step's backward.
+            with torch.inference_mode(False):
+                self.rows = rows = torch.from_numpy(self.make(longest)).to(device)
         return rows[:n]
 
 

@@ -31,6 +31,7 @@ from sonicsim_tpu.sim.image_source import ShoeboxRoom as JRoom
 from sonicsim_tpu.sim.oracle import SyntheticRirOracle as JOracle
 from sonicsim_tpu_torch.bridge import sim_from_fields
 from sonicsim_tpu_torch.sim import bank_render as TB
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL, RTOL = 5e-5, 1e-4  # atol is a fraction of the bank's peak
 REL = 1e-6

@@ -19,6 +19,7 @@ from sonicsim_tpu_torch import models as TM
 from sonicsim_tpu_torch.models import base as TB
 
 from test_torch_enh_models import SMALL, jax_params, port
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # The JAX converters of DCCRN and FRCRN take the reference checkpoints'
 # frozen statistics only (``torch_compat=True``); the port's pair maps both.

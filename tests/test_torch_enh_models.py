@@ -38,6 +38,7 @@ from sonicsim_tpu_torch.models import dccrn as TD
 from sonicsim_tpu_torch.models import fastfullsubnet as TF
 from sonicsim_tpu_torch.models import fullsubnet as TS
 from sonicsim_tpu_torch.models.layers import GroupedConv1D
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REL = 1e-5
 STFT = dict(n_fft=256, hop_length=128, win_length=256, num_freqs=129)
@@ -66,13 +67,32 @@ def _leaves(out):
     return [out.numpy() if torch.is_tensor(out) else np.asarray(out)]
 
 
+_PARAMS = {}
+
+
+def jax_layout(tree) -> list:
+    """A parameter tree's leaves as (path, shape), in path order."""
+    return sorted((jax.tree_util.keystr(path), tuple(np.shape(v)))
+                  for path, v in jax.tree_util.tree_flatten_with_path(tree)[0])
+
+
 def jax_params(name, cfg, seed=0):
-    """The JAX model's tree (``jax.eval_shape`` of its init) filled by
-    chip_smoke.py's seeded draw; a frozen-statistics ``var`` made positive."""
-    shapes = jax.eval_shape(JM.get(name)(**cfg).init, jax.random.PRNGKey(0), jnp.zeros((1, T)))
-    params = chip_smoke.seeded_flax(shapes, seed)
-    return jax.tree_util.tree_map_with_path(
-        lambda path, v: np.abs(v) + 0.5 if path[-1].key == "var" else v, params)
+    """The JAX model's parameter tree filled by chip_smoke.py's seeded draw,
+    a frozen-statistics ``var`` made positive; made once per model and
+    arguments. The tree is the bridge's layout of the port's state dict,
+    held leaf for leaf, path and shape, to the JAX init's own
+    (``jax.eval_shape``, a trace without compiling, once per arguments)."""
+    key = (name, repr(sorted(cfg.items())), seed)
+    if key not in _PARAMS:
+        model = TM.get(name)(**cfg, device="cpu")
+        tree = TB.to_flax(name, model.state_dict(), model.model_args())
+        want = jax.eval_shape(JM.get(name)(**cfg).init, jax.random.PRNGKey(0),
+                              jnp.zeros((1, T), jnp.float32))
+        assert jax_layout(tree) == jax_layout(want), name
+        params = chip_smoke.seeded_flax(tree, seed)
+        _PARAMS[key] = jax.tree_util.tree_map_with_path(
+            lambda path, v: np.abs(v) + 0.5 if path[-1].key == "var" else v, params)
+    return _PARAMS[key]
 
 
 def port(name, cfg, params):

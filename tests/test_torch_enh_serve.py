@@ -1,7 +1,7 @@
 """Serving the enhancement zoo with the port: ``to_waveform``'s enhancement
-branches against the JAX package's, the GaGNet family refused naming ROADMAP
-A9, every config of ``configs/enhancement/`` the port serves built through
-its ``_target_``, the inference CLI on an enhancement pack without jax, the
+branches against the JAX package's, the GaGNet family's included, bf16
+refused for it, every config of ``configs/enhancement/`` built through its
+``_target_``, the inference CLI on an enhancement pack without jax, the
 remix evaluation (task enhancement) against the same flow through the JAX
 package's functions, bf16 refused, and the streaming CLI's default device.
 
@@ -32,7 +32,9 @@ from sonicsim_tpu_torch.scripts import audio_test, stream
 from sonicsim_tpu_torch.utils import instantiate, read_wav, save_config, write_wav
 
 from test_torch_enh_models import SMALL, jax_params, port
+from test_torch_gagnet import SMALL as GAG_SMALL
 from test_torch_serve import COLUMN_TOL, SR, _read_csv, _split
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-5
@@ -51,6 +53,11 @@ def _outputs(name, rng, b=2, t=3200):
                 [rng.standard_normal((b, t)).astype(np.float32) for _ in range(6)])
     if name == "SuDORMRF":
         return rng.standard_normal((b, 1, t + 7)).astype(np.float32)
+    if name in ("GaGNet", "G2Net"):  # the stage spectra (B, 2, F, T)
+        return [rng.standard_normal((b, 2, 129, t // 128 + 1)).astype(np.float32)
+                for _ in range(2)]
+    if name == "TaylorSENet":  # (B, 2, T, F)
+        return rng.standard_normal((b, 2, t // 128 + 1, 129)).astype(np.float32)
     return rng.standard_normal((b, t)).astype(np.float32)
 
 
@@ -61,9 +68,10 @@ def _to_torch(out):
 
 
 @pytest.mark.parametrize("name", ["Fullband", "FullSubnet", "FRCRN", "DCCRN", "BSRNNESPNet",
-                                  "SuDORMRF"])
+                                  "SuDORMRF", *GAGNET_FAMILY])
 def test_to_waveform_branches(name):
-    cfg = dict(SMALL.get(name, {}), **({"num_sources": 1} if name == "SuDORMRF" else {}))
+    cfg = dict(SMALL.get(name, GAG_SMALL.get(name, {})),
+               **({"num_sources": 1} if name == "SuDORMRF" else {}))
     out = _outputs(name, np.random.default_rng(0))
     want = np.asarray(JI.to_waveform(JM.get(name)(**cfg), jax.tree.map(jnp.asarray, out), 3200))
     got = to_waveform(TM.get(name)(**cfg, device="cpu"), _to_torch(out), 3200).numpy()
@@ -73,8 +81,16 @@ def test_to_waveform_branches(name):
 
 @pytest.mark.parametrize("name", GAGNET_FAMILY)
 def test_the_gagnet_family_is_refused(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        to_waveform(type(name, (), {})(), torch.zeros(1, 2, 10, 10), 100)
+    """bf16 serving and training are refused for the GaGNet family, as for
+    the rest of the zoo, naming the model."""
+    from sonicsim_tpu_torch.infer import bf16_forward
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+
+    model = TM.get(name)(**GAG_SMALL[name], device="cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        bf16_forward(model)
+    with pytest.raises(NotImplementedError, match=name):
+        make_train_step(model, lambda e, r: 0.0, make_optimizer(model.parameters()), "bf16")
 
 
 def _enh_nodes():
@@ -86,13 +102,8 @@ def _enh_nodes():
                          ids=lambda v: v if isinstance(v, str) else "")
 def test_enhancement_configs_build_through_the_port(stem, node):
     """Each enhancement config's ``_target_`` resolves to the port's class at
-    full width (chip_smoke.py's phase 13 drives the same node); the GaGNet
-    family's raise until ROADMAP A9 ports them."""
+    full width (chip_smoke.py's phase 13 drives the same node)."""
     name = node["_target_"].rsplit(".", 1)[1]
-    if name in GAGNET_FAMILY:
-        with pytest.raises(ImportError):
-            instantiate(node, device="cpu")
-        return
     model = instantiate(node, device="cpu")
     assert type(model) is TM.get(name) and type(model).__module__.startswith("sonicsim_tpu_torch.")
     args = {k: v for k, v in node.items() if k != "_target_"}

@@ -15,6 +15,7 @@ import torch
 from sonicsim_tpu.ops import fftconv as J
 from sonicsim_tpu.ops.interp import dynamic_interp_plan
 from sonicsim_tpu_torch.ops import fftconv as T
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REL = 1e-5
 

@@ -35,6 +35,7 @@ from sonicsim_tpu_torch.utils import audio as taudio
 from sonicsim_tpu_torch.utils import transcripts as ttrans
 from sonicsim_tpu_torch.utils import wavio as twav
 from sonicsim_tpu_torch.utils.seeding import stable_seed
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SR = 16000
 

@@ -31,6 +31,7 @@ from sonicsim_tpu_torch.dataset import (
     scan_audio_lengths,
 )
 from sonicsim_tpu_torch.utils import read_wav, write_wav
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SR = 16000
 SLICE_REL = 4e-5

@@ -20,6 +20,7 @@ from sonicsim_tpu.sim.oracle import save_rir_bank as j_save_rir_bank
 from sonicsim_tpu.sim.scene import Scene as JScene
 from sonicsim_tpu_torch import bridge
 from sonicsim_tpu_torch.sim import CIRCULAR_4CH_ARRAY, Scene
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SERIAL_REL = 1e-5
 REL = 1e-5

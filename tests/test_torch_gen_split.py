@@ -30,6 +30,7 @@ from sonicsim_tpu_torch.ops import convolve_fixed_receiver, integrated_loudness,
 from sonicsim_tpu_torch.scripts import generate_sonicset
 from sonicsim_tpu_torch.sim import Scene
 from sonicsim_tpu_torch.utils import read_wav, write_wav
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SR = 16000
 LU_TOL = 1e-3

@@ -19,6 +19,7 @@ import sonicsim_tpu.infer as JI
 import sonicsim_tpu_torch.infer as TI
 import sonicsim_tpu_torch.ops.stft as TS
 from sonicsim_tpu_torch import models as TM
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 JS = importlib.import_module("sonicsim_tpu.ops.stft")  # ops exports a function `stft`
 SR = 16000
@@ -94,8 +95,10 @@ def test_to_waveform():
     np.testing.assert_array_equal(ours.numpy(), np.asarray(JI.to_waveform(model, jnp.asarray(out), 800)))
     assert TI.to_waveform(model, torch.from_numpy(out[:, 0]), 800).shape == (2, 1, 800)
 
-    class GaGNet:  # the GaGNet family: its converter waits for A9
-        pass
+    class GaGNet:  # the GaGNet family: the last stage, decompressed
+        n_fft, hop_length = 64, 32
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        TI.to_waveform(GaGNet(), torch.from_numpy(out), 800)
+    stages = np.random.default_rng(5).standard_normal((2, 2, 2, 33, 26)).astype(np.float32)
+    ours = TI.to_waveform(GaGNet(), list(torch.from_numpy(stages)), 800)
+    want = np.asarray(JI.to_waveform(GaGNet(), list(jnp.asarray(stages)), 800))
+    np.testing.assert_allclose(ours.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())

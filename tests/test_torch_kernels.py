@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from sonicsim_tpu_torch.ops import dynamic_interp_plan, kernels, segment_plan
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 K2_ATOL = 1e-6
 

@@ -15,6 +15,7 @@ import torch
 
 from sonicsim_tpu.ops import loudness as J
 from sonicsim_tpu_torch.ops import loudness as T
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SR = 16000
 LU_TOL = 1e-3

@@ -18,6 +18,7 @@ import sonicsim_tpu.losses as JL
 import sonicsim_tpu.metrics as JMet
 import sonicsim_tpu_torch.losses as TL
 import sonicsim_tpu_torch.metrics as TMet
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SR = 16000
 DB, BSS_DB = 1e-3, 1e-2

@@ -24,6 +24,7 @@ from sonicsim_tpu.models.torch_import import import_torch_checkpoint
 from sonicsim_tpu_torch import bridge
 from sonicsim_tpu_torch import models as TM
 from sonicsim_tpu_torch.infer import bf16_forward
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMALL = dict(N=32, L=16, B=16, H=32, X=3, R=2)
 FULL = dict(N=512, L=32, B=128, H=512, P=3, X=8, R=3, norm="gLN", num_spks=2,

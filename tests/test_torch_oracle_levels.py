@@ -26,6 +26,7 @@ from sonicsim_tpu.sim.oracle import render_rir_bank as j_bank
 from sonicsim_tpu.sim.oracle import save_rir_bank as j_save
 from sonicsim_tpu_torch import sim as T
 from sonicsim_tpu_torch.bridge import sim_from_fields
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SERIAL_REL = 1e-5
 BANK_ATOL, BANK_RTOL = 5e-5, 1e-4

@@ -16,6 +16,7 @@ from sonicsim_tpu.ops import dynamic_interp_plan, segment_plan
 from sonicsim_tpu.parallel import pipeline as J
 from sonicsim_tpu_torch.bridge import to_torch
 from sonicsim_tpu_torch.parallel import pipeline as T
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SR = 16000
 REL = 1e-5

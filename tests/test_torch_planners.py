@@ -11,6 +11,7 @@ from sonicsim_tpu.ops import fftconv as jfft
 from sonicsim_tpu.ops import interp as jinterp
 from sonicsim_tpu_torch.ops import fftconv as tfft
 from sonicsim_tpu_torch.ops import interp as tinterp
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize(

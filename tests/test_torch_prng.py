@@ -17,6 +17,7 @@ import torch
 from sonicsim_tpu.sim.image_source import tail_noise, tail_noise_key
 from sonicsim_tpu_torch.sim import image_source as T
 from sonicsim_tpu_torch.sim import prng
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SEEDS = [0, 1, 2**31 - 1, 2**31 + 5, 2**32 - 1]
 CHANNELS = [0, 1, 3]

@@ -27,6 +27,7 @@ from sonicsim_tpu_torch.ops import (
     moving_block_plan,
     segment_plan,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-6
 LEAD = 7  # the overlap-save slice start l − 1: odd, so rows are misaligned

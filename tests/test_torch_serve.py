@@ -31,6 +31,7 @@ from sonicsim_tpu_torch import losses as TL
 from sonicsim_tpu_torch import models as TM
 from sonicsim_tpu_torch.scripts import audio_test, generate_fixed_eval, inference, test
 from sonicsim_tpu_torch.utils import import_target, instantiate, load_config, read_wav, save_config
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 SR = 16000

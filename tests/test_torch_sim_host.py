@@ -20,6 +20,7 @@ import sonicsim_tpu_torch.sim.image_source as TI
 import sonicsim_tpu_torch.sim.materials as TM
 from sonicsim_tpu.sim.entities import Receiver as JReceiver
 from sonicsim_tpu_torch.sim.entities import Receiver, Source
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CHANNELS = [
     dict(channel_type="Mono"),

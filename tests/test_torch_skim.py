@@ -31,6 +31,7 @@ from sonicsim_tpu.models.torch_import import import_torch_checkpoint
 from sonicsim_tpu_torch import models as TM
 from sonicsim_tpu_torch.models import base as TB
 from sonicsim_tpu_torch.utils import instantiate
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-5
@@ -46,9 +47,29 @@ STREAM = CASES["causal-plain"]
 CHUNK = STREAM["segment_size"] * STREAM["kernel_size"] // 2
 
 
-def jax_params(cfg, t=2001, seed=0):
-    shapes = jax.eval_shape(JM.SkiMNet(**cfg).init, jax.random.PRNGKey(0), jnp.zeros((1, t)))
-    return chip_smoke.seeded_flax(shapes, seed)
+_PARAMS = {}
+
+
+def jax_params(cfg, seed=0):
+    """The JAX SkiM's parameter tree filled by chip_smoke.py's seeded draw,
+    made once per configuration: the bridge's layout of the port's state
+    dict, held leaf for leaf, path and shape, to the JAX init's own
+    (``jax.eval_shape``, a trace without compiling)."""
+    key = (repr(sorted(cfg.items())), seed)
+    if key not in _PARAMS:
+        model = TM.SkiMNet(**cfg, device="cpu")
+        tree = TB.to_flax("SkiMNet", model.state_dict(), model.model_args())
+        want = jax.eval_shape(JM.SkiMNet(**cfg).init, jax.random.PRNGKey(0),
+                              jnp.zeros((1, 4 * CHUNK), jnp.float32))
+        assert _layout(tree) == _layout(want)
+        _PARAMS[key] = chip_smoke.seeded_flax(tree, seed)
+    return _PARAMS[key]
+
+
+def _layout(tree) -> list:
+    """A parameter tree's leaves as (path, shape), in path order."""
+    return sorted((jax.tree_util.keystr(path), tuple(np.shape(v)))
+                  for path, v in jax.tree_util.tree_flatten_with_path(tree)[0])
 
 
 def port(cfg, params):
@@ -76,7 +97,7 @@ def test_offline_forward(case):
 
 
 def _stream_setup(n_chunks, batch=1, seed=2):
-    params = jax_params(STREAM, t=CHUNK * n_chunks)
+    params = jax_params(STREAM)
     wav = np.random.default_rng(seed).standard_normal((batch, CHUNK * n_chunks)).astype(np.float32)
     return params, wav, [wav[:, c * CHUNK:(c + 1) * CHUNK] for c in range(n_chunks)]
 

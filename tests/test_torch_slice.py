@@ -22,6 +22,7 @@ import sonicsim_tpu_torch as T
 from sonicsim_tpu.parallel import pad_moving_plans as j_pad
 from sonicsim_tpu.parallel import render_mixture_sources as j_render
 from sonicsim_tpu.sim.oracle import BankRirOracle, save_rir_bank
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 SR = 16000

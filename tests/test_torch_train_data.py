@@ -20,6 +20,7 @@ from sonicsim_tpu_torch.dataset import (MovingDataModule, MovingTrainDataset,
                                         batched_loader, prefetch_iter)
 from sonicsim_tpu_torch.train import schedulers as tsched
 from sonicsim_tpu_torch.utils import import_target, write_wav
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SR = 16000
 TRACKS = ("moving_audio_1", "moving_audio_2", "moving_audio_3", "noise_audio", "music_audio")

@@ -33,6 +33,7 @@ from sonicsim_tpu_torch.models import ConvTasNet, from_pretrain
 from sonicsim_tpu_torch.scripts import train as train_cli
 from sonicsim_tpu_torch.train import Trainer
 from sonicsim_tpu_torch.utils import write_wav
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SR = 16000

@@ -18,6 +18,7 @@ from sonicsim_tpu_torch import models as TM
 from sonicsim_tpu_torch.models import base as TB
 
 from test_torch_zoo_models import CASES, SMALL, jax_params, port
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REL = 1e-5
 

@@ -30,6 +30,7 @@ from sonicsim_tpu_torch.models import dptnet, enc_dec, mossformer, mossformer2, 
 from sonicsim_tpu_torch.models import tdanet, tfgridnet
 from sonicsim_tpu_torch.models import zoo_layers as tz
 from sonicsim_tpu_torch.models.layers import get_activation, get_layer
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REL = 1e-5
 

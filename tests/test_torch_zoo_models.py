@@ -26,6 +26,7 @@ import sonicsim_tpu.models as JM
 from sonicsim_tpu_torch import models as TM
 from sonicsim_tpu_torch.models import base as TB
 from sonicsim_tpu_torch.utils import instantiate
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-5
