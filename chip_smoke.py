@@ -77,14 +77,9 @@ Phases, one line each:
     ``_target_`` with seeded weights in the JAX package's flax layout, saved
     with ``save_model`` and loaded with ``from_pretrain`` on the card: fp32
     against the port on the CPU on a 4 s crop of phase 8's first mixture;
-    the forward's time on B=1 x 10 s (CUDA-event median of 5 after 2),
+    the forward's time on B=1 x 10 s (CUDA-event median of 3 after 1),
     audio-s/s and peak extra memory; the inference CLI on phase 8's first
-    60 s mixture; then DPRNN's train step (dprnn.yaml's Adam, clip and PIT
-    neg-SNR) timed on B=8 x 4 s, with its LSTMs through cuDNN's RNN (the
-    training path), through PyTorch's own CUDA LSTM and with cuDNN off, and
-    held to the CPU on B=2 x 1 s, and each side's step-1 gradients, and each
-    LSTM's output and input gradient, against float64 on the CPU (ROADMAP
-    C12). The zoo launches neither kernel;
+    60 s mixture. The zoo launches neither kernel;
 12. SkiM streaming: a causal SkiM at skim.yaml's widths (no segment
     overlap) from a pack on the card, ``SkiMStreamer`` over 10 s of phase
     8's first mixture in 500-sample (31.25 ms) chunks at depth 0 and 2 and
@@ -114,7 +109,29 @@ Phases, one line each:
     2-epoch ``train_from_config`` fit of fullsubnet.yaml over the split
     with a ``generate_fixed_eval --task enhancement`` val set
     (``target_names: [clean]``), resumed for a third, its best checkpoint
-    read back by ``from_pretrain``. It launches neither kernel.
+    read back by ``from_pretrain``. It launches neither kernel;
+15. separation training: the model of each configs/separation/*.yaml but
+    convtasnet.yaml (phase 10) at full width from phase 11's seeded
+    weights, with its config's optimizer (DPTNet's weight decay: AdamW),
+    clip 5 and PIT neg-SNR, fp32: the train step's time (CUDA-event median
+    of 3 after 1), audio-s/s and peak extra memory at the configs' B=2 x
+    4 s on phase 8's split, and one step on B=2 x 0.5 s held to the CPU
+    by ``enh_step_check``, phase 14's rule; for DPRNN also
+    tests/test_torch_zoo_cuda.py's batch under the same rule, each side's
+    step-1 gradients and each LSTM's output and input gradient against
+    float64 on the CPU, and the step's time with cuDNN off (ROADMAP C12).
+    It launches neither kernel;
+16. the evaluation sidecars, on seeded stand-in graphs (no published
+    weights are in the repository) written as .onnx files by
+    ``onnx_bytes`` and read back by the port's ONNX executor: DNSMOS's
+    two graphs at its shapes (the raw 9.01 s clip of phase 8's first
+    mixture, and ``audio_melspec`` of it) through ``DNSMOS`` and
+    ``make_dnsmos``, a SigMOS-shaped graph over its 48 kHz features through
+    ``SigMOS`` and ``make_sigmos_all``, each graph on the card within 1e-4
+    · max|ref| of the CPU with TF32 off and its ms per clip;
+    ``wav_chunk_inference`` of SuDORMRF at full width over 20 s against the
+    CPU; the composite measures' (CSIG/CBAK/COVL) host seconds per 60 s
+    mixture beside PESQ's and STOI's. It launches neither kernel.
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -135,9 +152,10 @@ its device time in the placement product, ``aten::bmm``), one generated
 60 s mixture with the disk sink and one with the device sink,
 ConvTasNet's forward (``serve-fp32-60s``, ``serve-bf16-B16``) and its
 train step (``train-fp32-B8``, ``train-bf16-B8``), each zoo model's
-10 s forward (``zoo-<name>-10s``) and each enhancement model's
-(``enh-<config>-10s``); ``--only PREFIX`` builds and profiles the paths
-whose name starts with PREFIX alone.
+10 s forward (``zoo-<name>-10s``), each enhancement model's
+(``enh-<config>-10s``) and each separation config's train step at B=2 x
+4 s (``sep-train-<config>``); ``--only PREFIX`` builds and profiles the
+paths whose name starts with PREFIX alone.
 ``--port-root`` measures the port found under another checkout, so two
 commits compare in one run on one card.
 """
@@ -244,9 +262,7 @@ ZOO_MODELS = {
                     kernel_size=4, sample_rate=SR),
 }
 ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=3, warmup=1,
-           segment_s=10.0, train_model="DPRNNTasNet", lr=1e-3, clip=5.0, batch=8,
-           train_crop_s=4.0, train_reps=5, train_warmup=2, check_batch=2, check_s=1.0,
-           profile_reps=3)  # the recurrent models launch thousands of kernels a call
+           segment_s=10.0, profile_reps=3)  # the recurrent models launch thousands of kernels a call
 ZOO_REL = 1e-4  # float32 on the card vs the port on the CPU, of max|ref| (SERVE_REL)
 # Phase 12: SkiM streaming, skim.yaml's widths made causal without segment
 # overlap (the streamer's mode): 10 s of phase 8's first mixture at B=1 for
@@ -321,6 +337,38 @@ PACK_REL = 1e-5  # a reloaded LSTM model vs the trained one, of max|out|
 ENH_TRAIN = dict(losses=ENH_LOSSES, seed=0, lr=1e-3, clip=5.0, batch=2, crop_s=4.0, reps=3,
                  warmup=1, check_batch=2, check_s=1.0, fit_model="fullsubnet", fit_samples=4,
                  fit_epochs=2)
+# Phase 15: separation training, the model of each configs/separation/*.yaml
+# but convtasnet.yaml (phase 10) at its full width (ZOO_MODELS) with the
+# config's optimizer (written out, as the models; the CPU tests hold them to
+# the files), clip 5 and PIT neg-SNR, float32, from phase 11's seeded
+# weights: the step timed at the configs' B=2 x 4 s, held to the CPU by
+# ``enh_step_check`` on B=2 x 0.5 s for every config: at 1 s the CPU's
+# three sides of the ten checks would take about 800 s of the call.
+SEP_OPTIMIZERS = {  # config: (model, lr, weight decay), in porting order
+    "sudormrf": ("SuDORMRF", 1e-3, 0.0),
+    "afrcnn": ("AFRCNN", 1e-3, 0.0),
+    "tdanet": ("TDANet", 1e-3, 0.0),
+    "dptnet": ("DPTNetModel", 4e-4, 1e-5),  # a weight decay: the adamw path
+    "mossformer": ("MossFormer", 1.5e-4, 0.0),
+    "mossformer2": ("MossFormer2", 1.5e-4, 0.0),
+    "bsrnn": ("BSRNN", 1e-3, 0.0),
+    "tfgridnet": ("TFGridNet", 1e-3, 0.0),
+    "skim": ("SkiMNet", 1e-3, 0.0),
+    "dprnn": ("DPRNNTasNet", 1e-3, 0.0),
+}
+SEP_TRAIN = dict(configs=SEP_OPTIMIZERS, models=ZOO_MODELS, seed=0, clip=5.0, batch=2,
+                 crop_s=4.0, reps=3, warmup=1, check_batch=2, check_s=0.5, c12="dprnn")
+# Phase 16: the evaluation sidecars on seeded graphs (no .onnx weights are in
+# the repository): DNSMOS-shaped graphs at its inputs (the raw 9.01 s clip,
+# and ``audio_melspec`` of it: (1, 900, 120)), a SigMOS-shaped graph at its
+# 48 kHz features of the same clip, serialised with ``onnx_bytes`` and read
+# back by the executor; ``wav_chunk_inference`` of a zoo model over a
+# mixture; the composite measures' host time per 60 s mixture.
+EVAL_SIDECARS = dict(seed=0, clip_s=9.01, reps=3, warmup=1, models=ZOO_MODELS,
+                     chunk_model="SuDORMRF", chunk_s=20.0,
+                     chunk=dict(target_length=4.0, hop_length=2.0, batch_size=4),
+                     composite_s=60.0)
+ONNX_REL = 1e-4  # the graphs on the card vs on the CPU, of max|ref| (TF32 off)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -1854,17 +1902,12 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
     """Phase 11: each zoo model from a pack on the device; its fp32 forward
     against the port on the CPU on a crop of phase 8's first mixture, its
     10 s forward's time and peak extra memory, the inference CLI on that
-    60 s mixture; then the train step of ``cfg["train_model"]``, timed and
-    held to the CPU. Returns each model's numbers."""
+    60 s mixture. Returns each model's numbers (training: phase 15)."""
     import torch
 
-    from sonicsim_tpu_torch.dataset import MovingDataModule
-    from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
-    from sonicsim_tpu_torch.models import from_pretrain, get, save_model
-    from sonicsim_tpu_torch.models.zoo_layers import LSTMLayer
+    from sonicsim_tpu_torch.models import from_pretrain, save_model
     from sonicsim_tpu_torch.scripts import inference
     from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
-    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
     from sonicsim_tpu_torch.utils import read_wav, write_wav
 
     strict_float32()
@@ -1874,7 +1917,7 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
     write_wav(mix_path, mono[0][None], SR, encoding="float32")
     t_mix, t_win = mono[0].shape[-1], int(cfg["window_s"] * SR)
     x10 = torch.from_numpy(mono[0][None, :t_win].copy()).to(device)
-    stats, cpu_models = {}, {}
+    stats = {}
     for name, args in cfg["models"].items():
         t0 = time.perf_counter()
         cpu = seeded_zoo(name, args, cfg["seed"])
@@ -1922,137 +1965,10 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
               f"{mib if mib is None else round(mib, 1)} MiB; inference CLI on the "
               f"{t_mix / SR:g} s mixture ({cfg['segment_s']:g} s windows, load and WAV I/O "
               f"included, no warm-up of its own): {cli_s:.4f} s; {smi}", flush=True)
-        cpu_models[name] = cpu
-        del model, fwd
+        del model, fwd, cpu
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
-    # The train step of the config (dprnn.yaml: Adam, clip 5, PIT neg-SNR).
-    name = cfg["train_model"]
-    weights = cpu_models[name].state_dict()
-    loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), pit_from="pw_mtx", threshold_byloss=False)
-
-    def fresh(dev, dtype=torch.float32):
-        model = get(name)(**cfg["models"][name], device=dev).to(dtype)
-        model.load_state_dict(weights)
-        opt = make_optimizer(model.parameters(), cfg["lr"])
-        return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
-
-    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True, lstm_cudnn=True, probe=None,
-              threads=None):
-        """One step's loss and (clipped) gradients, float64 on the host; with
-        ``lstm_cudnn`` off the LSTMs alone leave cuDNN for PyTorch's own CUDA
-        LSTM (ROADMAP C12); ``probe`` collects each LSTM's output and the
-        gradient at its input (float64, host); ``threads`` sets the CPU's
-        intra-op threads, another summation order."""
-        enabled, n = torch.backends.cudnn.enabled, torch.get_num_threads()
-        torch.backends.cudnn.enabled = cudnn
-        torch.set_num_threads(threads or n)
-        try:
-            model, step = fresh(dev, dtype)
-            for lname, m in model.named_modules():
-                if isinstance(m, LSTMLayer):
-                    _probe_lstm(m, lname, probe, lstm_cudnn)
-            loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
-        finally:
-            torch.backends.cudnn.enabled = enabled
-            torch.set_num_threads(n)
-        return loss, {n: p.grad.double().cpu() for n, p in model.named_parameters()
-                      if p.requires_grad}
-
-    split = folders[0].parent.parent
-    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
-                          duration=cfg["train_crop_s"], num_samples=cfg["batch"],
-                          batch_size=cfg["batch"], seed=cfg["seed"])
-    mix, tgt = next(iter(dm.train_batches(0)))
-    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
-    _, step = fresh(device)
-    check(bool(torch.isfinite(step(x, y))), f"{name} step: loss not finite")
-    step_ms = median_ms(lambda: step(x, y), device, reps=cfg["train_reps"],
-                        warmup=cfg["train_warmup"])
-    step_mib = _peak_mib(device, lambda: step(x, y))
-    n_chk = int(cfg["check_s"] * SR)
-    xc, yc = (torch.from_numpy(a[:cfg["check_batch"], ..., :n_chk].copy()) for a in (mix, tgt))
-    (l_dev, g_dev), (l_cpu, g_cpu) = step1(device, xc, yc), step1("cpu", xc, yc)
-    g_max = max(float(g.abs().max()) for g in g_cpu.values())
-    g_err = max(float((g_dev[n] - g).abs().max()) for n, g in g_cpu.items())
-    l_rel = abs(l_dev - l_cpu) / abs(l_cpu)
-    check(l_rel <= TRAIN_LOSS_REL and g_err <= TRAIN_GRAD_REL * g_max,
-          f"{name} fp32 step on the device vs the CPU: loss {l_dev} vs {l_cpu} (rel {l_rel}), "
-          f"gradients max abs err {g_err} of max|g| {g_max}")
-    audio_s = cfg["batch"] * cfg["train_crop_s"]
-    stats["train"] = dict(model=name, ms=step_ms, audio_s_per_s=audio_s / (step_ms / 1e3),
-                          peak_mib=step_mib, loss_rel=l_rel, grad_err=g_err, grad_max=g_max)
-    print(f"zoo[train {name}]: Adam lr {cfg['lr']}, optax clip {cfg['clip']}, PIT neg-SNR, "
-          f"fp32, B={cfg['batch']} x {cfg['train_crop_s']:g} s from phase 8's split: "
-          f"{step_ms:.4f} ms/step = {audio_s / (step_ms / 1e3):.1f} audio-s/s (CUDA-event median "
-          f"of {cfg['train_reps']} after {cfg['train_warmup']}), peak extra memory "
-          f"{step_mib if step_mib is None else round(step_mib, 1)} MiB; one step on "
-          f"B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU: loss rel {l_rel:.3g} (tol "
-          f"{TRAIN_LOSS_REL}), gradients max abs err {g_err:.3g} of max|g| {g_max:.3g} (tol "
-          f"{TRAIN_GRAD_REL}·max|g|); {smi}", flush=True)
-
-    # ROADMAP C12: each side's step-1 gradients against float64 on the CPU,
-    # on the check batch and on tests/test_torch_zoo_cuda.py's batch of
-    # seeded noise, with the card's LSTMs in PyTorch's own CUDA LSTM and in
-    # cuDNN, and the CPU in two summation orders; the card against the CPU
-    # as the test holds it; and the step's time with cuDNN off.
-    rng = np.random.default_rng(1)
-    xn = torch.from_numpy(rng.standard_normal(tuple(xc.shape)).astype(np.float32))
-    yn = torch.from_numpy(0.5 * rng.standard_normal(tuple(yc.shape)).astype(np.float32))
-    parts, layers = [], []
-    for label, (xb, yb) in (("phase 8's crops", (xc, yc)), ("the card test's noise", (xn, yn))):
-        p64: dict = {}
-        _, g64 = step1("cpu", xb, yb, torch.float64, probe=p64)
-        top = max(float(g.abs().max()) for g in g64.values())
-        dist, per_layer, sides = {}, {}, {}
-        for side, dev, cudnn, lstm_cudnn, threads in (
-                ("card", device, True, True, None),
-                ("card with cuDNN off", device, False, True, None),
-                ("card with its LSTMs off cuDNN", device, True, False, None),
-                ("CPU float32", "cpu", True, True, None),
-                ("CPU float32 on two threads", "cpu", True, True, 2)):
-            probe: dict = {}
-            g = step1(dev, xb, yb, cudnn=cudnn, lstm_cudnn=lstm_cudnn, probe=probe,
-                      threads=threads)[1]
-            sides[side] = g
-            worst = max(g64, key=lambda n: float((g[n] - g64[n]).abs().max()))
-            dist[side] = f"{float((g[worst] - g64[worst]).abs().max()) / top:.3g} ({worst})"
-            per_layer[side] = " ".join(
-                f"{k.split('dual_rnn.')[-1]} {_share(probe[k][0], v[0]):.2g}/"
-                f"{_share(probe[k][1], v[1]):.2g}" for k, v in p64.items())
-        g_cpu = sides["CPU float32"]
-        g_top = max(float(g.abs().max()) for g in g_cpu.values())
-        for side in ("card", "card with its LSTMs off cuDNN", "CPU float32 on two threads"):
-            worst = max(g_cpu, key=lambda n: float((sides[side][n] - g_cpu[n]).abs().max()))
-            dist[f"{side} vs the CPU float32"] = (
-                f"{float((sides[side][worst] - g_cpu[worst]).abs().max()) / g_top:.3g} of its "
-                f"max|g| ({worst})")
-        parts.append(f"{label}: " + ", ".join(f"{k} {v}" for k, v in dist.items()))
-        layers.append(f"{label}: " + "; ".join(f"{k}: {v}" for k, v in per_layer.items()))
-    enabled = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        _, step = fresh(device)
-        off_ms = median_ms(lambda: step(x, y), device, reps=3, warmup=1)
-    finally:
-        torch.backends.cudnn.enabled = enabled
-    model, step = fresh(device)
-    for lname, m in model.named_modules():
-        if isinstance(m, LSTMLayer):
-            _probe_lstm(m, lname, None, False)
-    lstm_off_ms = median_ms(lambda: step(x, y), device, reps=cfg["train_reps"],
-                            warmup=cfg["train_warmup"])
-    stats["train"].update(lstm_off_ms=lstm_off_ms, cudnn_off_ms=off_ms)
-    print(f"zoo[train {name} vs float64]: step-1 gradients' max abs distance from float64 on "
-          f"the CPU, of its max|g| (worst parameter): " + "; ".join(parts)
-          + f"; the B={cfg['batch']} step with its LSTMs off cuDNN {lstm_off_ms:.4f} "
-          f"ms (CUDA-event median of {cfg['train_reps']} after {cfg['train_warmup']}), with "
-          f"cuDNN off {off_ms:.4f} ms (median of 3), against "
-          f"{step_ms:.4f} ms; {smi}", flush=True)
-    print(f"zoo[train {name} vs float64, per LSTM]: each LSTM's output / the gradient at its "
-          f"input, max abs distance from float64 on the CPU as a share of that tensor's "
-          f"max|.|, in forward order: " + " || ".join(layers), flush=True)
     return stats
 
 
@@ -2077,18 +1993,19 @@ def _probe_lstm(module, name: str, probe: dict | None, use_cudnn: bool) -> None:
 
         module.register_forward_hook(keep_out)
         module.register_full_backward_hook(keep_grad)
-    if not use_cudnn:
-        forward = module.forward
+    if not use_cudnn:  # ``run`` too: SkiM's segment LSTMs carry their state through it
+        for attr in ("forward", "run"):
+            call = getattr(module, attr)
 
-        def off(*args, **kwargs):
-            enabled = torch.backends.cudnn.enabled
-            torch.backends.cudnn.enabled = False
-            try:
-                return forward(*args, **kwargs)
-            finally:
-                torch.backends.cudnn.enabled = enabled
+            def off(*args, call=call, **kwargs):
+                enabled = torch.backends.cudnn.enabled
+                torch.backends.cudnn.enabled = False
+                try:
+                    return call(*args, **kwargs)
+                finally:
+                    torch.backends.cudnn.enabled = enabled
 
-        module.forward = off
+            setattr(module, attr, off)
 
 
 def _stream_run(streamer, x, depth: int, flush):
@@ -2329,48 +2246,114 @@ ILL_FACTOR = 2
 KINK_REL = ZOO_REL  # of max|x|: how near 0 an input the two sides may send apart lies
 
 
-def _kink_tape(model, tape: list, flips: dict | None) -> None:
-    """Forward hooks on ``model``'s kinked activations (``nn.ReLU``,
-    ``nn.PReLU``, the GaGNet family's ``ChannelPReLU``). With ``flips``
-    None they record, in call order and on the host, the side of 0 each
-    one sends each element of its input by its own rule; else each call
-    replays the tape's side (``where(side, x, slope · x)``) and ``flips``
-    counts the elements whose own side differs, with the largest such |x|
-    as a share of max|x| of the call.
+def _kink_tape(model, tape: list, flips: dict | None):
+    """Record or replay, through ``model``'s forward, the branch each kinked
+    activation takes: every ``relu`` (``nn.ReLU``, ``torch.relu``,
+    ``F.relu``, ``Tensor.relu``), every ``prelu`` (``nn.PReLU``), and every
+    comparison of a float tensor with 0 (``x >= 0``, ``x > 0``: the GaGNet
+    family's ``ChannelPReLU``, TF-GridNet's per-head PReLU), however the
+    model calls them (a ``TorchFunctionMode`` held for the forward). With
+    ``flips`` None they record, in call order and on the host, the side of 0
+    each element of the input takes by its own rule; else each call replays
+    the tape's side (``where(side, x, slope · x)``, or the recorded mask) and
+    ``flips`` counts the elements whose own side differs, with the largest
+    such |x| as a share of max|x| of the call.
 
     A pre-activation within rounding of 0 takes either branch, and the
     gradient that flows back through it changes by a whole term: in the
     GaGNet family the float32 and float64 steps part by about 1e-2·max|g|
     for that alone. Replayed, every side evaluates the branch the device
-    took."""
+    took.
+
+    Returns a second mode, for the caller to hold around the loss (the
+    whole step): it records or replays the candidates at which a loss's
+    ``amin`` / ``argmin`` over a dimension takes its minimum (PIT's
+    permutation). Candidates within rounding of each other (estimates
+    alike across sources) are the same kind of branch; a replayed ``amin``
+    is the mean over the recorded minima, as ``amin`` splits its gradient
+    over ties, and ``flips`` counts the rows sent apart with the recorded
+    minimum's distance above the row's own as a share of max|x|."""
     import torch
-    from torch import nn
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
 
-    from sonicsim_tpu_torch.models.gagnet import ChannelPReLU
-
+    relus = {torch.relu, F.relu, torch.Tensor.relu}
+    compares = {torch.Tensor.__ge__: torch.ge, torch.ge: torch.ge, torch.Tensor.ge: torch.ge,
+                torch.Tensor.__gt__: torch.gt, torch.gt: torch.gt, torch.Tensor.gt: torch.gt}
     calls = iter(tape)
 
-    def hook(mod, args, out):
-        x = args[0]
-        xd = x.detach()
-        own = xd >= 0 if isinstance(mod, ChannelPReLU) else xd > 0
+    def side_of(x, own):
+        """The recorded side (recording it first), and the flips."""
         if flips is None:
             tape.append(own.cpu())
-            return None
-        side = next(calls).to(x.device)
+            return own
+        side = next(calls).to(own.device)
         apart = side != own
         if bool(apart.any()):
+            xd = x.detach()
             flips["n"] += int(apart.sum())
             flips["rel"] = max(flips["rel"], float(xd[apart].abs().max() / xd.abs().max()))
-        if isinstance(mod, nn.ReLU):
-            return torch.where(side, x, torch.zeros_like(x))
-        w = mod.weight
-        w = w.reshape((-1,) + (1,) * (x.dim() - 2)) if w.numel() > 1 else w
-        return torch.where(side, x, w * x)
+        return side
 
-    for m in model.modules():
-        if isinstance(m, (nn.ReLU, nn.PReLU, ChannelPReLU)):
-            m.register_forward_hook(hook)
+    class Kinks(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            x = args[0] if args else None
+            if func in relus:
+                if kwargs.get("inplace") or (len(args) > 1 and args[1] is True):
+                    raise NotImplementedError("an in-place relu in a checked model")
+                return torch.where(side_of(x, x.detach() > 0), x, torch.zeros_like(x))
+            if func is F.prelu:
+                w = args[1] if len(args) > 1 else kwargs["weight"]
+                w = w.reshape((-1,) + (1,) * (x.dim() - 2)) if w.numel() > 1 else w
+                return torch.where(side_of(x, x.detach() > 0), x, w * x)
+            if (func in compares and isinstance(x, torch.Tensor) and x.is_floating_point()
+                    and len(args) > 1 and not isinstance(args[1], torch.Tensor)
+                    and args[1] == 0):
+                return side_of(x, compares[func](x.detach(), 0))
+            return func(*args, **kwargs)
+
+    mode = Kinks()
+
+    def enter(mod, args):
+        mode.__enter__()
+
+    def leave(mod, args, out):
+        mode.__exit__(None, None, None)
+
+    model.register_forward_pre_hook(enter)
+    model.register_forward_hook(leave)
+
+    mins = {torch.amin: "amin", torch.Tensor.amin: "amin",
+            torch.argmin: "argmin", torch.Tensor.argmin: "argmin"}
+
+    class Choices(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            x = args[0] if args else None
+            dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
+            if (func not in mins or not isinstance(x, torch.Tensor) or not x.is_floating_point()
+                    or not isinstance(dim, int) or kwargs.get("keepdim") or len(args) > 2):
+                return func(*args, **kwargs)
+            xd = x.detach()
+            low = xd.amin(dim, keepdim=True)
+            own = xd == low
+            if flips is None:
+                tape.append(own.cpu())
+                return func(*args, **kwargs)
+            side = next(calls).to(own.device)
+            apart = (side != own).any(dim)
+            if bool(apart.any()):
+                picked = (xd * side).sum(dim, keepdim=True) / side.sum(dim, keepdim=True)
+                flips["n"] += int(apart.sum())
+                flips["rel"] = max(flips["rel"],
+                                   float((picked - low).abs().max() / xd.abs().max()))
+            if mins[func] == "argmin":
+                return side.to(torch.uint8).argmax(dim)  # the first recorded minimum
+            w = side.to(x.dtype)
+            return (x * w).sum(dim) / w.sum(dim)
+
+    return Choices()
 
 
 def enh_step_check(fresh, xb, yb, device) -> dict:
@@ -2380,9 +2363,11 @@ def enh_step_check(fresh, xb, yb, device) -> dict:
     distance (and where), each side's distance from float64 as a share of
     max|g64|, and the bound the device's gradients are held to. Every side
     after the device's replays the device's branch at each kinked
-    activation (``_kink_tape``); an element sent apart must lie within
-    ``KINK_REL`` · max|x| of 0. A model with LSTMs also takes a device step
-    with its LSTMs off cuDNN, reported beside the others (ROADMAP C12).
+    activation and the loss's choice of minimum (``_kink_tape``); an
+    element sent apart must lie within ``KINK_REL`` · max|x| of 0, a
+    minimum within ``KINK_REL`` · max|x| of the row's own. A model with
+    LSTMs also takes a device step with its LSTMs off cuDNN, reported
+    beside the others (ROADMAP C12).
 
     The CPU's float32 distance ``cpu_vs_f64`` is the larger distance from
     float64 of two CPU summation orders: its default thread count and two
@@ -2414,9 +2399,10 @@ def enh_step_check(fresh, xb, yb, device) -> dict:
                 for m in lstms:
                     _probe_lstm(m, "", None, False)
             model.to(dtype)
-            _kink_tape(model, tape, None if side == "device" else flips)
+            choices = _kink_tape(model, tape, None if side == "device" else flips)
             t0 = time.perf_counter()
-            loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
+            with choices:
+                loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
             elapsed = time.perf_counter() - t0
         finally:
             torch.set_num_threads(threads)
@@ -2445,6 +2431,19 @@ def enh_step_check(fresh, xb, yb, device) -> dict:
         g_off = sides["device_lstm_off"][1]
         out.update(lstm_off_err=dist(g_off, g_cpu)[0], lstm_off_vs_f64=dist(g_off, g64)[0] / top64)
     return out
+
+
+def _loudest_window(mix, tgt, batch: int, n: int):
+    """The first ``batch`` items' ``n``-sample window where the quietest
+    target track is loudest, as CPU tensors: a silent target makes an
+    SNR-type loss, and its gradient, ill-posed."""
+    import torch
+
+    t = tgt.shape[-1]
+    sq = np.square(tgt[:batch].reshape(-1, t).astype(np.float64))
+    energy = np.cumsum(np.concatenate([np.zeros((sq.shape[0], 1)), sq], axis=1), axis=1)
+    start = int(np.argmax((energy[:, n:] - energy[:, :-n]).min(axis=0)))
+    return tuple(torch.from_numpy(a[:batch, ..., start:start + n].copy()) for a in (mix, tgt))
 
 
 def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
@@ -2478,12 +2477,7 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
     x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
     # The check window: the one where the quietest item's target is loudest
     # (the GaGNet family's losses RMS-normalise the target).
-    n_chk = int(cfg["check_s"] * SR)
-    energy = np.cumsum(np.concatenate([np.zeros((cfg["check_batch"], 1)),
-                                       np.square(tgt[:cfg["check_batch"]])], axis=1), axis=1)
-    start = int(np.argmax((energy[:, n_chk:] - energy[:, :-n_chk]).min(axis=0)))
-    xc, yc = (torch.from_numpy(a[:cfg["check_batch"], start:start + n_chk].copy())
-              for a in (mix, tgt))
+    xc, yc = _loudest_window(mix, tgt, cfg["check_batch"], int(cfg["check_s"] * SR))
     audio_s = cfg["batch"] * cfg["crop_s"]
     stats = {}
     for stem, (name, args) in models.items():
@@ -2507,21 +2501,10 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
         check(np.isfinite(metric), f"{stem}: metric {metric}")
         del model, step
         chk = enh_step_check(fresh, xc, yc, device)
-        check(chk["loss_rel"] <= TRAIN_LOSS_REL and chk["grad_err"] <= chk["bound"]
-              and chk["flip_rel"] <= KINK_REL,
-              f"{stem} fp32 step on the device vs the CPU: loss {chk['loss']} (rel "
-              f"{chk['loss_rel']}), gradients max abs err {chk['grad_err']} ({chk['worst']}) "
-              f"over the bound {chk['bound']} (max|g| {chk['grad_max']}, the CPU's float32 "
-              f"{chk['cpu_vs_f64']}·max|g64| from float64), or a kinked activation's input "
-              f"{chk['flip_rel']}·max|x| from 0 sent apart (tol {KINK_REL})")
+        _step_check_ok(chk, stem)
         stats[stem] = dict(model=name, params=chk["params"], ms=ms,
                            audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, metric=metric,
                            **{k: v for k, v in chk.items() if k not in ("params", "ill")})
-        rel = chk["bound"] / chk["grad_max"]
-        off = ("" if "lstm_off_err" not in chk else
-               f"; with its LSTMs off cuDNN the device's gradients "
-               f"{chk['lstm_off_err'] / chk['grad_max']:.3g}·max|g| from the CPU's and "
-               f"{chk['lstm_off_vs_f64']:.3g}·max|g64| from float64")
         print(f"enh-train[{stem}: {name}]: {chk['params']} trained parameters, seeded, "
               f"{loss_node[0]} / {metric_node[0]}, Adam lr {cfg['lr']}, optax clip "
               f"{cfg['clip']}, fp32, B={cfg['batch']} x {cfg['crop_s']:g} s from phase 8's split: "
@@ -2529,16 +2512,7 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
               f"{cfg['reps']} after {cfg['warmup']}), peak extra memory "
               f"{mib if mib is None else round(mib, 1)} MiB, {metric_node[0]} {metric:.4f}; one "
               f"step on B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU "
-              f"({chk['cpu_s']:.2f} s there), every side on the device's branch at each of "
-              f"{chk['kinks']} kinked activation calls ({chk['flips']} elements sent apart, within "
-              f"{chk['flip_rel']:.3g}·max|x| of 0, tol {KINK_REL}): loss rel "
-              f"{chk['loss_rel']:.3g} (tol {TRAIN_LOSS_REL}), gradients max abs err "
-              f"{chk['grad_err']:.3g} ({chk['worst']}) of max|g| {chk['grad_max']:.3g} = "
-              f"{chk['grad_err'] / chk['grad_max']:.3g}·max|g| (tol {rel:.3g}·max|g|"
-              f"{f', {ILL_FACTOR} times the CPU float32 distance from float64' if chk['ill'] else ''}"
-              f"; the CPU's float32 {chk['cpu_vs_f64']:.3g} (the larger of its default and two "
-              f"threads), the device's {chk['device_vs_f64']:.3g}·max|g64| from float64 on the "
-              f"CPU{off}); {smi}", flush=True)
+              f"({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; {smi}", flush=True)
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -2600,10 +2574,544 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
     return stats
 
 
+def sep_train_fresh(stem: str, weights: dict, cfg=SEP_TRAIN):
+    """``fresh(dev, dtype=float32)`` for ``enh_step_check``: config
+    ``stem``'s model at ``cfg``'s widths with ``weights`` on ``dev``, and
+    its train step (the config's optimizer and clip, PIT neg-SNR)."""
+    import torch
+
+    from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
+    from sonicsim_tpu_torch.models import get
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+
+    name, lr, wd = cfg["configs"][stem]
+    loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), pit_from="pw_mtx", threshold_byloss=False)
+
+    def fresh(dev, dtype=torch.float32):
+        model = get(name)(**cfg["models"][name], device=dev).to(dtype)
+        model.load_state_dict(weights)
+        opt = make_optimizer(model.parameters(), lr, wd)
+        return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
+
+    return fresh
+
+
+def _step_check_line(chk: dict) -> str:
+    """``enh_step_check``'s reading against its bound, as phases 14 and 15
+    print it."""
+    rel = chk["bound"] / chk["grad_max"]
+    off = ("" if "lstm_off_err" not in chk else
+           f"; with its LSTMs off cuDNN the device's gradients "
+           f"{chk['lstm_off_err'] / chk['grad_max']:.3g}·max|g| from the CPU's and "
+           f"{chk['lstm_off_vs_f64']:.3g}·max|g64| from float64")
+    return (f"every side on the device's branch at each of {chk['kinks']} kinked activation "
+            f"and loss minimum calls ({chk['flips']} elements or rows sent apart, within "
+            f"{chk['flip_rel']:.3g}·max|x|, tol {KINK_REL}): loss rel {chk['loss_rel']:.3g} (tol {TRAIN_LOSS_REL}), "
+            f"gradients max abs err {chk['grad_err']:.3g} ({chk['worst']}) of max|g| "
+            f"{chk['grad_max']:.3g} = {chk['grad_err'] / chk['grad_max']:.3g}·max|g| (tol "
+            f"{rel:.3g}·max|g|"
+            f"{f', {ILL_FACTOR} times the CPU float32 distance from float64' if chk['ill'] else ''}"
+            f"; the CPU's float32 {chk['cpu_vs_f64']:.3g} (the larger of its default and two "
+            f"threads), the device's {chk['device_vs_f64']:.3g}·max|g64| from float64 on the "
+            f"CPU{off})")
+
+
+def _step_check_ok(chk: dict, what: str) -> None:
+    check(chk["loss_rel"] <= TRAIN_LOSS_REL and chk["grad_err"] <= chk["bound"]
+          and chk["flip_rel"] <= KINK_REL,
+          f"{what} fp32 step on the device vs the CPU: loss {chk['loss']} (rel "
+          f"{chk['loss_rel']}), gradients max abs err {chk['grad_err']} ({chk['worst']}) "
+          f"over the bound {chk['bound']} (max|g| {chk['grad_max']}, the CPU's float32 "
+          f"{chk['cpu_vs_f64']}·max|g64| from float64), or a kinked activation's input "
+          f"{chk['flip_rel']}·max|x| from 0 sent apart (tol {KINK_REL})")
+
+
+def phase_sep_training(device, cfg, folders, smi) -> dict:
+    """Phase 15: each separation config's model trained in float32 with its
+    config's optimizer, clip and PIT neg-SNR, from phase 11's seeded
+    weights: the step's time and peak extra memory at the configs' batch
+    and duration on phase 8's split, and one step on the device against the
+    same step on the CPU by ``enh_step_check``; for ``cfg["c12"]`` (DPRNN)
+    also tests/test_torch_zoo_cuda.py's batch under the same rule and the
+    ROADMAP C12 readings. Returns each config's numbers."""
+    import torch
+
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.scripts.common import strict_float32
+
+    strict_float32()
+    split = folders[0].parent.parent
+    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                          duration=cfg["crop_s"], num_samples=cfg["batch"],
+                          batch_size=cfg["batch"], seed=cfg["seed"])
+    mix, tgt = next(iter(dm.train_batches(0)))
+    t_crop = int(cfg["crop_s"] * SR)
+    check(tuple(tgt.shape) == (cfg["batch"], 2, t_crop), f"separation batch {tuple(tgt.shape)}")
+    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
+    audio_s = cfg["batch"] * cfg["crop_s"]
+    stats = {}
+    for stem, (name, lr, wd) in cfg["configs"].items():
+        marks = [time.perf_counter()]
+        weights = seeded_zoo(name, cfg["models"][name], cfg["seed"]).state_dict()
+        fresh = sep_train_fresh(stem, weights, cfg)
+        marks.append(time.perf_counter())
+        model, step = fresh(device)
+        check(bool(torch.isfinite(step(x, y))), f"{stem} step: loss not finite")
+        ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
+                       warmup=cfg["warmup"])
+        mib = _peak_mib(device, lambda step=step: step(x, y))
+        del model, step
+        marks.append(time.perf_counter())
+        check_s = cfg["check_s"]
+        xc, yc = _loudest_window(mix, tgt, cfg["check_batch"], int(check_s * SR))
+        chk = enh_step_check(fresh, xc, yc, device)
+        _step_check_ok(chk, stem)
+        marks.append(time.perf_counter())
+        seconds = marks[-1] - marks[0]
+        split_s = "/".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+        stats[stem] = dict(model=name, params=chk["params"], ms=ms,
+                           audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, check_s=check_s,
+                           seconds=seconds,
+                           **{k: v for k, v in chk.items() if k not in ("params", "ill")})
+        print(f"sep-train[{stem}: {name}]: {chk['params']} trained parameters, seeded, PIT "
+              f"neg-SNR, {'AdamW' if wd else 'Adam'} lr {lr:g}"
+              f"{f' weight decay {wd:g}' if wd else ''}, optax clip {cfg['clip']}, fp32, "
+              f"B={cfg['batch']} x {cfg['crop_s']:g} s from phase 8's split: {ms:.4f} ms/step = "
+              f"{audio_s / (ms / 1e3):.1f} audio-s/s (CUDA-event median of {cfg['reps']} after "
+              f"{cfg['warmup']}), peak extra memory {mib if mib is None else round(mib, 1)} MiB; "
+              f"one step on B={cfg['check_batch']} x {check_s:g} s vs the CPU "
+              f"({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; {seconds:.1f} s for the "
+              f"config (seeded weights / timing / check {split_s}); {smi}", flush=True)
+        if stem == cfg["c12"]:
+            stats["c12"] = _c12_readings(device, fresh, x, y, ms, cfg, smi)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return stats
+
+
+def _c12_readings(device, fresh, x, y, step_ms: float, cfg, smi) -> dict:
+    """ROADMAP C12, on DPRNN: tests/test_torch_zoo_cuda.py's batch of seeded
+    noise held by ``enh_step_check`` (the test's rule); on that batch each
+    side's step-1 gradients, and each LSTM's output and input gradient,
+    against float64 on the CPU, with cuDNN on and off on the card (the
+    check's own side has the LSTMs alone off cuDNN) and the CPU in two
+    summation orders; the step's time on (``x``, ``y``) with cuDNN off."""
+    import torch
+
+    from sonicsim_tpu_torch.models.zoo_layers import LSTMLayer
+
+    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True, probe=None, threads=None):
+        enabled, n = torch.backends.cudnn.enabled, torch.get_num_threads()
+        torch.backends.cudnn.enabled = cudnn
+        torch.set_num_threads(threads or n)
+        try:
+            model, step = fresh(dev, dtype)
+            for lname, m in model.named_modules():
+                if isinstance(m, LSTMLayer):
+                    _probe_lstm(m, lname, probe, True)
+            step(xb.to(dev, dtype), yb.to(dev, dtype))
+        finally:
+            torch.backends.cudnn.enabled = enabled
+            torch.set_num_threads(n)
+        return {n: p.grad.double().cpu() for n, p in model.named_parameters() if p.requires_grad}
+
+    xn, yn = c12_test_batch((cfg["check_batch"], SR), (cfg["check_batch"], 2, SR))
+    chk = enh_step_check(fresh, xn, yn, device)
+    _step_check_ok(chk, "DPRNN on the card test's batch")
+    print(f"sep-train[{cfg['c12']} C12]: tests/test_torch_zoo_cuda.py::"
+          f"test_dprnn_train_step_on_the_card's batch (B={xn.shape[0]} x "
+          f"{xn.shape[-1] / SR:g} s of seeded noise) by its rule: {_step_check_line(chk)}; {smi}",
+          flush=True)
+    p64: dict = {}
+    g64 = step1("cpu", xn, yn, torch.float64, probe=p64)
+    top = max(float(g.abs().max()) for g in g64.values())
+    dist, per_layer = {}, {}
+    for side, dev, cudnn, threads in (
+            ("card", device, True, None),
+            ("card with cuDNN off", device, False, None),
+            ("CPU float32", "cpu", True, None),
+            ("CPU float32 on two threads", "cpu", True, 2)):
+        probe: dict = {}
+        g = step1(dev, xn, yn, cudnn=cudnn, probe=probe, threads=threads)
+        worst = max(g64, key=lambda n: float((g[n] - g64[n]).abs().max()))
+        dist[side] = f"{float((g[worst] - g64[worst]).abs().max()) / top:.3g} ({worst})"
+        per_layer[side] = " ".join(
+            f"{k.split('dual_rnn.')[-1]} {_share(probe[k][0], v[0]):.2g}/"
+            f"{_share(probe[k][1], v[1]):.2g}" for k, v in p64.items())
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        _, step = fresh(device)
+        off_ms = median_ms(lambda: step(x, y), device, reps=cfg["reps"], warmup=cfg["warmup"])
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    print(f"sep-train[{cfg['c12']} vs float64]: on the card test's batch, step-1 gradients' max "
+          f"abs distance from float64 on the CPU, of its max|g| (worst parameter), no kink "
+          f"replay: " + ", ".join(f"{k} {v}" for k, v in dist.items())
+          + f"; the B={cfg['batch']} x {cfg['crop_s']:g} s step with cuDNN off {off_ms:.4f} ms "
+          f"(CUDA-event median of {cfg['reps']} after {cfg['warmup']}), against "
+          f"{step_ms:.4f} ms; {smi}", flush=True)
+    print(f"sep-train[{cfg['c12']} vs float64, per LSTM]: each LSTM's output / the gradient at "
+          f"its input, max abs distance from float64 on the CPU as a share of that tensor's "
+          f"max|.|, in forward order, on the card test's batch: "
+          + "; ".join(f"{k}: {v}" for k, v in per_layer.items()), flush=True)
+    return dict(test_batch={k: v for k, v in chk.items() if k != "ill"}, cudnn_off_ms=off_ms)
+
+
+def c12_test_batch(x_shape: tuple, y_shape: tuple):
+    """tests/test_torch_zoo_cuda.py::test_dprnn_train_step_on_the_card's
+    batch: seeded noise, the targets at half the mixture's scale."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    xn = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32))
+    yn = torch.from_numpy(0.5 * rng.standard_normal(y_shape).astype(np.float32))
+    return xn, yn
+
+
+_ONNX_DTYPES = {np.dtype(np.float32): 1, np.dtype(np.uint8): 2, np.dtype(np.int8): 3,
+                np.dtype(np.int32): 6, np.dtype(np.int64): 7, np.dtype(np.bool_): 9,
+                np.dtype(np.float16): 10, np.dtype(np.float64): 11}
+
+
+def _varint(v: int) -> bytes:
+    v &= (1 << 64) - 1  # negative ints as 64-bit two's complement
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _field(num: int, payload) -> bytes:
+    """One protobuf field: an int as a varint, bytes or str length-delimited."""
+    if isinstance(payload, int):
+        return _varint(num << 3) + _varint(payload)
+    data = payload.encode() if isinstance(payload, str) else bytes(payload)
+    return _varint(num << 3 | 2) + _varint(len(data)) + data
+
+
+def _onnx_tensor(name: str, arr) -> bytes:
+    arr = np.asarray(arr)  # tobytes() writes C order
+    return (b"".join(_field(1, int(d)) for d in arr.shape) + _field(2, _ONNX_DTYPES[arr.dtype])
+            + _field(8, name) + _field(9, arr.tobytes()))
+
+
+def _onnx_attr(name: str, v) -> bytes:
+    if isinstance(v, float):
+        return _field(1, name) + _field(20, 1) + _varint(2 << 3 | 5) + np.float32(v).tobytes()
+    if isinstance(v, int):
+        return _field(1, name) + _field(20, 2) + _field(3, v)
+    if isinstance(v, str):
+        return _field(1, name) + _field(20, 3) + _field(4, v)
+    if isinstance(v, np.ndarray):
+        return _field(1, name) + _field(20, 4) + _field(5, _onnx_tensor("", v))
+    if all(isinstance(x, int) for x in v):  # INTS, packed
+        return _field(1, name) + _field(20, 7) + _field(8, b"".join(_varint(x) for x in v))
+    return _field(1, name) + _field(20, 6) + _field(7, np.asarray(v, "<f4").tobytes())
+
+
+def onnx_bytes(graph: dict) -> bytes:
+    """A ModelProto's wire bytes for ``graph`` (``parse_onnx``'s dict: nodes,
+    initializers, inputs, outputs), the subset the executors read."""
+    g = b"".join(_field(1, b"".join([*(_field(1, i) for i in n["inputs"]),
+                                     *(_field(2, o) for o in n["outputs"]), _field(4, n["op"]),
+                                     *(_field(5, _onnx_attr(k, v))
+                                       for k, v in n.get("attrs", {}).items())]))
+                 for n in graph["nodes"])
+    g += b"".join(_field(5, _onnx_tensor(k, v)) for k, v in graph["initializers"].items())
+    g += b"".join(_field(11, _field(1, name)) for name in graph["inputs"])
+    g += b"".join(_field(12, _field(1, name)) for name in graph["outputs"])
+    return _field(1, 8) + _field(7, g)  # ir_version 8, graph
+
+
+def _node(op: str, inputs: list, outputs: list, **attrs) -> dict:
+    return {"op": op, "inputs": inputs, "outputs": outputs, "attrs": attrs}
+
+
+def _seeded_weights(rng, **shapes) -> dict:
+    """N(0, 1/fan_in) kernels and N(0, 0.01) vectors, float32."""
+    return {k: (rng.standard_normal(s) / np.sqrt(np.prod(s[1:]) if len(s) > 1 else 100.0))
+            .astype(np.float32) for k, s in shapes.items()}
+
+
+def dnsmos_graphs(seed: int = 0) -> tuple[dict, dict]:
+    """Seeded stand-ins for DNSMOS's two graphs at its shapes, from the
+    executor's op set: sig_bak_ovr.onnx, the raw (N, 144160) waveform →
+    (N, 3) SIG/BAK/OVRL, and model_v8.onnx, the (N, 900, 120) log-mel
+    spectrogram → (N, 1) P.808 MOS, each in [1, 5]."""
+    rng = np.random.default_rng(seed)
+    w = _seeded_weights(rng, w1=(8, 1, 400), b1=(8,), w2=(16, 8, 1, 3), b2=(16,), w3=(3, 16),
+                        b3=(3,))
+    p835 = {"inputs": ["input_1"], "outputs": ["mos"], "initializers": {
+        **w, "shape": np.array([0, 1, -1], np.int64), "ax2": np.array([2], np.int64),
+        "four": np.float32(4.0), "one": np.float32(1.0)}, "nodes": [
+        _node("Reshape", ["input_1", "shape"], ["x1"]),
+        _node("Conv", ["x1", "w1", "b1"], ["c1"], strides=[160]),
+        _node("Relu", ["c1"], ["r1"]),
+        _node("Unsqueeze", ["r1", "ax2"], ["u1"]),
+        _node("MaxPool", ["u1"], ["p1"], kernel_shape=[1, 4], strides=[1, 4]),
+        _node("Conv", ["p1", "w2", "b2"], ["c2"], pads=[0, 1, 0, 1]),
+        _node("Tanh", ["c2"], ["t2"]),
+        _node("GlobalAveragePool", ["t2"], ["g2"]),
+        _node("Flatten", ["g2"], ["f2"], axis=1),
+        _node("Gemm", ["f2", "w3", "b3"], ["d3"], transB=1, alpha=1.0, beta=1.0),
+        _node("Sigmoid", ["d3"], ["s3"]),
+        _node("Mul", ["s3", "four"], ["m3"]),
+        _node("Add", ["m3", "one"], ["mos"])]}
+    w = _seeded_weights(rng, k1=(8, 1, 3, 3), c1=(8,), gamma=(8,), beta=(8,), k2=(16, 8, 3, 3),
+                        c2=(16,), k3=(16, 1), c3=(1,))
+    w["mean"] = (0.01 * rng.standard_normal(8)).astype(np.float32)
+    w["var"] = (1.0 + rng.random(8)).astype(np.float32)
+    w["gamma"] += 1.0
+    p808 = {"inputs": ["input_1"], "outputs": ["p808"], "initializers": {
+        **w, "axes23": np.array([2, 3], np.int64), "lo": np.float32(0.0), "hi": np.float32(6.0),
+        "two": np.float32(2.0), "three": np.float32(3.0)}, "nodes": [
+        _node("Unsqueeze", ["input_1"], ["u"], axes=[1]),
+        _node("Conv", ["u", "k1", "c1"], ["a"], strides=[2, 2], auto_pad="SAME_UPPER"),
+        _node("BatchNormalization", ["a", "gamma", "beta", "mean", "var"], ["bn"], epsilon=1e-5),
+        _node("Relu", ["bn"], ["r"]),
+        _node("AveragePool", ["r"], ["ap"], kernel_shape=[3, 3], strides=[2, 2],
+              pads=[1, 1, 1, 1]),
+        _node("Conv", ["ap", "k2", "c2"], ["b"], pads=[1, 1, 1, 1]),
+        _node("Clip", ["b", "lo", "hi"], ["cl"]),
+        _node("ReduceMean", ["cl", "axes23"], ["rm"], keepdims=0),
+        _node("MatMul", ["rm", "k3"], ["mm"]),
+        _node("Add", ["mm", "c3"], ["lin"]),
+        _node("Tanh", ["lin"], ["th"]),
+        _node("Mul", ["th", "two"], ["sc"]),
+        _node("Add", ["sc", "three"], ["p808"])]}
+    return p835, p808
+
+
+def sigmos_graph(seed: int = 0) -> dict:
+    """A seeded stand-in for SigMOS's graph at its features' shape,
+    (1, 3, frames, 481) → (1, 7) in [1, 5], over the rest of the executor's
+    op set: shape arithmetic on the host (Shape, Gather, Concat, Cast,
+    Reshape), attention-style pooling (Transpose, Softmax, ReduceSum,
+    ReduceMax), Slice, and the elementwise ops."""
+    rng = np.random.default_rng(seed + 1)
+    w = _seeded_weights(rng, k1=(8, 3, 3, 3), c1=(8,), w2=(7, 12), b2=(7,))
+    return {"inputs": ["features"], "outputs": ["mos"], "initializers": {
+        **w, "keep": np.array([0, 1], np.int64), "rest": np.array([-1], np.int64),
+        "ax1": np.array([1], np.int64), "s0": np.array([0], np.int64),
+        "e12": np.array([12], np.int64), "one": np.float32(1.0), "four": np.float32(4.0),
+        "zero": np.float32(0.0), "floor": np.float32(-3.0), "five": np.float32(5.0),
+        "two": np.float32(2.0),
+        "ax2": np.array([2], np.int64)}, "nodes": [
+        _node("Conv", ["features", "k1", "c1"], ["a"], strides=[1, 2], pads=[1, 1, 1, 1]),
+        _node("Relu", ["a"], ["r"]),
+        _node("MaxPool", ["r"], ["p"], kernel_shape=[2, 2], strides=[2, 2]),
+        _node("Shape", ["p"], ["shp"]),
+        _node("Gather", ["shp", "keep"], ["lead"], axis=0),
+        _node("Concat", ["lead", "rest"], ["shape"], axis=0),
+        _node("Cast", ["shape"], ["shape64"], to=7),
+        _node("Reshape", ["p", "shape64"], ["flat"]),
+        _node("Transpose", ["flat"], ["t"], perm=[0, 2, 1]),
+        _node("Softmax", ["t"], ["att"], axis=1),
+        _node("Mul", ["att", "t"], ["wt"]),
+        _node("ReduceSum", ["wt", "ax1"], ["pooled"], keepdims=0),
+        _node("ReduceMax", ["t"], ["peak"], axes=[1], keepdims=0),
+        _node("Concat", ["pooled", "peak"], ["both"], axis=1),
+        _node("Slice", ["both", "s0", "e12", "ax1"], ["z"]),
+        _node("Pow", ["z", "two"], ["z2"]),
+        _node("Add", ["z2", "one"], ["z21"]),
+        _node("Log", ["z21"], ["lg"]),
+        _node("Exp", ["lg"], ["ex"]),
+        _node("Sqrt", ["ex"], ["norm"]),
+        _node("Div", ["z", "norm"], ["unit"]),
+        _node("Sub", ["unit", "zero"], ["centred"]),
+        _node("Gemm", ["centred", "w2", "b2"], ["d"], transB=1),
+        _node("Max", ["d", "floor"], ["pos"]),
+        _node("Min", ["pos", "five"], ["capped"]),
+        _node("Unsqueeze", ["capped", "ax2"], ["u"]),
+        _node("Squeeze", ["u", "ax2"], ["sq"]),
+        _node("Identity", ["sq"], ["id"]),
+        _node("Sigmoid", ["id"], ["s"]),
+        _node("Mul", ["s", "four"], ["m"]),
+        _node("Add", ["m", "one"], ["mos"])]}
+
+
+def _host_median_s(fn, reps: int) -> float:
+    """Median host seconds of ``reps`` calls of ``fn``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _graph_vs_cpu(card, cpu, x, what: str) -> tuple[float, float]:
+    """``card`` and ``cpu`` (one graph on two devices) on ``x``: max abs
+    error and max|ref|, held to ``ONNX_REL``."""
+    ref = cpu(x)[0]
+    got = card(x)[0].cpu()
+    err, peak = float((got - ref).abs().max()), float(ref.abs().max())
+    check(tuple(got.shape) == tuple(ref.shape) and _finite(got),
+          f"{what}: output {tuple(got.shape)} vs {tuple(ref.shape)}")
+    check(err <= ONNX_REL * peak, f"{what} on the device vs the CPU: max abs err {err} "
+          f"(max|ref| {peak})")
+    return err, peak
+
+
+def _finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def phase_eval_sidecars(device, cfg, folders, root: Path, smi) -> dict:
+    """Phase 16: the weightless evaluation sidecars on the device against
+    the CPU. DNSMOS and SigMOS over seeded graphs written as .onnx files
+    and read back by the executor (``DNSMOS``, ``make_dnsmos``, ``SigMOS``,
+    ``make_sigmos_all``) on a ``cfg["clip_s"]`` clip of phase 8's first
+    mixture, each graph held to the CPU and the ms per clip timed;
+    ``wav_chunk_inference`` of a zoo model over a stretch of that mixture;
+    the composite measures' host seconds per 60 s mixture beside PESQ's and
+    STOI's. Returns the numbers."""
+    import torch
+
+    from sonicsim_tpu_torch.infer import wav_chunk_inference
+    from sonicsim_tpu_torch.metrics import (
+        DNSMOS,
+        SigMOS,
+        audio_melspec,
+        composite_measures,
+        make_dnsmos,
+        make_sigmos_all,
+        pesq,
+        sigmos_features,
+        sigmos_stft,
+        stoi,
+    )
+    from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
+    from sonicsim_tpu_torch.utils import read_wav
+
+    strict_float32()
+    root.mkdir()
+    mono = _mono_mixes(folders)[0]
+    clip = mono[:int(cfg["clip_s"] * SR)].copy()
+    cpu = torch.device("cpu")
+    stats = {}
+
+    # DNSMOS: the two graphs at its shapes, as files.
+    p835, p808 = dnsmos_graphs(cfg["seed"])
+    (root / "dnsmos").mkdir()
+    (root / "dnsmos" / "sig_bak_ovr.onnx").write_bytes(onnx_bytes(p835))
+    (root / "dnsmos" / "model_v8.onnx").write_bytes(onnx_bytes(p808))
+    card, host = DNSMOS(root / "dnsmos", device), DNSMOS(root / "dnsmos", cpu)
+    seg = clip[None, :].astype(np.float32)
+    mel = audio_melspec(clip[:-160])[None]
+    check(mel.shape == (1, 900, 120), f"DNSMOS mel {mel.shape}")
+    errs = {"p835": _graph_vs_cpu(card.p835, host.p835, seg, "DNSMOS P.835 graph"),
+            "p808": _graph_vs_cpu(card.p808, host.p808, mel, "DNSMOS P.808 graph")}
+    got, want = card(clip, SR), host(clip, SR)
+    check(got["num_hops"] == want["num_hops"] == 1 and all(
+        abs(got[k] - want[k]) <= ONNX_REL * abs(want[k]) for k in want if k != "num_hops"),
+        f"DNSMOS on the device {got} vs the CPU {want}")
+    metric = make_dnsmos(root / "dnsmos", device=device)
+    check(abs(metric(None, clip, SR) - got["OVRL"]) <= ONNX_REL * abs(got["OVRL"]),
+          "make_dnsmos does not score the estimate")
+    reps = cfg["reps"]
+    clip_ms = 1e3 * _host_median_s(lambda: card(clip, SR), reps)
+    graph_ms = median_ms(lambda: (card.p835(seg), card.p808(mel)), device, reps=reps,
+                         warmup=cfg["warmup"])
+    stats["dnsmos"] = dict(ms_per_clip=clip_ms, graph_ms=graph_ms, **{
+        f"{k}_err": e for k, (e, _) in errs.items()}, scores=got)
+    print(f"eval[DNSMOS]: seeded stand-in graphs at DNSMOS's shapes (P.835 on the raw "
+          f"{cfg['clip_s']:g} s clip, {len(p835['nodes'])} nodes; P.808 on audio_melspec "
+          f"{mel.shape}, {len(p808['nodes'])} nodes), written as .onnx and read back; on the "
+          f"device vs the CPU, TF32 off: max abs err {errs['p835'][0]:.3g} of max|ref| "
+          f"{errs['p835'][1]:.3g} and {errs['p808'][0]:.3g} of {errs['p808'][1]:.3g} (tol "
+          f"{ONNX_REL}·max|ref|); scores {({k: round(v, 4) for k, v in got.items()})}; "
+          f"{clip_ms:.4f} ms per clip with the host features (median of {reps}), the two "
+          f"graphs {graph_ms:.4f} ms (CUDA-event median of {reps} after {cfg['warmup']}); "
+          f"make_dnsmos scores the estimate; {smi}", flush=True)
+
+    # SigMOS: its 48 kHz features of the same clip through a seeded graph.
+    (root / "sigmos.onnx").write_bytes(onnx_bytes(sigmos_graph(cfg["seed"])))
+    card, host = SigMOS(root / "sigmos.onnx", device), SigMOS(root / "sigmos.onnx", cpu)
+    from scipy.signal import resample
+
+    up = resample(clip, int(np.ceil(len(clip) * SigMOS.SAMPLING_RATE / SR))).astype(np.float32)
+    feats = sigmos_features(sigmos_stft(up))
+    err = _graph_vs_cpu(card.model, host.model, feats, "SigMOS graph")
+    got, want = card(clip, SR), host(clip, SR)
+    check(all(abs(got[k] - want[k]) <= ONNX_REL * abs(want[k]) for k in want),
+          f"SigMOS on the device {got} vs the CPU {want}")
+    columns = make_sigmos_all(root / "sigmos.onnx", device=device)
+    check(sorted(columns) == sorted(SigMOS.AXES) and all(
+        abs(columns[k](None, clip, SR) - got[k]) <= ONNX_REL * abs(got[k]) for k in SigMOS.AXES),
+        "make_sigmos_all's columns are not SigMOS's axes on the estimate")
+    clip_ms = 1e3 * _host_median_s(lambda: card(clip, SR), reps)
+    graph_ms = median_ms(lambda: card.model(feats), device, reps=reps, warmup=cfg["warmup"])
+    stats["sigmos"] = dict(ms_per_clip=clip_ms, graph_ms=graph_ms, err=err[0], scores=got)
+    print(f"eval[SigMOS]: a seeded stand-in graph ({len(sigmos_graph()['nodes'])} nodes) on "
+          f"the 48 kHz features {feats.shape} of the clip; on the device vs the CPU: max abs err "
+          f"{err[0]:.3g} of max|ref| {err[1]:.3g} (tol {ONNX_REL}·max|ref|); "
+          f"{clip_ms:.4f} ms per clip with the resample and features on the host (median of "
+          f"{reps}), the graph {graph_ms:.4f} ms (CUDA-event median); make_sigmos_all's 7 "
+          f"columns; {smi}", flush=True)
+
+    # wav_chunk_inference of a zoo model over a stretch of the mixture.
+    name = cfg["chunk_model"]
+    model = seeded_zoo(name, cfg["models"][name], cfg["seed"])
+    fwd_cpu = make_forward(model)
+    model_dev = seeded_zoo(name, cfg["models"][name], cfg["seed"])
+    model_dev.place(device)
+    fwd_dev = make_forward(model_dev)
+    piece = mono[:int(cfg["chunk_s"] * SR)].copy()
+    ref = wav_chunk_inference(fwd_cpu, piece, SR, device=cpu, **cfg["chunk"])
+    got = wav_chunk_inference(fwd_dev, piece, SR, device=device, **cfg["chunk"])
+    err, peak = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+    check(tuple(got.shape) == (2, len(piece)) and _finite(got) and err <= ZOO_REL * peak,
+          f"wav_chunk_inference on the device vs the CPU: {tuple(got.shape)}, max abs err "
+          f"{err} (max|ref| {peak})")
+    chunk_ms = median_ms(lambda: wav_chunk_inference(fwd_dev, piece, SR, device=device,
+                                                     **cfg["chunk"]),
+                         device, reps=reps, warmup=cfg["warmup"])
+    stats["chunked"] = dict(model=name, err=err, ms=chunk_ms)
+    print(f"eval[wav_chunk_inference]: {name} at full width (seeded) over "
+          f"{cfg['chunk_s']:g} s of phase 8's first mixture, {cfg['chunk']}: on the device vs "
+          f"the CPU max abs err {err:.3g} of max|ref| {peak:.3g} (tol {ZOO_REL}·max|ref|); "
+          f"{chunk_ms:.4f} ms (CUDA-event median of {reps} after {cfg['warmup']}); {smi}",
+          flush=True)
+    del model_dev, fwd_dev
+
+    # The composite measures on the host, per 60 s mixture (ROADMAP B11).
+    n = int(cfg["composite_s"] * SR)
+    folder = folders[0]
+    src, _ = read_wav(folder / sorted(p.name for p in folder.glob("moving_audio_1*.wav"))[0])
+    ref_track = src.mean(axis=0)[:n].astype(np.float64)
+    deg = mono[:n].astype(np.float64)
+    host_s = {}
+    t0 = time.perf_counter()
+    comp = composite_measures(ref_track, deg, SR)
+    host_s["composite (with its PESQ)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = pesq(ref_track, deg, SR, "wb")
+    host_s["PESQ wb"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s = stoi(ref_track, deg, SR)
+    host_s["STOI"] = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in comp.values()) and np.isfinite(p) and np.isfinite(s),
+          f"composite measures {comp}, PESQ {p}, STOI {s}")
+    stats["composite"] = dict(seconds=host_s, values=comp)
+    print(f"eval[composite]: CSIG/CBAK/COVL of moving_audio_1 against the mixture, "
+          f"{cfg['composite_s']:g} s: {({k: round(v, 4) for k, v in comp.items()})}; host "
+          f"seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in host_s.items())
+          + f" (PESQ {p:.4f}, STOI {s:.4f}); {smi}", flush=True)
+    return stats
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
         train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
-        enh_train_cfg=ENH_TRAIN, env_line: str = "") -> None:
+        enh_train_cfg=ENH_TRAIN, sep_train_cfg=SEP_TRAIN, eval_cfg=EVAL_SIDECARS,
+        env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     seconds, mark = {}, [time.perf_counter()]
@@ -2671,9 +3179,19 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
                            Path(tmp) / "enh_train", smi)
         enh_training = dict(kernels.LAUNCHES)
         lap("enhancement training (14)")
+        kernels.reset_launch_counts()
+        phase_sep_training(device, sep_train_cfg, runs["disk"]["produced"], smi)
+        sep_training = dict(kernels.LAUNCHES)
+        lap("separation training (15)")
+        kernels.reset_launch_counts()
+        phase_eval_sidecars(device, eval_cfg, runs["disk"]["produced"], Path(tmp) / "eval", smi)
+        eval_sidecars = dict(kernels.LAUNCHES)
+        lap("evaluation sidecars (16)")
     for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
-                    ("enhancement training", enh_training)):
+                    ("enhancement training", enh_training),
+                    ("separation training", sep_training),
+                    ("the evaluation sidecars", eval_sidecars)):
         check(not any(c.values()), f"{path} launched a kernel: {c}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
@@ -2690,7 +3208,9 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"neither kernel: {serving}, nor does training (phase 10): {training}, nor "
           f"the zoo (phase 11): {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
           f"enhancement zoo (phase 13): {enhancement}, nor enhancement training (phase 14): "
-          f"{enh_training} (no zoo model has a Pallas counterpart)", flush=True)
+          f"{enh_training}, nor separation training (phase 15): {sep_training}, nor the "
+          f"evaluation sidecars (phase 16): {eval_sidecars} (no zoo model or sidecar has a "
+          f"Pallas counterpart)", flush=True)
     print(f"phase seconds (host wall): {seconds}", flush=True)
 
     report = {"kernels": [
@@ -2839,6 +3359,28 @@ def _enh_paths(device, cfg, wanted=lambda name: True) -> dict:
     return paths
 
 
+def _sep_train_paths(device, cfg, wanted=lambda name: True) -> dict:
+    """Each separation config's train step (phase 15's seeded weights,
+    optimizer, clip and loss) on B=``cfg["batch"]`` seeded-noise crops of
+    ``cfg["crop_s"]``, in fp32; the configs whose path is ``wanted`` alone
+    are built."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(cfg["seed"])
+    n = int(cfg["crop_s"] * SR)
+    x = 0.1 * torch.randn((cfg["batch"], n), generator=g, device=device)
+    y = 0.1 * torch.randn((cfg["batch"], 2, n), generator=g, device=device)
+    paths = {}
+    for stem, (name, _, _) in cfg["configs"].items():
+        path = f"sep-train-{stem}"
+        if not wanted(path):
+            continue
+        weights = seeded_zoo(name, cfg["models"][name], cfg["seed"]).state_dict()
+        _, step = sep_train_fresh(stem, weights, cfg)(device)
+        paths[path] = lambda step=step: step(x, y)
+    return paths
+
+
 def _generation_paths(device, cfg, root: Path) -> dict:
     """One 60 s mixture of phase 8's corpus, planned from a fixed seed, as
     ``render_mixture`` with the disk sink and with the device sink (a warm
@@ -2865,7 +3407,7 @@ def _generation_paths(device, cfg, root: Path) -> dict:
 
 
 def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg, zoo_cfg,
-                   n_reps, tmp, only=None, enh_cfg=ENH):
+                   n_reps, tmp, only=None, enh_cfg=ENH, sep_train_cfg=SEP_TRAIN):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2907,11 +3449,13 @@ def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, trai
         paths.update(_zoo_paths(device, zoo_cfg, wanted))
     if importlib.util.find_spec("sonicsim_tpu_torch.models.frcrn") and wanted("enh-"):
         paths.update(_enh_paths(device, enh_cfg, wanted))
+    if importlib.util.find_spec("sonicsim_tpu_torch.models.tfgridnet") and wanted("sep-train-"):
+        paths.update(_sep_train_paths(device, sep_train_cfg, wanted))
     report = {"port": sonicsim_tpu_torch.__file__}
     for name, fn in paths.items():
         if only and not name.startswith(only):
             continue
-        reps = zoo_cfg["profile_reps"] if name.startswith(("zoo-", "enh-")) else n_reps
+        reps = zoo_cfg["profile_reps"] if name.startswith(("zoo-", "enh-", "sep-")) else n_reps
         fn()
         sync(device)
         torch.cuda.reset_peak_memory_stats(device)

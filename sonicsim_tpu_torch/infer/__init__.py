@@ -1,7 +1,8 @@
 """Inference helpers (port of ``sonicsim_tpu.infer``): bf16 forward, output
-→ waveform, the energy VAD and cross-segment stitching. Chunked inference
-(``wav_chunk_inference``) waits for ROADMAP A10."""
+→ waveform, the energy VAD, cross-segment stitching and chunked
+(overlap-add) inference."""
 
+from .chunked import wav_chunk_inference
 from .postprocess import to_waveform
 from .precision import bf16_forward
 from .stitch import concatenate_tracks, spectral_embedding, stitch_segments
@@ -15,4 +16,5 @@ __all__ = [
     "spectral_embedding",
     "stitch_segments",
     "to_waveform",
+    "wav_chunk_inference",
 ]

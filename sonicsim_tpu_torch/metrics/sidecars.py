@@ -1,14 +1,18 @@
-"""Metric sidecars: PESQ (port of ``make_pesq`` from
+"""Metric sidecars: PESQ, DNSMOS, SigMOS and WER (port of
 ``sonicsim_tpu.metrics.sidecars``).
 
 The tracker takes numeric sidecars as ``extra_metrics`` callables
 ``fn(ref, est, sr) -> float``. PESQ prefers the compiled ITU binding (the
 ``pesq`` package) where it imports, and otherwise runs the native P.862
-pipeline of ``metrics/pesq.py``; ``fn.backend`` says which. DNSMOS, SigMOS
-and Whisper (ONNX and CTranslate2 sidecars) wait for ROADMAP A10.
+pipeline of ``metrics/pesq.py``; ``fn.backend`` says which. DNSMOS and
+SigMOS run the user's .onnx weights through ``metrics/onnx_torch.py`` on
+the device they are given (the card unless given). The Whisper
+transcriber waits for ROADMAP A10b; :func:`wer` scores transcripts.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 
 def make_pesq(mode: str = "wb", native: bool | None = None):
@@ -57,3 +61,68 @@ def make_pesq(mode: str = "wb", native: bool | None = None):
 
     _fn.backend = backend
     return _fn
+
+
+def _estimate_mean(scorer, key: str):
+    """A tracker column from a reference-free MOS scorer: it scores the
+    ESTIMATE (reference wrapper.py:105-111), the mean over its tracks."""
+    def metric(ref, est, sample_rate=16000):
+        import numpy as np
+
+        return float(np.mean([scorer(np.asarray(e), sample_rate)[key]
+                              for e in np.atleast_2d(est)]))
+
+    return metric
+
+
+def make_dnsmos(model_dir: str | Path, key: str = "OVRL", device=None):
+    """DNSMOS as a tracker extra-metric: ``model_dir`` holds model_v8.onnx
+    and sig_bak_ovr.onnx (the files the reference commits at
+    separation/DNSMOS/); ``key`` is the MOS axis the column records (OVRL |
+    SIG | BAK | P808_MOS)."""
+    from .dnsmos import DNSMOS
+
+    return _estimate_mean(DNSMOS(model_dir, device), key)
+
+
+def make_sigmos(model_path: str | Path, key: str = "MOS_OVRL", device=None):
+    """SigMOS (P.804) as a tracker extra-metric: ``key`` is one of the 7 MOS
+    axes (MOS_COL | MOS_DISC | MOS_LOUD | MOS_NOISE | MOS_REVERB | MOS_SIG |
+    MOS_OVRL)."""
+    from .sigmos import SigMOS
+
+    if key not in SigMOS.AXES:
+        raise ValueError(f"key must be one of {SigMOS.AXES}, got {key!r}")
+    return _estimate_mean(SigMOS(model_path, device), key)
+
+
+def make_sigmos_all(model_path: str | Path, device=None) -> dict:
+    """All 7 SigMOS axes as tracker columns (reference wrapper.py:48), over
+    one loaded model."""
+    from .sigmos import SigMOS
+
+    scorer = SigMOS(model_path, device)
+    return {key: _estimate_mean(scorer, key) for key in SigMOS.AXES}
+
+
+def make_whisper_asr(*args, **kwargs):
+    """The Whisper transcription sidecar: not ported yet."""
+    raise NotImplementedError(
+        "make_whisper_asr: Whisper is not ported to sonicsim_tpu_torch yet (ROADMAP A10b)")
+
+
+def wer(reference: str, hypothesis: str) -> float:
+    """Word error rate, (S + D + I) / N over the reference's words; an empty
+    reference gives 0.0 against an empty hypothesis, else inf."""
+    ref_words = reference.split()
+    hyp_words = hypothesis.split()
+    if not ref_words:
+        return 0.0 if not hyp_words else float("inf")
+    # Levenshtein over words, two-row DP.
+    prev = list(range(len(hyp_words) + 1))
+    for i, rw in enumerate(ref_words, 1):
+        cur = [i] + [0] * len(hyp_words)
+        for j, hw in enumerate(hyp_words, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (rw != hw))
+        prev = cur
+    return prev[-1] / len(ref_words)

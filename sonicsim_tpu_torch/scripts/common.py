@@ -49,10 +49,10 @@ def pesq_columns() -> dict:
 
 
 def refuse_unported(args, flags: tuple[str, ...]) -> None:
-    """Raise for any of ``flags`` that was given: their sidecars (ECAPA,
-    PyanNet, DNSMOS, SigMOS, Whisper) wait for ROADMAP A10."""
+    """Raise for any of ``flags`` that was given: their sidecar models
+    (ECAPA, PyanNet, Whisper) wait for ROADMAP A10b."""
     for flag in flags:
         if getattr(args, flag.lstrip("-")):
             raise NotImplementedError(
                 f"{flag}: its sidecar is not ported to sonicsim_tpu_torch yet "
-                "(ROADMAP A10)")
+                "(ROADMAP A10b)")

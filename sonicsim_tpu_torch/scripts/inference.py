@@ -7,7 +7,7 @@ Port of scripts/inference.py (reference separation/inference.py:32-154):
 downmixes the mixture to mono, separates it in fixed windows, re-tracks the
 speakers across windows by embedding similarity, and writes s{i}_est.wav.
 The model runs on ``--device`` (default: the card), in full float32 (TF32
-off) or, with ``--bf16``, in bfloat16. ``--ecapa`` waits for ROADMAP A10.
+off) or, with ``--bf16``, in bfloat16. ``--ecapa`` waits for ROADMAP A10b.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def main(argv: list[str] | None = None) -> Path:
     ap.add_argument("--bf16", action="store_true",
                     help="run the model in bfloat16")
     ap.add_argument("--ecapa", default=None, metavar="CKPT",
-                    help="ECAPA-TDNN speaker re-tracking (not ported: ROADMAP A10)")
+                    help="ECAPA-TDNN speaker re-tracking (not ported: ROADMAP A10b)")
     ap.add_argument("--device", default=None,
                     help="where the model runs (default: the card; cpu for the CPU)")
     args = ap.parse_args(argv)

@@ -2,15 +2,18 @@
 
   python -m sonicsim_tpu_torch.scripts.test --conf_dir CONFIG.yaml \\
       [--model_path best_model.pkl] [--limit N] [--bf16] [--use_vad] \\
-      [--no_pesq] [--bucket SAMPLES] [--device cpu]
+      [--dnsmos_dir DIR] [--sigmos_path MODEL.onnx] [--no_pesq] \\
+      [--bucket SAMPLES] [--device cpu]
 
 Port of scripts/test.py (reference separation/test.py, enhancement/test.py):
 walks ``datas.test_dir`` (mix.wav + s{i}.wav per folder), segments each
 mixture by the start/end points its ``json_data.json`` records (or, with
 ``--use_vad``, by the energy VAD), separates each span and scores it with
 the ``MetricsTracker`` into ``<exp.dir>/<exp.name>/results/metrics.csv``.
-``--vad_ckpt``, ``--dnsmos_dir``, ``--sigmos_path`` and ``--whisper`` wait
-for ROADMAP A10 and raise.
+``--dnsmos_dir`` adds a ``dnsmos`` column (OVRL) and ``--sigmos_path`` the
+seven SigMOS axes, each from the user's .onnx weights run on the device of
+``--device``. ``--vad_ckpt`` and ``--whisper`` wait for ROADMAP A10b and
+raise.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from ..dataset.sampler import MovingTestDataset
 from ..infer import segment_mixture
-from ..metrics import MetricsTracker
+from ..metrics import MetricsTracker, make_dnsmos, make_sigmos_all
 from ..models import from_pretrain
 from ..utils.config import load_config
 from .common import (
@@ -111,14 +114,15 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--bf16", action="store_true", help="run the model in bfloat16")
     ap.add_argument("--use_vad", action="store_true",
                     help="segment with the energy VAD instead of json_data.json spans")
-    ap.add_argument("--dnsmos_dir", default=None, help="not ported: ROADMAP A10")
-    ap.add_argument("--sigmos_path", default=None, help="not ported: ROADMAP A10")
+    ap.add_argument("--dnsmos_dir", default=None,
+                    help="directory of the DNSMOS weights (sig_bak_ovr.onnx, model_v8.onnx)")
+    ap.add_argument("--sigmos_path", default=None, help="the SigMOS .onnx weights")
     ap.add_argument("--no_pesq", action="store_true",
                     help="drop the default pesq_nb/pesq_wb columns")
     ap.add_argument("--whisper", default=None, metavar="MODEL_SIZE",
-                    help="not ported: ROADMAP A10")
+                    help="not ported: ROADMAP A10b")
     ap.add_argument("--vad_ckpt", default=None, metavar="CKPT",
-                    help="not ported: ROADMAP A10")
+                    help="not ported: ROADMAP A10b")
     ap.add_argument("--bucket", type=int, default=0, metavar="SAMPLES",
                     help="zero-pad spans up to multiples of SAMPLES for the "
                     "forward (default 0: exact lengths)")
@@ -126,18 +130,26 @@ def main(argv: list[str] | None = None) -> dict:
                     help="where the model and the SDRs run (default: the card; "
                     "cpu for the CPU)")
     args = ap.parse_args(argv)
-    refuse_unported(args, ("--vad_ckpt", "--dnsmos_dir", "--sigmos_path", "--whisper"))
+    refuse_unported(args, ("--vad_ckpt", "--whisper"))
     strict_float32()
 
     cfg = load_config(args.conf_dir)
     exp_dir = Path(cfg["exp"]["dir"]) / cfg["exp"]["name"]
     model = from_pretrain(args.model_path or exp_dir / "best_model.pkl", device=args.device)
+    device = model_device(model)
+    extra_metrics = {}  # in the JAX script's order
+    if args.dnsmos_dir:
+        extra_metrics["dnsmos"] = make_dnsmos(args.dnsmos_dir, device=device)
+    if args.sigmos_path:
+        extra_metrics.update(make_sigmos_all(args.sigmos_path, device=device))
+    if not args.no_pesq:
+        extra_metrics.update(pesq_columns())
     result = evaluate_split(
         model, cfg["datas"]["test_dir"], exp_dir / "results" / "metrics.csv",
         sample_rate=int(cfg["datas"].get("sample_rate", 16000)),
         num_spks=int(cfg["datas"].get("num_spks", 2)), limit=args.limit,
         bf16=args.bf16, use_vad=args.use_vad,
-        extra_metrics=None if args.no_pesq else pesq_columns(), bucket=args.bucket)
+        extra_metrics=extra_metrics or None, bucket=args.bucket)
     print("final:", result["final"])
     print(f"{result['spans']} spans of {result['mixtures']} mixtures: forward "
           f"{result['forward_s']:.3f} s, metrics {result['metrics_s']:.3f} s")
