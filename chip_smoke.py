@@ -76,7 +76,7 @@ Phases, one line each:
     their configs/separation/*.yaml, each built through the config's
     ``_target_`` with seeded weights in the JAX package's flax layout, saved
     with ``save_model`` and loaded with ``from_pretrain`` on the card: fp32
-    against the port on the CPU on a 4 s crop of phase 8's first mixture;
+    against the port on the CPU on a 2 s crop of phase 8's first mixture;
     the forward's time on B=1 x 10 s (CUDA-event median of 3 after 1),
     audio-s/s and peak extra memory; the inference CLI on phase 8's first
     60 s mixture. The zoo launches neither kernel;
@@ -100,12 +100,12 @@ Phases, one line each:
     loss and metric, Adam (lr 1e-3) and clip (5), in fp32 from phase 13's
     seeded weights: the train step's time (CUDA-event median of 3 after 1),
     audio-s/s and peak extra memory at the configs' B=2 x 4 s on phase 8's
-    split, and one step on B=2 x 1 s against the same step on the CPU, each
-    side on the device's branch at every kinked activation (loss rel 1e-5,
-    clipped gradients 1e-4 · max|g|, phase 10's bounds; for a model whose
-    own float32 steps on the CPU lie further than that from its float64
-    step, ILL_FACTOR = 2 times that distance: ``enh_step_check``), and the
-    LSTM models' device step again with the LSTMs off cuDNN; then a
+    split, and one step on B=2 x 0.5 s against the same step on the CPU,
+    each side on the device's branch at every kinked activation: the step in
+    float64 on the device within F64_REL = 1e-9 · max|g64| of float64 on
+    the CPU, and in float32 the loss within rel 1e-5 and the clipped
+    gradients within max(1e-4, ILL_FACTOR = 2 times the CPU's own float32
+    distance from its float64 step) · max|g| (``enh_step_check``); then a
     2-epoch ``train_from_config`` fit of fullsubnet.yaml over the split
     with a ``generate_fixed_eval --task enhancement`` val set
     (``target_names: [clean]``), resumed for a third, its best checkpoint
@@ -116,11 +116,8 @@ Phases, one line each:
     clip 5 and PIT neg-SNR, fp32: the train step's time (CUDA-event median
     of 3 after 1), audio-s/s and peak extra memory at the configs' B=2 x
     4 s on phase 8's split, and one step on B=2 x 0.5 s held to the CPU
-    by ``enh_step_check``, phase 14's rule; for DPRNN also
-    tests/test_torch_zoo_cuda.py's batch under the same rule, each side's
-    step-1 gradients and each LSTM's output and input gradient against
-    float64 on the CPU, and the step's time with cuDNN off (ROADMAP C12).
-    It launches neither kernel;
+    by ``enh_step_check``, phase 14's rule and window. It launches neither
+    kernel;
 16. the evaluation sidecars, on seeded stand-in graphs (no published
     weights are in the repository) written as .onnx files by
     ``onnx_bytes`` and read back by the port's ONNX executor: DNSMOS's
@@ -131,7 +128,22 @@ Phases, one line each:
     · max|ref| of the CPU with TF32 off and its ms per clip;
     ``wav_chunk_inference`` of SuDORMRF at full width over 20 s against the
     CPU; the composite measures' (CSIG/CBAK/COVL) host seconds per 60 s
-    mixture beside PESQ's and STOI's. It launches neither kernel.
+    mixture beside PESQ's and STOI's. It launches neither kernel;
+17. the sidecar models at their published widths, seeded weights written
+    in each checkpoint's own format (no published weights are in the
+    repository): Whisper medium.en (769 M parameters, an HF directory)
+    through ``make_whisper_asr`` on one 30 s window of phase 8's first
+    mixture, greedy and beam 5 with the temperature fallback (ms per
+    window and per decoded token, peak memory), its log-mel, encoder
+    output and teacher-forced logits of 32 positions within 1e-4 ·
+    max|ref| of the CPU and its greedy tokens the CPU's argmax up to the
+    first near-tie; ECAPA-TDNN at spkrec-ecapa-voxceleb's widths on 10 s of
+    each speech track (1e-4 · max|ref|, cosine ≥ 1 − 1e-6) and
+    ``inference --ecapa`` with phase 9's pack; PyanNet at the JAX module's
+    defaults on the 60 s mixture (frame probabilities within 1e-4, spans
+    the CPU's but at frames that near the threshold) and ``test --vad_ckpt
+    --whisper --limit 1`` over phase 8's split, its ``asr`` column's host
+    seconds beside PESQ's and STOI's. It launches neither kernel.
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -228,8 +240,9 @@ TRAIN_GRAD_REL = 1e-4  # of max|g_cpu|: the clipped gradients Adam takes
 # Phase 11: the separation zoo at the full width of the model node of each
 # configs/separation/*.yaml but convtasnet.yaml (written out here, as
 # SERVE's; the CPU tests hold these to the files), in porting order; each
-# built through the config's ``_target_``; held to the CPU on a 4 s crop
-# (each model's CPU forward of 4 s took under 17 s on the card's 8-core host).
+# built through the config's ``_target_``; held to the CPU on a 2 s crop
+# (the call's time: each model's CPU forward of 4 s took up to 17 s on the
+# card's 8-core host).
 ZOO_MODELS = {
     "DPRNNTasNet": dict(in_channels=512, out_channels=64, hidden_channels=128, kernel_size=4,
                         rnn_type="LSTM", norm="gln", dropout=0, bidirectional=False,
@@ -261,7 +274,7 @@ ZOO_MODELS = {
                     segment_size=250, dropout=0.1, mem_type="hc", seg_overlap=True,
                     kernel_size=4, sample_rate=SR),
 }
-ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=3, warmup=1,
+ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=2.0, window_s=10.0, reps=3, warmup=1,
            segment_s=10.0, profile_reps=3)  # the recurrent models launch thousands of kernels a call
 ZOO_REL = 1e-4  # float32 on the card vs the port on the CPU, of max|ref| (SERVE_REL)
 # Phase 12: SkiM streaming, skim.yaml's widths made causal without segment
@@ -318,7 +331,8 @@ ENH = dict(models=ENH_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=3, warmup=
 # Phase 14: enhancement training, each config's loss and metric node
 # (written out, as ENH_MODELS; the CPU tests hold them to the files) by
 # config name, its Adam (lr 1e-3) and clip (5), float32. The step timed at
-# the configs' batch and duration (2 x 4 s), held to the CPU on B=2 x 1 s.
+# the configs' batch and duration (2 x 4 s), held to the CPU on B=2 x 0.5 s,
+# phase 15's window.
 _CIRM_STFT = dict(n_fft=512, hop_length=256, win_length=512)
 _GAG_STFT = dict(n_fft=320, hop_length=160, win_length=320)
 ENH_LOSSES = {
@@ -335,7 +349,7 @@ ENH_LOSSES = {
 }
 PACK_REL = 1e-5  # a reloaded LSTM model vs the trained one, of max|out|
 ENH_TRAIN = dict(losses=ENH_LOSSES, seed=0, lr=1e-3, clip=5.0, batch=2, crop_s=4.0, reps=3,
-                 warmup=1, check_batch=2, check_s=1.0, fit_model="fullsubnet", fit_samples=4,
+                 warmup=1, check_batch=2, check_s=0.5, fit_model="fullsubnet", fit_samples=4,
                  fit_epochs=2)
 # Phase 15: separation training, the model of each configs/separation/*.yaml
 # but convtasnet.yaml (phase 10) at its full width (ZOO_MODELS) with the
@@ -357,7 +371,7 @@ SEP_OPTIMIZERS = {  # config: (model, lr, weight decay), in porting order
     "dprnn": ("DPRNNTasNet", 1e-3, 0.0),
 }
 SEP_TRAIN = dict(configs=SEP_OPTIMIZERS, models=ZOO_MODELS, seed=0, clip=5.0, batch=2,
-                 crop_s=4.0, reps=3, warmup=1, check_batch=2, check_s=0.5, c12="dprnn")
+                 crop_s=4.0, reps=3, warmup=1, check_batch=2, check_s=0.5)
 # Phase 16: the evaluation sidecars on seeded graphs (no .onnx weights are in
 # the repository): DNSMOS-shaped graphs at its inputs (the raw 9.01 s clip,
 # and ``audio_melspec`` of it: (1, 900, 120)), a SigMOS-shaped graph at its
@@ -369,6 +383,21 @@ EVAL_SIDECARS = dict(seed=0, clip_s=9.01, reps=3, warmup=1, models=ZOO_MODELS,
                      chunk=dict(target_length=4.0, hop_length=2.0, batch_size=4),
                      composite_s=60.0)
 ONNX_REL = 1e-4  # the graphs on the card vs on the CPU, of max|ref| (TF32 off)
+# Phase 17: the sidecar models at their published widths with seeded
+# weights, each written in its checkpoint's own format: Whisper medium.en
+# (an HF directory), speechbrain's spkrec-ecapa-voxceleb (embedding_model
+# .ckpt) and the JAX package's PyanNet defaults (a pyannote lightning
+# checkpoint).
+WHISPER_MEDIUM_EN = dict(vocab_size=51864, n_mels=80, d_model=1024, encoder_layers=24,
+                         decoder_layers=24, heads=16, ffn=4096, max_source_positions=1500,
+                         max_target_positions=448)
+SIDECAR_MODELS = dict(
+    seed=0, whisper=WHISPER_MEDIUM_EN, tf_positions=32,
+    ecapa=dict(n_feats=80, channels=1024, res2net_scale=8, se_channels=128,
+               attention_channels=128, lin_neurons=192),
+    pyannet=dict(n_classes=1, lstm_hidden=128, lstm_layers=2, ff_layers=2),
+    embed_s=10.0, reps=3, segment_s=10.0)
+SIDECAR_REL = 1e-4  # the card vs the port on the CPU, of max|ref| (TF32 off)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -1530,6 +1559,30 @@ def seeded_zoo(name: str, model_args: dict, seed: int):
     return model.eval()
 
 
+def seeded_sinc(n_filters: int, seed: int) -> tuple:
+    """A SincNet's learned cutoffs (``low_hz``, ``band_hz``, float32 numpy)
+    spread over the band from ``default_rng(seed)``: lows uniform in
+    [0, 6000) Hz, bandwidths in [50, 1500) Hz."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.0, 6000.0, n_filters).astype(np.float32),
+            rng.uniform(50.0, 1500.0, n_filters).astype(np.float32))
+
+
+def vad_spans_held(got, ref, times, tol: float, onset: float = 0.5,
+                   offset: float = 0.5) -> bool:
+    """Whether frame probabilities ``got`` give ``ref``'s binarised spans
+    once every frame whose ``ref`` probability lies within ``tol`` of
+    ``onset`` or ``offset`` takes ``ref``'s value: two sides within ``tol``
+    of each other may part only at such a frame."""
+    from sonicsim_tpu_torch.models.pyannet import binarize_activations
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    near = (np.abs(ref - onset) <= tol) | (np.abs(ref - offset) <= tol)
+    held = np.where(near, ref, got)
+    return (binarize_activations(held, times, onset, offset)
+            == binarize_activations(ref, times, onset, offset))
+
+
 def serving_models(device, cfg, root: Path):
     """The seeded weights through the CLI's own path: the port's model on the
     CPU, ``save_model`` to a pack, ``from_pretrain`` on ``device``. Returns
@@ -1972,42 +2025,6 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
     return stats
 
 
-def _share(a, b) -> float:
-    """max|a − b| / max|b|."""
-    return float((a - b).abs().max() / b.abs().max())
-
-
-def _probe_lstm(module, name: str, probe: dict | None, use_cudnn: bool) -> None:
-    """Record ``module``'s output and the gradient at its input into
-    ``probe[name]`` (float64, on the host); without ``use_cudnn`` run its
-    forward (and so its backward) through PyTorch's own CUDA LSTM, cuDNN
-    off for that call alone (ROADMAP C12)."""
-    import torch
-
-    if probe is not None:
-        def keep_out(mod, args, out):
-            probe[name] = [out.detach().double().cpu(), None]
-
-        def keep_grad(mod, grad_in, grad_out):
-            probe[name][1] = grad_in[0].double().cpu()
-
-        module.register_forward_hook(keep_out)
-        module.register_full_backward_hook(keep_grad)
-    if not use_cudnn:  # ``run`` too: SkiM's segment LSTMs carry their state through it
-        for attr in ("forward", "run"):
-            call = getattr(module, attr)
-
-            def off(*args, call=call, **kwargs):
-                enabled = torch.backends.cudnn.enabled
-                torch.backends.cudnn.enabled = False
-                try:
-                    return call(*args, **kwargs)
-                finally:
-                    torch.backends.cudnn.enabled = enabled
-
-            setattr(module, attr, off)
-
-
 def _stream_run(streamer, x, depth: int, flush):
     """Stream (B, n) ``x`` in the streamer's chunks and a flush chunk at
     ``depth``: each chunk's output, its latency in ms (from the chunk's
@@ -2243,6 +2260,12 @@ def _enh_fit_config(cfg, name: str, args: dict, split: Path, val: Path, exp: Pat
 # from float64: a device whose own float32 error is no larger than the
 # CPU's lies within twice that of the CPU (the triangle inequality).
 ILL_FACTOR = 2
+# The same step in float64 on the device against float64 on the CPU, of
+# max|g64|. The worst CPU float32 distance from float64 in the zoo,
+# MossFormer's ~2.9e-4, is ~5e3 · 2^-24; the same amplification of float64
+# rounding is ~5e3 · 2^-53 ≈ 6e-13, so 1e-9 leaves three orders of headroom
+# and still fails any operation that computes another function.
+F64_REL = 1e-9
 KINK_REL = ZOO_REL  # of max|x|: how near 0 an input the two sides may send apart lies
 
 
@@ -2358,46 +2381,41 @@ def _kink_tape(model, tape: list, flips: dict | None):
 
 def enh_step_check(fresh, xb, yb, device) -> dict:
     """One float32 train step from the same weights on ``device`` and on the
-    CPU, and the CPU's float64 step (``fresh(dev)`` builds the model and its
-    step there): the loss's relative distance, the clipped gradients' largest
-    distance (and where), each side's distance from float64 as a share of
-    max|g64|, and the bound the device's gradients are held to. Every side
-    after the device's replays the device's branch at each kinked
-    activation and the loss's choice of minimum (``_kink_tape``); an
-    element sent apart must lie within ``KINK_REL`` · max|x| of 0, a
-    minimum within ``KINK_REL`` · max|x| of the row's own. A model with
-    LSTMs also takes a device step with its LSTMs off cuDNN, reported
-    beside the others (ROADMAP C12).
+    CPU, and the float64 step on the CPU and on ``device`` (``fresh(dev)``
+    builds the model and its step there): the loss's relative distance,
+    the clipped gradients' largest distance (and where), each side's
+    distance from the CPU's float64 as a share of max|g64|, and the bound
+    the device's float32 gradients are held to. Every side after the
+    device's float32 one replays its branch at each kinked activation and
+    the loss's choice of minimum (``_kink_tape``); an element sent apart
+    must lie within ``KINK_REL`` · max|x| of 0, a minimum within
+    ``KINK_REL`` · max|x| of the row's own.
 
-    The CPU's float32 distance ``cpu_vs_f64`` is the larger distance from
-    float64 of two CPU summation orders: its default thread count and two
-    threads. Where it is within phase 10's ``TRAIN_GRAD_REL``, the bound is
-    ``TRAIN_GRAD_REL · max|g|``; past it (an ill-conditioned model), the
-    bound is ``ILL_FACTOR · cpu_vs_f64 · max|g|``."""
+    The float64 step on the device must lie within ``F64_REL`` · max|g64|
+    of the CPU's (``device_f64_err``): at float64 the comparison has power
+    at any conditioning, and tells a device that computes another function
+    from one that rounds worse. The CPU's float32 distance ``cpu_vs_f64``
+    is the larger distance from float64 of two CPU summation orders (its
+    default thread count and two threads); the float32 bound is
+    ``max(TRAIN_GRAD_REL, ILL_FACTOR · cpu_vs_f64) · max|g|``, the
+    triangle inequality's bound for a device that rounds no worse than the
+    CPU, never below phase 10's ``TRAIN_GRAD_REL``."""
     import torch
-
-    from sonicsim_tpu_torch.models.zoo_layers import LSTMLayer
 
     cpu = torch.device("cpu")
     threads = torch.get_num_threads()
     tape: list = []
     flips = dict(n=0, rel=0.0)
     sides = {}
-    plan = [("device", device, torch.float32, threads, True),
-            ("cpu", cpu, torch.float32, threads, True),
-            ("cpu2", cpu, torch.float32, 2, True),
-            ("f64", cpu, torch.float64, threads, True),
-            ("device_lstm_off", device, torch.float32, threads, False)]
-    for side, dev, dtype, n, lstm_cudnn in plan:
+    plan = [("device", device, torch.float32, threads),
+            ("cpu", cpu, torch.float32, threads),
+            ("cpu2", cpu, torch.float32, 2),
+            ("f64", cpu, torch.float64, threads),
+            ("device_f64", device, torch.float64, threads)]
+    for side, dev, dtype, n in plan:
         torch.set_num_threads(n)
         try:
             model, step = fresh(dev)
-            lstms = [m for m in model.modules() if isinstance(m, LSTMLayer)]
-            if not lstm_cudnn:
-                if not lstms:
-                    continue
-                for m in lstms:
-                    _probe_lstm(m, "", None, False)
             model.to(dtype)
             choices = _kink_tape(model, tape, None if side == "device" else flips)
             t0 = time.perf_counter()
@@ -2420,17 +2438,17 @@ def enh_step_check(fresh, xb, yb, device) -> dict:
 
     g_err, worst = dist(g_dev, g_cpu)
     cpu_vs_f64 = max(dist(sides[k][1], g64)[0] for k in ("cpu", "cpu2")) / top64
-    ill = cpu_vs_f64 > TRAIN_GRAD_REL
-    out = dict(loss=(l_dev, l_cpu), loss_rel=abs(l_dev - l_cpu) / abs(l_cpu), grad_err=g_err,
-               worst=worst, grad_max=g_max, cpu_vs_f64=cpu_vs_f64,
-               device_vs_f64=dist(g_dev, g64)[0] / top64,
-               bound=(ILL_FACTOR * cpu_vs_f64 if ill else TRAIN_GRAD_REL) * g_max, ill=ill,
-               kinks=len(tape), flips=flips["n"], flip_rel=flips["rel"], cpu_s=cpu_s,
-               params=sum(g.numel() for g in g_cpu.values()))
-    if "device_lstm_off" in sides:
-        g_off = sides["device_lstm_off"][1]
-        out.update(lstm_off_err=dist(g_off, g_cpu)[0], lstm_off_vs_f64=dist(g_off, g64)[0] / top64)
-    return out
+    ill = ILL_FACTOR * cpu_vs_f64 > TRAIN_GRAD_REL
+    f64_err, f64_worst = dist(sides["device_f64"][1], g64)
+    return dict(loss=(l_dev, l_cpu), loss_rel=abs(l_dev - l_cpu) / abs(l_cpu), grad_err=g_err,
+                worst=worst, grad_max=g_max, cpu_vs_f64=cpu_vs_f64,
+                cpu_vs_cpu2=dist(g_cpu, sides["cpu2"][1])[0] / g_max,
+                device_vs_f64=dist(g_dev, g64)[0] / top64,
+                bound=(ILL_FACTOR * cpu_vs_f64 if ill else TRAIN_GRAD_REL) * g_max, ill=ill,
+                device_f64_err=f64_err / top64, device_f64_worst=f64_worst,
+                device_f64_s=sides["device_f64"][2],
+                kinks=len(tape), flips=flips["n"], flip_rel=flips["rel"], cpu_s=cpu_s,
+                params=sum(g.numel() for g in g_cpu.values()))
 
 
 def _loudest_window(mix, tgt, batch: int, n: int):
@@ -2597,33 +2615,42 @@ def sep_train_fresh(stem: str, weights: dict, cfg=SEP_TRAIN):
 
 
 def _step_check_line(chk: dict) -> str:
-    """``enh_step_check``'s reading against its bound, as phases 14 and 15
-    print it."""
+    """``enh_step_check``'s readings against their bounds, as phases 14 and
+    15 print them."""
     rel = chk["bound"] / chk["grad_max"]
-    off = ("" if "lstm_off_err" not in chk else
-           f"; with its LSTMs off cuDNN the device's gradients "
-           f"{chk['lstm_off_err'] / chk['grad_max']:.3g}·max|g| from the CPU's and "
-           f"{chk['lstm_off_vs_f64']:.3g}·max|g64| from float64")
     return (f"every side on the device's branch at each of {chk['kinks']} kinked activation "
             f"and loss minimum calls ({chk['flips']} elements or rows sent apart, within "
-            f"{chk['flip_rel']:.3g}·max|x|, tol {KINK_REL}): loss rel {chk['loss_rel']:.3g} (tol {TRAIN_LOSS_REL}), "
+            f"{chk['flip_rel']:.3g}·max|x|, tol {KINK_REL}): float64 on the device "
+            f"{chk['device_f64_err']:.3g}·max|g64| from float64 on the CPU "
+            f"({chk['device_f64_worst']}; tol {F64_REL}; {chk['device_f64_s']:.2f} s there); "
+            f"float32 loss rel {chk['loss_rel']:.3g} (tol {TRAIN_LOSS_REL}), "
             f"gradients max abs err {chk['grad_err']:.3g} ({chk['worst']}) of max|g| "
             f"{chk['grad_max']:.3g} = {chk['grad_err'] / chk['grad_max']:.3g}·max|g| (tol "
             f"{rel:.3g}·max|g|"
             f"{f', {ILL_FACTOR} times the CPU float32 distance from float64' if chk['ill'] else ''}"
             f"; the CPU's float32 {chk['cpu_vs_f64']:.3g} (the larger of its default and two "
-            f"threads), the device's {chk['device_vs_f64']:.3g}·max|g64| from float64 on the "
-            f"CPU{off})")
+            f"threads, which lie {chk['cpu_vs_cpu2']:.3g}·max|g| apart), the device's "
+            f"{chk['device_vs_f64']:.3g}·max|g64| from float64 on the CPU)")
+
+
+def step_check_failures(chk: dict) -> list:
+    """The readings of ``enh_step_check`` past their bounds, by name."""
+    return [name for name, bad in (
+        ("device_f64_err", chk["device_f64_err"] > F64_REL),
+        ("loss_rel", chk["loss_rel"] > TRAIN_LOSS_REL),
+        ("grad_err", chk["grad_err"] > chk["bound"]),
+        ("flip_rel", chk["flip_rel"] > KINK_REL)) if bad]
 
 
 def _step_check_ok(chk: dict, what: str) -> None:
-    check(chk["loss_rel"] <= TRAIN_LOSS_REL and chk["grad_err"] <= chk["bound"]
-          and chk["flip_rel"] <= KINK_REL,
-          f"{what} fp32 step on the device vs the CPU: loss {chk['loss']} (rel "
-          f"{chk['loss_rel']}), gradients max abs err {chk['grad_err']} ({chk['worst']}) "
-          f"over the bound {chk['bound']} (max|g| {chk['grad_max']}, the CPU's float32 "
-          f"{chk['cpu_vs_f64']}·max|g64| from float64), or a kinked activation's input "
-          f"{chk['flip_rel']}·max|x| from 0 sent apart (tol {KINK_REL})")
+    check(not step_check_failures(chk),
+          f"{what} step on the device vs the CPU: float64 gradients "
+          f"{chk['device_f64_err']}·max|g64| apart ({chk['device_f64_worst']}; tol {F64_REL}); "
+          f"fp32 loss {chk['loss']} (rel {chk['loss_rel']}), gradients max abs err "
+          f"{chk['grad_err']} ({chk['worst']}) over the bound {chk['bound']} (max|g| "
+          f"{chk['grad_max']}, the CPU's float32 {chk['cpu_vs_f64']}·max|g64| from float64), or "
+          f"a kinked activation's input {chk['flip_rel']}·max|x| from 0 sent apart (tol "
+          f"{KINK_REL}): {step_check_failures(chk)}")
 
 
 def phase_sep_training(device, cfg, folders, smi) -> dict:
@@ -2631,9 +2658,8 @@ def phase_sep_training(device, cfg, folders, smi) -> dict:
     config's optimizer, clip and PIT neg-SNR, from phase 11's seeded
     weights: the step's time and peak extra memory at the configs' batch
     and duration on phase 8's split, and one step on the device against the
-    same step on the CPU by ``enh_step_check``; for ``cfg["c12"]`` (DPRNN)
-    also tests/test_torch_zoo_cuda.py's batch under the same rule and the
-    ROADMAP C12 readings. Returns each config's numbers."""
+    same step on the CPU by ``enh_step_check``. Returns each config's
+    numbers."""
     import torch
 
     from sonicsim_tpu_torch.dataset import MovingDataModule
@@ -2682,80 +2708,9 @@ def phase_sep_training(device, cfg, folders, smi) -> dict:
               f"one step on B={cfg['check_batch']} x {check_s:g} s vs the CPU "
               f"({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; {seconds:.1f} s for the "
               f"config (seeded weights / timing / check {split_s}); {smi}", flush=True)
-        if stem == cfg["c12"]:
-            stats["c12"] = _c12_readings(device, fresh, x, y, ms, cfg, smi)
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return stats
-
-
-def _c12_readings(device, fresh, x, y, step_ms: float, cfg, smi) -> dict:
-    """ROADMAP C12, on DPRNN: tests/test_torch_zoo_cuda.py's batch of seeded
-    noise held by ``enh_step_check`` (the test's rule); on that batch each
-    side's step-1 gradients, and each LSTM's output and input gradient,
-    against float64 on the CPU, with cuDNN on and off on the card (the
-    check's own side has the LSTMs alone off cuDNN) and the CPU in two
-    summation orders; the step's time on (``x``, ``y``) with cuDNN off."""
-    import torch
-
-    from sonicsim_tpu_torch.models.zoo_layers import LSTMLayer
-
-    def step1(dev, xb, yb, dtype=torch.float32, cudnn=True, probe=None, threads=None):
-        enabled, n = torch.backends.cudnn.enabled, torch.get_num_threads()
-        torch.backends.cudnn.enabled = cudnn
-        torch.set_num_threads(threads or n)
-        try:
-            model, step = fresh(dev, dtype)
-            for lname, m in model.named_modules():
-                if isinstance(m, LSTMLayer):
-                    _probe_lstm(m, lname, probe, True)
-            step(xb.to(dev, dtype), yb.to(dev, dtype))
-        finally:
-            torch.backends.cudnn.enabled = enabled
-            torch.set_num_threads(n)
-        return {n: p.grad.double().cpu() for n, p in model.named_parameters() if p.requires_grad}
-
-    xn, yn = c12_test_batch((cfg["check_batch"], SR), (cfg["check_batch"], 2, SR))
-    chk = enh_step_check(fresh, xn, yn, device)
-    _step_check_ok(chk, "DPRNN on the card test's batch")
-    print(f"sep-train[{cfg['c12']} C12]: tests/test_torch_zoo_cuda.py::"
-          f"test_dprnn_train_step_on_the_card's batch (B={xn.shape[0]} x "
-          f"{xn.shape[-1] / SR:g} s of seeded noise) by its rule: {_step_check_line(chk)}; {smi}",
-          flush=True)
-    p64: dict = {}
-    g64 = step1("cpu", xn, yn, torch.float64, probe=p64)
-    top = max(float(g.abs().max()) for g in g64.values())
-    dist, per_layer = {}, {}
-    for side, dev, cudnn, threads in (
-            ("card", device, True, None),
-            ("card with cuDNN off", device, False, None),
-            ("CPU float32", "cpu", True, None),
-            ("CPU float32 on two threads", "cpu", True, 2)):
-        probe: dict = {}
-        g = step1(dev, xn, yn, cudnn=cudnn, probe=probe, threads=threads)
-        worst = max(g64, key=lambda n: float((g[n] - g64[n]).abs().max()))
-        dist[side] = f"{float((g[worst] - g64[worst]).abs().max()) / top:.3g} ({worst})"
-        per_layer[side] = " ".join(
-            f"{k.split('dual_rnn.')[-1]} {_share(probe[k][0], v[0]):.2g}/"
-            f"{_share(probe[k][1], v[1]):.2g}" for k, v in p64.items())
-    enabled = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        _, step = fresh(device)
-        off_ms = median_ms(lambda: step(x, y), device, reps=cfg["reps"], warmup=cfg["warmup"])
-    finally:
-        torch.backends.cudnn.enabled = enabled
-    print(f"sep-train[{cfg['c12']} vs float64]: on the card test's batch, step-1 gradients' max "
-          f"abs distance from float64 on the CPU, of its max|g| (worst parameter), no kink "
-          f"replay: " + ", ".join(f"{k} {v}" for k, v in dist.items())
-          + f"; the B={cfg['batch']} x {cfg['crop_s']:g} s step with cuDNN off {off_ms:.4f} ms "
-          f"(CUDA-event median of {cfg['reps']} after {cfg['warmup']}), against "
-          f"{step_ms:.4f} ms; {smi}", flush=True)
-    print(f"sep-train[{cfg['c12']} vs float64, per LSTM]: each LSTM's output / the gradient at "
-          f"its input, max abs distance from float64 on the CPU as a share of that tensor's "
-          f"max|.|, in forward order, on the card test's batch: "
-          + "; ".join(f"{k}: {v}" for k, v in per_layer.items()), flush=True)
-    return dict(test_batch={k: v for k, v in chk.items() if k != "ill"}, cudnn_off_ms=off_ms)
 
 
 def c12_test_batch(x_shape: tuple, y_shape: tuple):
@@ -3107,11 +3062,414 @@ def phase_eval_sidecars(device, cfg, folders, root: Path, smi) -> dict:
     return stats
 
 
+def seeded_state_dict(shapes: dict, seed: int, device=None) -> dict:
+    """Float32 CPU tensors for a state dict's ``shapes`` (name → shape),
+    drawn in sorted key order from a generator seeded ``seed`` on ``device``
+    (the CPU unless given; a full-width Whisper is 769 M numbers): weights
+    of two or more axes N(0, 1/fan_in), token and position tables
+    N(0, 0.02²), 1-D weights (norm gains) 1 + N(0, 0.1²), running variances
+    0.5 + |N(0, 0.1²)|, biases, running means and the rest N(0, 0.1²);
+    ``num_batches_tracked`` 1000."""
+    import torch
+
+    gen = torch.Generator(device=device or "cpu")
+    gen.manual_seed(seed)
+    out = {}
+    for key in sorted(shapes):
+        shape, leaf = tuple(shapes[key]), key.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            out[key] = torch.tensor(1000)
+            continue
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        if "embed_tokens" in key or "embed_positions" in key:
+            x = 0.02 * x
+        elif leaf.startswith("weight") and len(shape) >= 2:
+            x = x / float(np.sqrt(np.prod(shape[1:])))
+        elif leaf == "weight":
+            x = 1.0 + 0.1 * x
+        elif leaf == "running_var":
+            x = 0.5 + (0.1 * x).abs()
+        else:
+            x = 0.1 * x
+        out[key] = x.cpu()
+    return out
+
+
+def whisper_en_vocab() -> tuple[dict, dict]:
+    """(vocab.json, added_tokens.json) of an English-only Whisper with its
+    specials at the released ids: 50,256 byte-level tokens (GPT-2's 256
+    printable byte stand-ins, then pairs of them) and <|endoftext|> 50256;
+    added, <|startoftranscript|> 50257, the language tokens 50258-50356,
+    <|translate|> 50357, <|transcribe|> 50358, <|startoflm|> 50359,
+    <|startofprev|> 50360, <|nocaptions|> 50361 and <|notimestamps|>
+    50362."""
+    from sonicsim_tpu_torch.models.whisper import _byte_decoder
+
+    chars = list(_byte_decoder())
+    vocab = {c: i for i, c in enumerate(chars)}
+    for i in range(256, 50256):
+        a, b = divmod(i - 256, 256)
+        vocab[chars[a] + chars[b]] = i
+    vocab["<|endoftext|>"] = 50256
+    added = {"<|startoftranscript|>": 50257, "<|en|>": 50258}
+    added.update({f"<|lang{k}|>": 50258 + k for k in range(1, 99)})
+    added.update({"<|translate|>": 50357, "<|transcribe|>": 50358, "<|startoflm|>": 50359,
+                  "<|startofprev|>": 50360, "<|nocaptions|>": 50361, "<|notimestamps|>": 50362})
+    return vocab, added
+
+
+def write_whisper_hf(path: Path, cfg: dict, seed: int, device=None) -> Path:
+    """A seeded Whisper of ``cfg``'s widths as an HF directory: config.json,
+    pytorch_model.bin (``model.``-prefixed, the tied ``proj_out``; the
+    encoder's positions its sinusoids), vocab.json and added_tokens.json
+    (:func:`whisper_en_vocab`)."""
+    import torch
+
+    from sonicsim_tpu_torch.models import whisper as W
+
+    wcfg = W.WhisperConfig(**cfg)
+    shapes = {k: v.shape for k, v in W.Whisper(wcfg, device="meta").state_dict().items()}
+    sd = seeded_state_dict(shapes, seed, device)
+    sd["encoder.embed_positions.weight"] = torch.from_numpy(
+        W.sinusoids(wcfg.max_source_positions, wcfg.d_model))
+    hf = {f"model.{k}": v for k, v in sd.items()}
+    hf["proj_out.weight"] = hf["model.decoder.embed_tokens.weight"]
+    path.mkdir(parents=True)
+    torch.save(hf, path / "pytorch_model.bin")
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "whisper", "vocab_size": wcfg.vocab_size, "num_mel_bins": wcfg.n_mels,
+        "d_model": wcfg.d_model, "encoder_layers": wcfg.encoder_layers,
+        "decoder_layers": wcfg.decoder_layers, "encoder_attention_heads": wcfg.heads,
+        "decoder_attention_heads": wcfg.heads, "encoder_ffn_dim": wcfg.ffn,
+        "decoder_ffn_dim": wcfg.ffn, "max_source_positions": wcfg.max_source_positions,
+        "max_target_positions": wcfg.max_target_positions}))
+    vocab, added = whisper_en_vocab()
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "added_tokens.json").write_text(json.dumps(added))
+    return path
+
+
+def write_ecapa_ckpt(path: Path, widths: dict, seed: int, device=None) -> Path:
+    """A seeded ECAPA-TDNN of ``widths`` as speechbrain's
+    embedding_model.ckpt (each BatchNorm with its num_batches_tracked)."""
+    import torch
+
+    from sonicsim_tpu_torch.models.ecapa import EcapaTdnn
+
+    shapes = {k: v.shape for k, v in EcapaTdnn(**widths, device="meta").state_dict().items()}
+    shapes.update({k.replace("running_mean", "num_batches_tracked"): ()
+                   for k in shapes if k.endswith(".running_mean")})
+    torch.save(seeded_state_dict(shapes, seed, device), path)
+    return path
+
+
+# The seeded VAD's LSTMs: the plain draw's speech probability jitters (155
+# spans in a 60 s mixture); a long memory (forget-gate bias +6 with the
+# plain recurrent draw) is chaotic, its float32 and float64 probabilities
+# parting by 0.99 on the CPU. Input and recurrent weights at a tenth and a
+# fifth of the draw and a forget-gate bias of +3 make a contracting state
+# that moves on the scale of 20 frames (a third of a second): 2-3 spans a
+# mixture, float32 within 5e-6 of float64 (phase 8's mixtures, the CPU).
+LSTM_INPUT_SCALE, LSTM_RECURRENT_SCALE, LSTM_FORGET_BIAS = 0.1, 0.2, 3.0
+
+
+def write_pyannet_ckpt(path: Path, widths: dict, seed: int, wav: np.ndarray,
+                       device=None) -> Path:
+    """A seeded PyanNet of ``widths`` as a pyannote lightning checkpoint
+    (``state_dict`` of ``model.``-prefixed names; its LSTM biases drawn
+    apart in ``bias_ih`` and ``bias_hh``, ROADMAP C11): the cutoffs from
+    :func:`seeded_sinc`, the LSTMs slowed (``LSTM_*``), the classifier's
+    kernel 30 times the draw and its
+    bias centring the logits of ``wav`` on 0, so that the speech
+    probability crosses 0.5 (the plain draw keeps it near 0.5). The
+    centring runs on ``device``."""
+    import torch
+
+    from sonicsim_tpu_torch.models.pyannet import PyanNet, pyannet_from_state_dict
+
+    shapes = {k: v.shape for k, v in PyanNet(**widths, device="meta").state_dict().items()}
+    sd = seeded_state_dict(shapes, seed, device)
+    low, band = seeded_sinc(shapes["sincnet.conv1d.0.filterbank.low_hz_"][0], seed)
+    sd["sincnet.conv1d.0.filterbank.low_hz_"] = torch.from_numpy(low)
+    sd["sincnet.conv1d.0.filterbank.band_hz_"] = torch.from_numpy(band)
+    for key in [k for k in sd if k.startswith("lstm.")]:
+        if key.startswith("lstm.weight_ih"):
+            sd[key] = LSTM_INPUT_SCALE * sd[key]
+        elif key.startswith("lstm.weight_hh"):
+            sd[key] = LSTM_RECURRENT_SCALE * sd[key]
+        elif key.startswith("lstm.bias_ih"):  # gates i, f, g, o: the forget gate's
+            hidden = sd[key].shape[0] // 4
+            sd[key][hidden:2 * hidden] += LSTM_FORGET_BIAS
+    sd["classifier.weight"] = 30 * sd["classifier.weight"]
+    sd["classifier.bias"] = torch.zeros_like(sd["classifier.bias"])
+    model = pyannet_from_state_dict(sd, device)
+    with torch.inference_mode():
+        p = model(torch.from_numpy(wav)[None].to(next(model.parameters()).device))
+    p = p[0].amax(-1).double().cpu()
+    sd["classifier.bias"] -= float(torch.median(torch.log(p / (1 - p))))
+    torch.save({"state_dict": {f"model.{k}": v for k, v in sd.items()}}, path)
+    return path
+
+
+def _whisper_hold(device, model, cpu_model, chunk, sot, eot, sup, tf_positions: int) -> dict:
+    """``model`` (on the device) against ``cpu_model`` (the same weights on
+    the CPU) on one 30 s window ``chunk``: the log-mel, the encoder output
+    and the teacher-forced logits of the first ``tf_positions`` positions
+    within ``SIDECAR_REL`` · max|ref|; the device's greedy tokens equal to
+    the CPU's argmax (teacher-forced on those tokens) up to the first free
+    position whose CPU top-2 logit gap is below the same tolerance."""
+    import torch
+
+    from sonicsim_tpu_torch.models import whisper as W
+
+    def rel(a, b, what):
+        err, peak = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        check(tuple(a.shape) == tuple(b.shape) and _finite(a) and err <= SIDECAR_REL * peak,
+              f"Whisper {what} on the device vs the CPU: {tuple(a.shape)}, max abs err {err} "
+              f"(max|ref| {peak})")
+        return err / peak
+
+    n_mels = model.cfg.n_mels
+    with torch.inference_mode():
+        mel_dev = W.log_mel(chunk.to(device), n_mels)
+        mel_cpu = W.log_mel(chunk, n_mels)
+        out = dict(mel=rel(mel_dev, mel_cpu, "log-mel"))
+        t0 = time.perf_counter()
+        enc_cpu = cpu_model.encode(mel_cpu)
+        enc_dev = model.encode(mel_dev)
+        out["encoder"] = rel(enc_dev, enc_cpu, "encoder output")
+        toks = W.greedy_decode(model, mel_dev, sot, eot, suppress=sup,
+                               max_len=min(model.cfg.max_target_positions, len(sot) + 224))
+        toks = toks.cpu()
+        gen = toks[0, len(sot):]
+        stop = int((gen == eot).nonzero()[0]) + 1 if bool((gen == eot).any()) else len(gen)
+        n = len(sot) + stop
+        logits_cpu = cpu_model.decode(toks[:, :n], enc_cpu)
+        out["cpu_s"] = time.perf_counter() - t0
+        k = min(tf_positions, n)
+        out["logits"] = rel(model.decode(toks[:, :k].to(device), enc_dev), logits_cpu[:, :k],
+                            f"teacher-forced logits of {k} positions")
+    masked = logits_cpu[0, len(sot) - 1:n - 1].masked_fill(torch.from_numpy(sup), -torch.inf)
+    top2 = masked.topk(2, dim=-1)
+    gap = (top2.values[:, 0] - top2.values[:, 1]) / float(logits_cpu.abs().max())
+    near = (gap < SIDECAR_REL).nonzero()
+    held = int(near[0]) if len(near) else len(gap)
+    agree = bool((top2.indices[:held, 0] == toks[0, len(sot):len(sot) + held]).all())
+    check(agree, f"Whisper greedy tokens on the device part from the CPU's argmax before its "
+          f"first near-tie (position {held} of {len(gap)})")
+    out.update(tokens=len(gap), held=held, min_gap=float(gap.min()))
+    return out
+
+
+def phase_sidecar_models(device, cfg, folders, root: Path, pack: Path, smi) -> dict:
+    """Phase 17: the sidecar models on the device against the CPU, at their
+    published widths with seeded weights written in each checkpoint's own
+    format. Whisper medium.en (an HF directory) through ``make_whisper_asr``
+    on one 30 s window of phase 8's first mixture, greedy and beam 5 with
+    the temperature fallback, and ``_whisper_hold``; ECAPA at
+    spkrec-ecapa-voxceleb's widths embedding 10 s of each speech track, and
+    ``inference --ecapa`` with phase 9's ConvTasNet pack; PyanNet's frame
+    probabilities and spans on the 60 s mixture, and ``test --vad_ckpt
+    --whisper --limit 1`` over phase 8's split. Returns the numbers."""
+    import csv
+
+    import torch
+
+    from sonicsim_tpu_torch.metrics import make_whisper_asr
+    from sonicsim_tpu_torch.models import ecapa as E
+    from sonicsim_tpu_torch.models import pyannet as P
+    from sonicsim_tpu_torch.models import whisper as W
+    from sonicsim_tpu_torch.scripts import generate_fixed_eval, inference
+    from sonicsim_tpu_torch.scripts import test as test_cli
+    from sonicsim_tpu_torch.scripts.common import strict_float32
+    from sonicsim_tpu_torch.utils import read_wav, write_wav
+
+    strict_float32()
+    root.mkdir()
+    cpu = torch.device("cpu")
+    mono = _mono_mixes(folders)[0]
+    reps = cfg["reps"]
+    stats = {}
+
+    # Whisper medium.en: the transcriber on the device, greedy and beam.
+    t0 = time.perf_counter()
+    wdir = write_whisper_hf(root / "whisper-medium.en", cfg["whisper"], cfg["seed"], device)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asr = make_whisper_asr(str(wdir), device=device)
+    load_s = time.perf_counter() - t0
+    model = asr.model
+    n_params = sum(p.numel() for p in model.parameters())
+    window = mono[:W.CHUNK_SAMPLES].copy()
+    tok = W.ByteBpeDecoder.from_dir(wdir)
+    sot, eot = np.asarray(tok.sot_sequence()), tok.eot()
+    sup = np.pad(tok.suppress_mask(), (0, model.cfg.vocab_size - len(tok.suppress_mask())),
+                 constant_values=True)[:model.cfg.vocab_size]
+    chunk = torch.from_numpy(W.pad_or_trim(window))
+    with torch.inference_mode():
+        mel_dev = W.log_mel(chunk.to(device), model.cfg.n_mels)
+        W.greedy_decode(model, mel_dev, sot, eot, len(sot) + 8, sup)  # warm-up
+        enc_ms = median_ms(lambda: model.encode(mel_dev), device, reps=reps, warmup=1)
+    sync(device)
+    resident = torch.cuda.memory_allocated(device) / 2**20 if device.type == "cuda" else None
+    runs = {}
+    for label, fn in (("greedy", asr), ("beam 5 with fallback", None)):
+        if fn is None:
+            fn = W.make_whisper_transcriber(wdir, beam_size=5, device=device)
+        before, out = dict(fn.stats), {}
+
+        def call(fn=fn, out=out):
+            out["text"] = fn(window, SR)
+
+        t0 = time.perf_counter()
+        mib = _peak_mib(device, call) if device.type == "cuda" else call()
+        wall = time.perf_counter() - t0
+        steps = fn.stats["steps"] - before["steps"]
+        runs[label] = dict(out, ms=1e3 * wall, steps=steps, ms_per_token=1e3 * wall / max(steps, 1),
+                           decodes=fn.stats["decodes"] - before["decodes"], peak_mib=mib)
+        check(isinstance(runs[label]["text"], str), f"Whisper {label}: no text")
+        del fn
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    g = runs["greedy"]  # the encoder's share of a window out, per decoded token
+    g["decode_ms_per_token"] = (g["ms"] - enc_ms) / max(g["steps"], 1)
+
+    # The card against the CPU at full depth (the CPU side takes about 10 s
+    # on an 8-core host of an H100).
+    hold = _whisper_hold(device, model, W.load_whisper(wdir, device=cpu)[1], chunk, sot, eot,
+                         sup, cfg["tf_positions"])
+    stats["whisper"] = dict(params=n_params, write_s=write_s, load_s=load_s, encoder_ms=enc_ms,
+                            resident_mib=resident, hold=hold,
+                            **{k: {a: b for a, b in v.items() if a != "text"}
+                               for k, v in runs.items()})
+    print(f"sidecar[Whisper]: medium.en widths (d_model {model.cfg.d_model}, "
+          f"{model.cfg.encoder_layers} + {model.cfg.decoder_layers} layers, "
+          f"{model.cfg.heads} heads, vocab {model.cfg.vocab_size}), {n_params} parameters, "
+          f"seeded, written as an HF directory in {write_s:.1f} s and loaded by "
+          f"make_whisper_asr in {load_s:.1f} s ({resident if resident is None else round(resident)}"
+          f" MiB resident); one 30 s window of phase 8's first mixture, TF32 off: "
+          + " | ".join(f"{k}: {v['ms']:.1f} ms per window, {v['decodes']} decodes of "
+                       f"{v['steps']} steps in all, {v['ms_per_token']:.3f} ms per decoded "
+                       f"token, peak extra memory "
+                       f"{v['peak_mib'] if v['peak_mib'] is None else round(v['peak_mib'], 1)} MiB"
+                       for k, v in runs.items())
+          + f" | the encoder {enc_ms:.3f} ms (CUDA-event median of {reps}), so greedy decodes "
+          f"at {g['decode_ms_per_token']:.3f} ms per token; {smi}", flush=True)
+    print(f"sidecar[Whisper vs the CPU]: {model.cfg.encoder_layers} + "
+          f"{model.cfg.decoder_layers} layers, the CPU side {hold['cpu_s']:.1f} s: log-mel "
+          f"{hold['mel']:.3g}, encoder output {hold['encoder']:.3g}, teacher-forced logits of "
+          f"the first {min(cfg['tf_positions'], hold['tokens'] + 1)} positions "
+          f"{hold['logits']:.3g} of max|ref| (tol {SIDECAR_REL}); the card's greedy tokens "
+          f"are the CPU's argmax at all {hold['held']} free positions before the first whose "
+          f"CPU top-2 gap is under {SIDECAR_REL}·max|logit| (of {hold['tokens']}; smallest "
+          f"gap {hold['min_gap']:.3g})", flush=True)
+    del model, asr
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ECAPA at spkrec-ecapa-voxceleb's widths: 10 s of each speech track.
+    folder = folders[0]
+    ckpt = write_ecapa_ckpt(root / "embedding_model.ckpt", cfg["ecapa"], cfg["seed"], device)
+    emb_dev, emb_cpu = E.make_ecapa_embedder(ckpt, device), E.make_ecapa_embedder(ckpt, cpu)
+    n = int(cfg["embed_s"] * SR)
+    tracks = [read_wav(folder / name)[0].mean(axis=0)[:n]
+              for name in sorted(p.name for p in folder.glob("moving_audio_*.wav"))]
+    errs, cosines = [], []
+    for track in tracks:
+        x = torch.from_numpy(np.ascontiguousarray(track))
+        with torch.inference_mode():
+            got = emb_dev.model(E.ecapa_fbank(x.to(device)))[0].cpu()
+            ref = emb_cpu.model(E.ecapa_fbank(x))[0]
+        errs.append(float((got - ref).abs().max() / ref.abs().max()))
+        cosines.append(float(np.dot(emb_dev(track), emb_cpu(track))))
+        check(_finite(got) and errs[-1] <= SIDECAR_REL and cosines[-1] >= 1 - 1e-6,
+              f"ECAPA on the device vs the CPU: max abs err {errs[-1]} of max|ref|, cosine "
+              f"{cosines[-1]}")
+    embed_ms = 1e3 * _host_median_s(lambda: emb_dev(tracks[0]), reps)
+    n_params = sum(p.numel() for p in emb_dev.model.parameters())
+    mib = _peak_mib(device, lambda: emb_dev(tracks[0]))
+    del emb_dev, emb_cpu
+    mix_path = root / "mix.wav"
+    write_wav(mix_path, mono, SR, encoding="float32")
+    t0 = time.perf_counter()
+    inference.main(["--model_path", str(pack), "--mix", str(mix_path), "--out_dir",
+                    str(root / "ecapa"), "--segment_seconds", str(cfg["segment_s"]), "--ecapa",
+                    str(ckpt), "--device", str(device)])
+    cli_s = time.perf_counter() - t0
+    outs = sorted((root / "ecapa").glob("s*_est.wav"))
+    check(len(outs) == 2 and all(read_wav(p)[0].shape == (1, len(mono))
+                                 and np.isfinite(read_wav(p)[0]).all() for p in outs),
+          f"inference --ecapa wrote {[p.name for p in outs]}")
+    stats["ecapa"] = dict(params=n_params, err=max(errs), cosine=min(cosines), ms=embed_ms,
+                          peak_mib=mib, cli_s=cli_s)
+    print(f"sidecar[ECAPA]: spkrec-ecapa-voxceleb widths ({cfg['ecapa']}), {n_params} "
+          f"parameters, seeded, from an embedding_model.ckpt; {len(tracks)} speech tracks of "
+          f"phase 8's first mixture, {cfg['embed_s']:g} s each, on the device vs the CPU: "
+          f"max abs err {max(errs):.3g} of max|ref| (tol {SIDECAR_REL}), cosine of the unit "
+          f"embeddings ≥ {min(cosines):.9f} (tol 1 - 1e-6); {embed_ms:.3f} ms per "
+          f"{cfg['embed_s']:g} s with the fbank (host median of {reps}), peak extra memory "
+          f"{mib if mib is None else round(mib, 1)} MiB; inference --ecapa with phase 9's "
+          f"ConvTasNet on the {len(mono) / SR:g} s mixture ({cfg['segment_s']:g} s windows): "
+          f"{cli_s:.3f} s, load and WAV I/O included; {smi}", flush=True)
+
+    # PyanNet at the JAX module's defaults: the 60 s mixture, then the CLI.
+    ckpt = write_pyannet_ckpt(root / "pyannet.ckpt", cfg["pyannet"], cfg["seed"], mono, device)
+    vad_dev, vad_cpu = P.make_neural_vad(ckpt, device=device), P.make_neural_vad(ckpt, device=cpu)
+    with torch.inference_mode():
+        got = vad_dev.model(torch.from_numpy(mono)[None].to(device))[0].amax(-1).cpu().numpy()
+        ref = vad_cpu.model(torch.from_numpy(mono)[None])[0].amax(-1).numpy()
+    times = vad_cpu.model.frame_times(len(mono))
+    p_err = float(np.abs(got - ref).max())
+    spans = vad_cpu(mono, SR)
+    check(got.shape == ref.shape == times.shape and np.isfinite(got).all()
+          and p_err <= SIDECAR_REL * float(np.abs(ref).max())
+          and vad_spans_held(got, ref, times, SIDECAR_REL * float(np.abs(ref).max())),
+          f"PyanNet on the device vs the CPU: max abs err {p_err}, or spans apart beyond the "
+          f"frames within the tolerance of the threshold: {vad_dev(mono, SR)} vs {spans}")
+    vad_ms = 1e3 * _host_median_s(lambda: vad_dev(mono, SR), reps)
+    n_params = sum(p.numel() for p in vad_dev.model.parameters())
+    del vad_dev, vad_cpu
+    split = folders[0].parent.parent
+    fixed = generate_fixed_eval.main(["--in_dir", str(split), "--out_dir", str(root / "fixed"),
+                                      "--seed", str(cfg["seed"]), "--device", str(device)])
+    conf = root / "test.yaml"  # JSON is YAML: no writer needed
+    conf.write_text(json.dumps({"exp": {"dir": str(root / "exp"), "name": "convtasnet"},
+                                "datas": {"test_dir": str(fixed), "sample_rate": SR,
+                                          "num_spks": 2}}))
+    t0 = time.perf_counter()
+    res = test_cli.main(["--conf_dir", str(conf), "--model_path", str(pack), "--vad_ckpt",
+                         str(ckpt), "--whisper", str(wdir), "--limit", "1", "--device",
+                         str(device)])
+    cli_s = time.perf_counter() - t0
+    with open(res["csv"]) as f:
+        table = list(csv.DictReader(f))
+    scored = res["spans"] - res["skipped_silent"]
+    col_s = res["column_s"]
+    check(scored > 0 and "asr" in table[0] and len(table) == scored + 2
+          and col_s.get("asr", 0) > 0, f"test --vad_ckpt --whisper: {res['spans']} spans, "
+          f"{scored} scored, columns {list(table[0]) if table else None}, seconds {col_s}")
+    stats["pyannet"] = dict(params=n_params, err=p_err, ms=vad_ms, spans=len(spans),
+                            cli_s=cli_s, cli_spans=res["spans"], cli_scored=scored,
+                            column_s=col_s)
+    print(f"sidecar[PyanNet]: the JAX module's defaults ({cfg['pyannet']}), {n_params} "
+          f"parameters, seeded, from a pyannote lightning checkpoint; phase 8's first "
+          f"{len(mono) / SR:g} s mixture, {len(times)} frames: probabilities on the device vs "
+          f"the CPU max abs err {p_err:.3g} (tol {SIDECAR_REL}·max|ref|), {len(spans)} spans "
+          f"equal but at frames within the tolerance of the threshold; {vad_ms:.3f} ms per "
+          f"mixture (host median of {reps}); test --vad_ckpt --whisper --limit 1 over the "
+          f"split's fixed eval tree: {cli_s:.1f} s, {res['spans']} VAD spans ({scored} "
+          f"scored, {res['skipped_silent']} with a silent reference), columns "
+          f"{list(table[0])}; host seconds by column: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in col_s.items())
+          + f"; forward {res['forward_s']:.3f} s; {smi}", flush=True)
+    return stats
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
         train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
         enh_train_cfg=ENH_TRAIN, sep_train_cfg=SEP_TRAIN, eval_cfg=EVAL_SIDECARS,
-        env_line: str = "") -> None:
+        sidecar_cfg=SIDECAR_MODELS, env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     seconds, mark = {}, [time.perf_counter()]
@@ -3187,11 +3545,17 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         phase_eval_sidecars(device, eval_cfg, runs["disk"]["produced"], Path(tmp) / "eval", smi)
         eval_sidecars = dict(kernels.LAUNCHES)
         lap("evaluation sidecars (16)")
+        kernels.reset_launch_counts()
+        phase_sidecar_models(device, sidecar_cfg, runs["disk"]["produced"],
+                             Path(tmp) / "sidecars", Path(tmp) / "serve" / "convtasnet.pkl", smi)
+        sidecar_models = dict(kernels.LAUNCHES)
+        lap("sidecar models (17)")
     for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
                     ("enhancement training", enh_training),
                     ("separation training", sep_training),
-                    ("the evaluation sidecars", eval_sidecars)):
+                    ("the evaluation sidecars", eval_sidecars),
+                    ("the sidecar models", sidecar_models)):
         check(not any(c.values()), f"{path} launched a kernel: {c}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
@@ -3209,8 +3573,9 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"the zoo (phase 11): {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
           f"enhancement zoo (phase 13): {enhancement}, nor enhancement training (phase 14): "
           f"{enh_training}, nor separation training (phase 15): {sep_training}, nor the "
-          f"evaluation sidecars (phase 16): {eval_sidecars} (no zoo model or sidecar has a "
-          f"Pallas counterpart)", flush=True)
+          f"evaluation sidecars (phase 16): {eval_sidecars}, nor the sidecar models (phase "
+          f"17): {sidecar_models} (no zoo model or sidecar has a Pallas counterpart)",
+          flush=True)
     print(f"phase seconds (host wall): {seconds}", flush=True)
 
     report = {"kernels": [

@@ -145,6 +145,13 @@ def _np(v) -> np.ndarray:
     return np.asarray(v)
 
 
+def float32_tensors(state_dict: dict) -> dict:
+    """A checkpoint's entries (tensors of any float dtype, or numpy
+    arrays) as float32 CPU tensors under the same keys."""
+    return {k: (v.detach() if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+                ).to("cpu", torch.float32) for k, v in state_dict.items()}
+
+
 def convtasnet_flax_params(state_dict: dict) -> dict:
     """The port's (or the reference's) ConvTasNet ``state_dict`` → the JAX
     package's flax params ``{"params": {...}}``, as numpy arrays. The norm
@@ -1338,3 +1345,110 @@ def taylorsenet_state_dict(params: dict, k1=(1, 3), k2=(2, 3)) -> dict:
     return _spec_to_torch(params, _taylorsenet_spec(
         _count(keys, r"^ho_(\d+)_in/"), _count(keys, r"^zero_tcm_(\d+)/"),
         _count(keys, r"^zero_tcm_0/tcm_(\d+)/"), tuple(k1), tuple(k2)))
+
+
+# --- the sidecar models (Whisper, ECAPA-TDNN, PyanNet) ----------------------
+# Each port module keeps its checkpoint's own names (HF Whisper, speechbrain,
+# pyannote), so a published file loads into it as it is; these carry the JAX
+# package's flax params (the trees its ``convert_*`` build from those files)
+# into that naming, for holding both packages on the same weights.
+
+# A leaf ``kernel`` (in, out) of a Dense ↔ a 1×1 sb-Conv1d weight (out, in, 1).
+_DENSE_AS_CONV = (
+    lambda sd, k: _with_bias({"kernel": _arr(_np(sd[f"{k}.weight"])[:, :, 0].T)}, sd, k),
+    lambda n, k: _bias_back(n, k, {f"{k}.weight": np.asarray(n["kernel"]).T[:, :, None]}))
+# An eval-mode BatchNorm: scale, bias, mean, var ↔ weight, bias, running stats.
+_BN_STATS = (
+    lambda sd, k: {"scale": _np(sd[f"{k}.weight"]), "bias": _np(sd[f"{k}.bias"]),
+                   "mean": _np(sd[f"{k}.running_mean"]), "var": _np(sd[f"{k}.running_var"])},
+    lambda n, k: {f"{k}.weight": np.asarray(n["scale"]), f"{k}.bias": np.asarray(n["bias"]),
+                  f"{k}.running_mean": np.asarray(n["mean"]),
+                  f"{k}.running_var": np.asarray(n["var"])})
+# A flax Embed ↔ an nn.Embedding.
+_EMBED = (lambda sd, k: {"embedding": _np(sd[f"{k}.weight"])},
+          lambda n, k: {f"{k}.weight": np.asarray(n["embedding"])})
+
+
+def _whisper_spec(enc_layers, dec_layers) -> list:
+    """models/whisper.py's ``convert_whisper`` read backwards."""
+    spec = [("conv1", "encoder.conv1", _CONV1D), ("conv2", "encoder.conv2", _CONV1D),
+            ("enc_positions", "encoder.embed_positions.weight", _RAW),
+            ("enc_ln", "encoder.layer_norm", _LN),
+            ("embed_tokens", "decoder.embed_tokens", _EMBED),
+            ("dec_positions", "decoder.embed_positions.weight", _RAW),
+            ("dec_ln", "decoder.layer_norm", _LN)]
+    for side, layers in (("enc", enc_layers), ("dec", dec_layers)):
+        for i in layers:
+            f, t = f"{side}_blocks_{i}", f"{'encoder' if side == 'enc' else 'decoder'}.layers.{i}"
+            attns = ["self_attn"] + (["encoder_attn"] if side == "dec" else [])
+            spec += [(f"{f}/{a}_layer_norm", f"{t}.{a}_layer_norm", _LN) for a in attns]
+            spec += [(f"{f}/{a}/{p}", f"{t}.{a}.{p}", _LINEAR) for a in attns
+                     for p in ("q_proj", "k_proj", "v_proj", "out_proj")]
+            spec += [(f"{f}/final_layer_norm", f"{t}.final_layer_norm", _LN),
+                     (f"{f}/fc1", f"{t}.fc1", _LINEAR), (f"{f}/fc2", f"{t}.fc2", _LINEAR)]
+    return spec
+
+
+def whisper_from_flax(params: dict) -> dict:
+    """The JAX package's Whisper params (``convert_whisper``'s tree) → the
+    port's ``state_dict`` (HF names)."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _whisper_spec(_ids(keys, r"^enc_blocks_(\d+)/"),
+                                                _ids(keys, r"^dec_blocks_(\d+)/")))
+
+
+def _tdnn(f: str, t: str) -> list:
+    return [(f"{f}/conv", f"{t}.conv.conv", _CONV1D), (f"{f}/norm", f"{t}.norm.norm", _BN_STATS)]
+
+
+def _ecapa_spec(inner) -> list:
+    """models/ecapa.py's ``convert_ecapa`` read backwards (speechbrain's
+    names)."""
+    spec = (_tdnn("block0", "blocks.0") + _tdnn("mfa", "mfa") + _tdnn("asp/tdnn", "asp.tdnn")
+            + [("asp/conv", "asp.conv.conv", _CONV1D), ("asp_bn", "asp_bn.norm", _BN_STATS),
+               ("fc", "fc.conv", _DENSE_AS_CONV)])
+    for i in range(1, 4):
+        f, t = f"block{i}", f"blocks.{i}"
+        spec += (_tdnn(f"{f}/tdnn1", f"{t}.tdnn1") + _tdnn(f"{f}/tdnn2", f"{t}.tdnn2")
+                 + [(f"{f}/se/conv{j}", f"{t}.se_block.conv{j}.conv", _CONV1D) for j in (1, 2)])
+        for j in inner:
+            spec += _tdnn(f"{f}/res2net/block{j}", f"{t}.res2net_block.blocks.{j}")
+    return spec
+
+
+def ecapa_from_flax(params: dict) -> dict:
+    """The JAX package's EcapaTdnn params → the port's ``state_dict``
+    (speechbrain's names)."""
+    return _spec_to_torch(params, _ecapa_spec(_ids(_flat(params),
+                                                   r"^block1/res2net/block(\d+)/")))
+
+
+def _pyannet_lstm(i: int):
+    """Layer ``i`` of the stacked BiLSTM ↔ ``lstm{i}``'s two cells."""
+    return (lambda sd, k: {"OptimizedLSTMCell_0": _cell_to_flax(sd, k, f"l{i}"),
+                           "OptimizedLSTMCell_1": _cell_to_flax(sd, k, f"l{i}_reverse")},
+            lambda n, k: {**_cell_to_torch(n["OptimizedLSTMCell_0"], k, f"l{i}"),
+                          **_cell_to_torch(n["OptimizedLSTMCell_1"], k, f"l{i}_reverse")})
+
+
+def _pyannet_spec(lstms, linears) -> list:
+    """models/pyannet.py's ``convert_pyannet`` read backwards (pyannote's
+    names)."""
+    s, t = "sincnet", "sincnet"
+    spec = [(f"{s}/sinc/low_hz", f"{t}.conv1d.0.filterbank.low_hz_", _RAW),
+            (f"{s}/sinc/band_hz", f"{t}.conv1d.0.filterbank.band_hz_", _RAW),
+            (f"{s}/wav_norm", f"{t}.wav_norm1d", _LN),
+            (f"{s}/conv1", f"{t}.conv1d.1", _CONV1D), (f"{s}/conv2", f"{t}.conv1d.2", _CONV1D),
+            ("classifier", "classifier", _LINEAR)]
+    spec += [(f"{s}/norm{i}", f"{t}.norm1d.{i}", _LN) for i in range(3)]
+    spec += [(f"lstm{i}", "lstm", _pyannet_lstm(i)) for i in lstms]
+    spec += [(f"linear{j}", f"linear.{j}", _LINEAR) for j in linears]
+    return spec
+
+
+def pyannet_from_flax(params: dict) -> dict:
+    """The JAX package's PyanNet params → the port's ``state_dict``
+    (pyannote's names)."""
+    keys = _flat(params)
+    return _spec_to_torch(params, _pyannet_spec(_ids(keys, r"^lstm(\d+)/"),
+                                                _ids(keys, r"^linear(\d+)/")))

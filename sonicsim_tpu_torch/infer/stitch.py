@@ -6,8 +6,8 @@ order may flip between segments; each segment is re-ordered to the
 permutation whose embeddings are most similar to a running reference (the
 first segment's, then 0.8 · reference + 0.2 · this segment's). The default
 embedding is a spectral-envelope signature (64 log bands of a 512-point
-STFT, hop 128); ``embed_fn`` takes another (the reference's ECAPA is not
-ported: ROADMAP A10b).
+STFT, hop 128); ``embed_fn`` takes another (the reference's ECAPA:
+``models.ecapa.make_ecapa_embedder``).
 """
 
 from __future__ import annotations

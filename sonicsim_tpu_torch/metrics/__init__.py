@@ -1,7 +1,7 @@
 """Evaluation metrics (port of ``sonicsim_tpu.metrics``): SI-SDR(i), SNR,
 BSS SDR(i), STOI, PESQ, the composite measures (CSIG/CBAK/COVL), DNSMOS and
-SigMOS on the port's ONNX executor, WER, the ``MetricsTracker`` and its
-variants. The Whisper transcriber waits for ROADMAP A10b."""
+SigMOS on the port's ONNX executor, the Whisper transcriber, WER, the
+``MetricsTracker`` and its variants."""
 
 from .composite import composite_measures, llr, ssnr, wss
 from .dnsmos import DNSMOS, audio_melspec, librosa_mel_fb

@@ -6,8 +6,8 @@ The tracker takes numeric sidecars as ``extra_metrics`` callables
 ``pesq`` package) where it imports, and otherwise runs the native P.862
 pipeline of ``metrics/pesq.py``; ``fn.backend`` says which. DNSMOS and
 SigMOS run the user's .onnx weights through ``metrics/onnx_torch.py`` on
-the device they are given (the card unless given). The Whisper
-transcriber waits for ROADMAP A10b; :func:`wer` scores transcripts.
+the device they are given (the card unless given), as does the port's
+Whisper behind :func:`make_whisper_asr`; :func:`wer` scores transcripts.
 """
 
 from __future__ import annotations
@@ -105,10 +105,59 @@ def make_sigmos_all(model_path: str | Path, device=None) -> dict:
     return {key: _estimate_mean(scorer, key) for key in SigMOS.AXES}
 
 
-def make_whisper_asr(*args, **kwargs):
-    """The Whisper transcription sidecar: not ported yet."""
-    raise NotImplementedError(
-        "make_whisper_asr: Whisper is not ported to sonicsim_tpu_torch yet (ROADMAP A10b)")
+def make_whisper_asr(model_size: str = "medium.en", device=None,
+                     download_root: str | None = None, native: bool | None = None):
+    """Whisper transcription sidecar (metrics/asr.py:3-12 contract): a text
+    callable ``fn(audio, sample_rate) -> str`` for the tracker's
+    ``extra_text`` slot; WER against a reference transcript is
+    :func:`wer`'s, downstream.
+
+    Dispatch, as the JAX package's: a ``model_size`` that is a local HF or
+    OpenAI checkpoint (not a CTranslate2 export, which carries
+    ``model.bin``) transcribes through the port's Whisper
+    (``models/whisper.py``) on ``device`` (the card unless given); model
+    names and CTranslate2 exports go to faster-whisper where it imports.
+    ``native=True`` forces the port, ``native=False`` requires
+    faster-whisper.
+    """
+    p = Path(model_size)
+    native_loadable = p.exists() and not (p.is_dir() and (p / "model.bin").exists())
+    if native is None and native_loadable:
+        native = True
+    if native is True:
+        from ..models.whisper import make_whisper_transcriber
+
+        return make_whisper_transcriber(model_size, device=device)
+    try:
+        from faster_whisper import WhisperModel
+    except ImportError:
+        if native is False:
+            raise ImportError(
+                "make_whisper_asr(native=False) requires faster-whisper "
+                "(CTranslate2); omit native to use the port's Whisper with a "
+                "local checkpoint path.") from None
+        raise ImportError(
+            "faster-whisper is not importable and model_size is not a local "
+            "checkpoint path; the port's Whisper needs a downloaded checkpoint "
+            "(HF dir or OpenAI .pt + vocab.json).") from None
+    import torch
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    model = WhisperModel(model_size, device="cuda" if on_card else "cpu",
+                         download_root=download_root)
+
+    def transcribe(audio, sample_rate=16000) -> str:
+        import numpy as np
+
+        audio = np.asarray(audio, np.float32).reshape(-1)
+        if sample_rate != 16000:
+            from ..utils.wavio import resample
+
+            audio = resample(audio, sample_rate, 16000)
+        segments, _ = model.transcribe(audio, language="en", vad_filter=True)
+        return " ".join(seg.text for seg in segments).strip()
+
+    return transcribe
 
 
 def wer(reference: str, hypothesis: str) -> float:

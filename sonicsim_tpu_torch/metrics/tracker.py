@@ -13,6 +13,8 @@ from __future__ import annotations
 import csv
 import json
 import logging
+import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Callable
 
@@ -52,6 +54,8 @@ class MetricsTracker:
         self.extra_text = extra_text or {}
         self.rows: list[dict] = []
         self.skipped_silent = 0
+        # Host seconds per column (the SDRs under "sdr"), summed over segments.
+        self.seconds: dict[str, float] = {}
         self.columns = self.COLUMNS + sorted(self.extra) + sorted(self.extra_text)
         # Sidecar factories may name their implementation in ``backend``
         # (make_pesq: compiled ITU or the native approximation); recorded
@@ -93,15 +97,19 @@ class MetricsTracker:
                            "(%d skipped so far)", key, self.skipped_silent)
             return
         try:
-            sdrs, est = self._sdr_row(mix, clean, estimate)
+            with self._timed("sdr"):
+                sdrs, est = self._sdr_row(mix, clean, estimate)
             row: dict = {"snt_id": key, **sdrs}
-            stoi_vals = [stoi(clean[i], est[i], self.sample_rate) for i in range(len(clean))]
+            with self._timed("stoi"):
+                stoi_vals = [stoi(clean[i], est[i], self.sample_rate)
+                             for i in range(len(clean))]
             stoi_vals = [v for v in stoi_vals if np.isfinite(v)]
             row["stoi"] = float(np.mean(stoi_vals)) if stoi_vals else float("nan")
             for name, fn in self.extra.items():
                 try:
-                    row[name] = float(np.mean([fn(clean[i], est[i], self.sample_rate)
-                                               for i in range(len(clean))]))
+                    with self._timed(name):
+                        row[name] = float(np.mean([fn(clean[i], est[i], self.sample_rate)
+                                                   for i in range(len(clean))]))
                 except Exception:
                     # The reference logs per-metric failures
                     # (wrapper.py:69-103): a quietly-NaN column would hide
@@ -111,8 +119,9 @@ class MetricsTracker:
                     row[name] = float("nan")
             for name, fn in self.extra_text.items():
                 try:
-                    row[name] = " | ".join(str(fn(est[i], self.sample_rate))
-                                           for i in range(len(est)))
+                    with self._timed(name):
+                        row[name] = " | ".join(str(fn(est[i], self.sample_rate))
+                                               for i in range(len(est)))
                 except Exception:
                     logger.warning("text metric %r failed on segment %r", name, key,
                                    exc_info=True)
@@ -121,6 +130,15 @@ class MetricsTracker:
         except Exception:
             # Per-segment isolation (wrapper.py:69-103).
             logger.warning("metrics failed on segment %r", key, exc_info=True)
+
+    @contextmanager
+    def _timed(self, name: str):
+        """Add the block's host seconds to ``seconds[name]``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
 
     def update(self) -> dict:
         """Running means (progress prints, wrapper.py:150-154)."""

@@ -112,7 +112,8 @@ def _rotary(x: torch.Tensor, rot_dim: int) -> torch.Tensor:
     t, half = x.shape[1], rot_dim // 2
     freqs = 1.0 / (10000 ** (np.arange(half) / half))
     angles = torch.from_numpy((np.arange(t)[:, None] * freqs[None, :]).astype(np.float32))
-    angles = angles.to(x.device)
+    # In x's dtype: a float64 step takes its table in float64 on any device.
+    angles = angles.to(x.device, x.dtype)
     cos, sin = torch.cos(angles), torch.sin(angles)
     xr = x[..., :rot_dim]
     x1, x2 = xr[..., 0::2], xr[..., 1::2]

@@ -60,7 +60,9 @@ def istft(spec: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,
     batch, n_frames = frames.shape[:-2], frames.shape[-2]
     out = _overlap_add(frames.reshape(-1, n_frames, n_fft), hop_length)
     out = out.reshape(*batch, out.shape[-1])
-    wsq = (window * window).to(torch.float32).expand(1, n_frames, n_fft)
+    # The envelope in float32, or in the frames' dtype where that is wider.
+    wsq = (window * window).to(torch.promote_types(frames.dtype, torch.float32))
+    wsq = wsq.expand(1, n_frames, n_fft)
     denom = _overlap_add(wsq, hop_length)[0]
     out = out / torch.clamp(denom, min=1e-11)
     t_pad = out.shape[-1]

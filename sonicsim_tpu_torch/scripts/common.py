@@ -1,6 +1,5 @@
 """What the serving and evaluation CLIs share: float32 that is float32, the
-model's forward, the PESQ columns, and the flags whose sidecars the port
-does not have yet."""
+model's forward and the PESQ columns."""
 
 from __future__ import annotations
 
@@ -46,13 +45,3 @@ def pesq_columns() -> dict:
     p_nb, p_wb = make_pesq("nb"), make_pesq("wb")
     suffix = "" if p_nb.backend == "itu-p862-compiled" else "_native"
     return {f"pesq_nb{suffix}": p_nb, f"pesq_wb{suffix}": p_wb}
-
-
-def refuse_unported(args, flags: tuple[str, ...]) -> None:
-    """Raise for any of ``flags`` that was given: their sidecar models
-    (ECAPA, PyanNet, Whisper) wait for ROADMAP A10b."""
-    for flag in flags:
-        if getattr(args, flag.lstrip("-")):
-            raise NotImplementedError(
-                f"{flag}: its sidecar is not ported to sonicsim_tpu_torch yet "
-                "(ROADMAP A10b)")

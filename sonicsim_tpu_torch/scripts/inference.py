@@ -1,13 +1,16 @@
 """Single-mixture inference from the command line, on the card or the CPU.
 
   python -m sonicsim_tpu_torch.scripts.inference --model_path best_model.pkl \\
-      --mix mix.wav [--out_dir DIR] [--segment_seconds 10] [--bf16] [--device cpu]
+      --mix mix.wav [--out_dir DIR] [--segment_seconds 10] [--bf16] \\
+      [--ecapa embedding_model.ckpt] [--device cpu]
 
 Port of scripts/inference.py (reference separation/inference.py:32-154):
 downmixes the mixture to mono, separates it in fixed windows, re-tracks the
-speakers across windows by embedding similarity, and writes s{i}_est.wav.
-The model runs on ``--device`` (default: the card), in full float32 (TF32
-off) or, with ``--bf16``, in bfloat16. ``--ecapa`` waits for ROADMAP A10b.
+speakers across windows by embedding similarity (the spectral envelope, or
+with ``--ecapa`` speechbrain's ECAPA-TDNN from its embedding_model.ckpt),
+and writes s{i}_est.wav. The model and the embedder run on ``--device``
+(default: the card), in full float32 (TF32 off) or, with ``--bf16``, the
+model in bfloat16.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from ..infer import concatenate_tracks, stitch_segments
 from ..models import from_pretrain
 from ..utils import read_wav, write_wav
-from .common import make_forward, model_device, refuse_unported, strict_float32
+from .common import make_forward, model_device, strict_float32
 
 
 def separate(model, mono: np.ndarray, sample_rate: int, segment_seconds: float = 10.0,
@@ -54,16 +57,21 @@ def main(argv: list[str] | None = None) -> Path:
     ap.add_argument("--bf16", action="store_true",
                     help="run the model in bfloat16")
     ap.add_argument("--ecapa", default=None, metavar="CKPT",
-                    help="ECAPA-TDNN speaker re-tracking (not ported: ROADMAP A10b)")
+                    help="speechbrain embedding_model.ckpt: re-track speakers with the "
+                    "ECAPA-TDNN embedder instead of the spectral-envelope default")
     ap.add_argument("--device", default=None,
                     help="where the model runs (default: the card; cpu for the CPU)")
     args = ap.parse_args(argv)
-    refuse_unported(args, ("--ecapa",))
     strict_float32()
 
+    embed_fn = None
+    if args.ecapa:
+        from ..models.ecapa import make_ecapa_embedder
+
+        embed_fn = make_ecapa_embedder(args.ecapa, device=args.device)
     model = from_pretrain(args.model_path, device=args.device)
     mix, sr = read_wav(args.mix)
-    tracks = separate(model, mix.mean(axis=0), sr, args.segment_seconds, args.bf16)
+    tracks = separate(model, mix.mean(axis=0), sr, args.segment_seconds, args.bf16, embed_fn)
     out = Path(args.out_dir) if args.out_dir else Path(args.mix).parent
     out.mkdir(parents=True, exist_ok=True)
     for i in range(tracks.shape[0]):

@@ -3,17 +3,20 @@
   python -m sonicsim_tpu_torch.scripts.test --conf_dir CONFIG.yaml \\
       [--model_path best_model.pkl] [--limit N] [--bf16] [--use_vad] \\
       [--dnsmos_dir DIR] [--sigmos_path MODEL.onnx] [--no_pesq] \\
-      [--bucket SAMPLES] [--device cpu]
+      [--whisper MODEL] [--vad_ckpt CKPT] [--bucket SAMPLES] [--device cpu]
 
 Port of scripts/test.py (reference separation/test.py, enhancement/test.py):
 walks ``datas.test_dir`` (mix.wav + s{i}.wav per folder), segments each
 mixture by the start/end points its ``json_data.json`` records (or, with
-``--use_vad``, by the energy VAD), separates each span and scores it with
-the ``MetricsTracker`` into ``<exp.dir>/<exp.name>/results/metrics.csv``.
-``--dnsmos_dir`` adds a ``dnsmos`` column (OVRL) and ``--sigmos_path`` the
-seven SigMOS axes, each from the user's .onnx weights run on the device of
-``--device``. ``--vad_ckpt`` and ``--whisper`` wait for ROADMAP A10b and
-raise.
+``--use_vad``, by the energy VAD, or by PyanNet from a pyannote checkpoint
+with ``--vad_ckpt``, which turns ``--use_vad`` on), separates each span and
+scores it with the ``MetricsTracker`` into
+``<exp.dir>/<exp.name>/results/metrics.csv``. ``--dnsmos_dir`` adds a
+``dnsmos`` column (OVRL) and ``--sigmos_path`` the seven SigMOS axes, each
+from the user's .onnx weights; ``--whisper`` an ``asr`` text column, the
+transcript of each estimate (a local Whisper checkpoint through the port,
+a model name through faster-whisper). Every sidecar runs on the device of
+``--device``.
 """
 
 from __future__ import annotations
@@ -28,16 +31,11 @@ import torch
 
 from ..dataset.sampler import MovingTestDataset
 from ..infer import segment_mixture
-from ..metrics import MetricsTracker, make_dnsmos, make_sigmos_all
+from ..metrics import MetricsTracker, make_dnsmos, make_sigmos_all, make_whisper_asr
 from ..models import from_pretrain
+from ..models.pyannet import make_neural_vad
 from ..utils.config import load_config
-from .common import (
-    make_forward,
-    model_device,
-    pesq_columns,
-    refuse_unported,
-    strict_float32,
-)
+from .common import make_forward, model_device, pesq_columns, strict_float32
 
 MIN_SEGMENT = 320  # samples; the reference skips shorter (separation/test.py:80)
 
@@ -69,22 +67,25 @@ def metadata_segments(folder: str, total: int) -> list[tuple[int, int]]:
 def evaluate_split(model, test_dir, save_file, sample_rate: int = 16000,
                    num_spks: int = 2, limit: int | None = None, bf16: bool = False,
                    use_vad: bool = False, extra_metrics: dict | None = None,
-                   bucket: int = 0) -> dict:
-    """The CLI's loop; returns what ``audio_test.evaluate_remix`` returns.
-    ``bucket`` > 0 zero-pads each span up to a multiple of ``bucket``
-    samples for the forward and cuts the estimate back (padding moves the
-    global norms' statistics slightly)."""
+                   bucket: int = 0, vad_fn=None, extra_text: dict | None = None) -> dict:
+    """The CLI's loop; returns what ``audio_test.evaluate_remix`` returns
+    and the tracker's host seconds per column (``column_s``). ``bucket`` > 0 zero-pads each span up to a
+    multiple of ``bucket`` samples for the forward and cuts the estimate
+    back (padding moves the global norms' statistics slightly). With
+    ``use_vad``, ``vad_fn`` (the energy VAD if None) segments each mixture;
+    ``extra_text`` are the tracker's text columns."""
     device = model_device(model)
     fwd = make_forward(model, bf16)
     ds = MovingTestDataset(speech_dir=str(test_dir), sample_rate=sample_rate,
                            num_spks=num_spks, return_path=True)
-    tracker = MetricsTracker(save_file, extra_metrics=extra_metrics, device=device)
+    tracker = MetricsTracker(save_file, extra_metrics=extra_metrics, extra_text=extra_text,
+                             device=device)
     n = len(ds) if limit is None else min(limit, len(ds))
     forward_s = metrics_s = 0.0
     spans_done = 0
     for i in range(n):
         mix, targets, folder = ds[i]
-        spans = (segment_mixture(mix, ds.sample_rate) if use_vad
+        spans = (segment_mixture(mix, ds.sample_rate, vad_fn=vad_fn) if use_vad
                  else metadata_segments(folder, mix.shape[-1]))
         for s, e in spans:
             seg_mix = mix[s:e]
@@ -103,7 +104,7 @@ def evaluate_split(model, test_dir, save_file, sample_rate: int = 16000,
         print(f"[{i + 1}/{n}] {Path(folder).name} running={tracker.update()}", flush=True)
     return dict(final=tracker.final(), csv=tracker.save_file, mixtures=n,
                 spans=spans_done, skipped_silent=tracker.skipped_silent,
-                forward_s=forward_s, metrics_s=metrics_s)
+                forward_s=forward_s, metrics_s=metrics_s, column_s=dict(tracker.seconds))
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -120,9 +121,11 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--no_pesq", action="store_true",
                     help="drop the default pesq_nb/pesq_wb columns")
     ap.add_argument("--whisper", default=None, metavar="MODEL_SIZE",
-                    help="not ported: ROADMAP A10b")
+                    help="add an asr transcript column: a local Whisper checkpoint "
+                    "(HF directory or OpenAI .pt) or a faster-whisper model name")
     ap.add_argument("--vad_ckpt", default=None, metavar="CKPT",
-                    help="not ported: ROADMAP A10b")
+                    help="a pyannote PyanNet checkpoint: segment with the neural VAD "
+                    "(turns --use_vad on)")
     ap.add_argument("--bucket", type=int, default=0, metavar="SAMPLES",
                     help="zero-pad spans up to multiples of SAMPLES for the "
                     "forward (default 0: exact lengths)")
@@ -130,7 +133,6 @@ def main(argv: list[str] | None = None) -> dict:
                     help="where the model and the SDRs run (default: the card; "
                     "cpu for the CPU)")
     args = ap.parse_args(argv)
-    refuse_unported(args, ("--vad_ckpt", "--whisper"))
     strict_float32()
 
     cfg = load_config(args.conf_dir)
@@ -144,12 +146,24 @@ def main(argv: list[str] | None = None) -> dict:
         extra_metrics.update(make_sigmos_all(args.sigmos_path, device=device))
     if not args.no_pesq:
         extra_metrics.update(pesq_columns())
+    extra_text = {}
+    if args.whisper:
+        extra_text["asr"] = make_whisper_asr(args.whisper, device=device)
+    vad_fn = None
+    if args.vad_ckpt:
+        if not args.use_vad:
+            # the checkpoint states the intent: without --use_vad it would
+            # be loaded and the metadata spans used
+            print("--vad_ckpt given: enabling --use_vad")
+            args.use_vad = True
+        vad_fn = make_neural_vad(args.vad_ckpt, device=device)
     result = evaluate_split(
         model, cfg["datas"]["test_dir"], exp_dir / "results" / "metrics.csv",
         sample_rate=int(cfg["datas"].get("sample_rate", 16000)),
         num_spks=int(cfg["datas"].get("num_spks", 2)), limit=args.limit,
         bf16=args.bf16, use_vad=args.use_vad,
-        extra_metrics=extra_metrics or None, bucket=args.bucket)
+        extra_metrics=extra_metrics or None, bucket=args.bucket, vad_fn=vad_fn,
+        extra_text=extra_text or None)
     print("final:", result["final"])
     print(f"{result['spans']} spans of {result['mixtures']} mixtures: forward "
           f"{result['forward_s']:.3f} s, metrics {result['metrics_s']:.3f} s")

@@ -397,8 +397,9 @@ def test_step_check_bound_from_float64(stem):
     sides, at small width: the sides agree exactly, every side replays the
     first one's branch at each kinked activation (DCCRN's PReLUs, GaGNet's
     channel PReLUs), the CPU float32 steps' distance from the float64 step
-    is measured, and the bound is phase 10's or, past it, ``ILL_FACTOR``
-    times that distance."""
+    is measured, the bound is the larger of phase 10's and ``ILL_FACTOR``
+    times that distance, and the "device" float64 side (the CPU again)
+    equals the CPU's float64 step."""
     name = chip_smoke.ENH_MODELS[stem][0]
     (loss_name, loss_args), _ = chip_smoke.ENH_LOSSES[stem]
     small = _SMALL_MODELS[stem]
@@ -418,11 +419,10 @@ def test_step_check_bound_from_float64(stem):
     assert chk["loss_rel"] == 0 and chk["grad_err"] == 0
     assert chk["kinks"] > 0 and chk["flip_rel"] <= chip_smoke.KINK_REL
     assert 0 < chk["device_vs_f64"] <= chk["cpu_vs_f64"] < 1e-2
-    assert chk["ill"] == (chk["cpu_vs_f64"] > chip_smoke.TRAIN_GRAD_REL)
-    rel = chip_smoke.ILL_FACTOR * chk["cpu_vs_f64"] if chk["ill"] else chip_smoke.TRAIN_GRAD_REL
+    assert chk["ill"] == (chip_smoke.ILL_FACTOR * chk["cpu_vs_f64"] > chip_smoke.TRAIN_GRAD_REL)
+    rel = max(chip_smoke.TRAIN_GRAD_REL, chip_smoke.ILL_FACTOR * chk["cpu_vs_f64"])
     assert chk["bound"] == rel * chk["grad_max"]
-    if stem == "dccrn":  # its LSTMs: the step again with them off cuDNN (none on the CPU)
-        assert chk["lstm_off_err"] == 0
+    assert chk["device_f64_err"] == 0  # the "device" float64 side: the CPU again
 
 
 def test_kink_tape_replays_the_recorded_branch():

@@ -6,10 +6,11 @@ PReLUs after instance norms), on B=2 x 1 s of seeded speech-like noise.
 
 Tolerances: phase 14's, ``chip_smoke.enh_step_check``, every side on the
 card's branch at each kinked activation (an element sent apart within
-``KINK_REL`` · max|x| of 0): the loss within rel 1e-5, the clipped
-gradients within 1e-4 · max|g|, or, for a model whose CPU float32 steps
-(two summation orders) lie further than that from its float64 step,
-within ``ILL_FACTOR`` times that distance.
+``KINK_REL`` · max|x| of 0): the step in float64 on the card within
+``F64_REL`` (1e-9) · max|g64| of float64 on the CPU; in float32 the loss
+within rel 1e-5 and the clipped gradients within max(1e-4, ``ILL_FACTOR``
+times the CPU's float32 steps' distance from float64, two summation
+orders) · max|g|.
 
 These tests import neither jax nor the JAX package and use no conftest
 fixture, so they run on the card alone:
@@ -56,6 +57,5 @@ def test_full_width_train_step_on_the_card(cuda_device, stem):
                                       clip_norm=5.0)
 
     chk = chip_smoke.enh_step_check(fresh, mix, clean, cuda_device)
-    assert chk["loss_rel"] <= chip_smoke.TRAIN_LOSS_REL, chk
-    assert chk["grad_err"] <= chk["bound"], chk
-    assert chk["flip_rel"] <= chip_smoke.KINK_REL, chk
+    print(chip_smoke._step_check_line(chk))
+    assert not chip_smoke.step_check_failures(chk), chk

@@ -142,8 +142,28 @@ def test_make_sigmos_columns_score_the_estimate(weights):
         TMet.SigMOS(weights / "missing.onnx", "cpu")
 
 
-def test_whisper_waits_for_a10b():
-    with pytest.raises(NotImplementedError, match="A10b"):
+def test_whisper_waits_for_a10b(tmp_path):
+    """``make_whisper_asr``, which raised until Whisper was ported: over a
+    tiny seeded HF checkpoint (tests/test_torch_whisper.py's) it fills the
+    tracker's ``asr`` text column as the JAX package's does, one transcript
+    per estimate, kept out of the averages; a model name without
+    faster-whisper raises ImportError."""
+    import test_torch_whisper
+
+    ckpt = test_torch_whisper.write_hf_dir(tmp_path / "whisper",
+                                           test_torch_whisper.jax_params(5)[1])
+    rng = np.random.default_rng(8)
+    clean = (0.1 * rng.standard_normal((2, SR))).astype(np.float32)
+    est = (clean + 0.02 * rng.standard_normal((2, SR))).astype(np.float32)
+    ours = TMet.MetricsTracker(tmp_path / "ours.csv", device="cpu",
+                               extra_text={"asr": TMet.make_whisper_asr(str(ckpt), device="cpu")})
+    ref = JMet.MetricsTracker(tmp_path / "ref.csv",
+                              extra_text={"asr": JMet.make_whisper_asr(str(ckpt))})
+    for tracker in (ours, ref):
+        tracker(clean.sum(0), clean, est, "s0")
+    assert ours.rows[0]["asr"] == ref.rows[0]["asr"] and ours.rows[0]["asr"].count(" | ") == 1
+    assert "asr" not in ours.final()
+    with pytest.raises(ImportError, match="faster-whisper"):
         TMet.make_whisper_asr("medium.en")
 
 

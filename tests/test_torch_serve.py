@@ -220,15 +220,84 @@ def test_inference_cli(served):
         assert np.linalg.norm(got16 - got) / np.linalg.norm(got) < 0.05
 
 
-def test_unported_sidecar_flags_raise(served):
-    """The sidecar models' flags raise naming ROADMAP A10b (``--dnsmos_dir``
-    and ``--sigmos_path`` score: tests/test_torch_eval_sidecars.py)."""
-    with pytest.raises(NotImplementedError, match="A10b"):
-        inference.main(["--model_path", str(served["model_path"]), "--mix", "x.wav",
-                        "--ecapa", "ckpt", "--device", "cpu"])
-    for flag in ("--vad_ckpt", "--whisper"):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            test.main(["--conf_dir", str(served["conf"]), flag, "x", "--device", "cpu"])
+def _fixed_tree(served) -> Path:
+    """``generate_fixed_eval`` of the split and a config over it."""
+    fixed = served["root"] / "fixed"
+    generate_fixed_eval.main(["--in_dir", str(served["split"]), "--out_dir", str(fixed),
+                              "--seed", "2", "--device", "cpu"])
+    cfg = load_config(served["conf"])
+    cfg["datas"]["test_dir"] = str(fixed)
+    save_config(cfg, served["root"] / "fixed.yaml")
+    return fixed
+
+
+def test_unported_sidecar_flags_raise(served, capsys):
+    """The sidecar flags that raised before their models were ported now
+    run: ``test --vad_ckpt --whisper`` (a seeded pyannote checkpoint and a
+    tiny Whisper HF directory, tests/test_torch_pyannet.py's and
+    tests/test_torch_whisper.py's) segments by the neural VAD and writes an
+    ``asr`` column, as the JAX flow does over the same tree."""
+    import sonicsim_tpu.models.pyannet as JP
+    import test_torch_pyannet
+    import test_torch_whisper
+
+    fixed = _fixed_tree(served)
+    vad = test_torch_pyannet.write_checkpoint(served["root"] / "vad.ckpt",
+                                              test_torch_pyannet.jax_params(2)[1])
+    asr = test_torch_whisper.write_hf_dir(served["root"] / "whisper",
+                                          test_torch_whisper.jax_params(5)[1])
+    res = test.main(["--conf_dir", str(served["root"] / "fixed.yaml"), "--vad_ckpt", str(vad),
+                     "--whisper", str(asr), "--limit", "1", "--device", "cpu"])
+    assert "--vad_ckpt given: enabling --use_vad" in capsys.readouterr().out
+
+    fwd = _jax_forward(served["jm"], served["params"])
+    transcribe = JMet.make_whisper_asr(str(asr))
+    tracker = JMet.MetricsTracker(served["root"] / "jax.csv", extra_text={"asr": transcribe},
+                                  extra_metrics=_jax_tracker(served["root"] / "x.csv").extra)
+    vad_fn = JP.make_neural_vad(vad)
+    mix, targets, folder = JD.MovingTestDataset(str(fixed), return_path=True)[0]
+    spans = JI.segment_mixture(mix, SR, vad_fn=vad_fn)
+    assert spans and res["spans"] == len(spans)
+    for s, e in spans:
+        est = np.asarray(fwd(served["params"], mix[None, s:e]))[0]
+        tracker(mix[s:e], targets[:, s:e], est, f"{Path(folder).name}:{s}")
+    tracker.final()
+    ours, ref = _read_csv(served["results"] / "metrics.csv"), _read_csv(served["root"] / "jax.csv")
+    assert "asr" in ours[0] and [r["asr"] for r in ours] == [r["asr"] for r in ref]
+    assert all(" | " in r["asr"] for r in ours[:-2])  # one transcript per estimate
+    _same_tables(ours, ref)
+
+
+def test_inference_ecapa_retracks_as_jax(served):
+    """``inference --ecapa`` re-tracks with the ECAPA embedder from a seeded
+    speechbrain checkpoint (tests/test_torch_ecapa.py's): the tracks equal
+    the JAX flow's with the JAX embedder."""
+    import sonicsim_tpu.models.ecapa as JE
+    import test_torch_ecapa
+
+    ckpt = test_torch_ecapa.write_checkpoint(served["root"] / "embedding_model.ckpt",
+                                             test_torch_ecapa.jax_params(2)[1])
+    folder = served["split"] / "room0" / "mix0"
+    out = served["root"] / "out"
+    inference.main(["--model_path", str(served["model_path"]), "--mix",
+                    str(folder / "moving_audio_1.wav"), "--out_dir", str(out),
+                    "--segment_seconds", "0.4", "--ecapa", str(ckpt), "--device", "cpu"])
+    mono = j_read_wav(folder / "moving_audio_1.wav")[0].mean(axis=0)
+    fwd = _jax_forward(served["jm"], served["params"])
+    seg_len = int(0.4 * SR)
+    segments = []
+    for s in range(0, len(mono), seg_len):
+        chunk = mono[s:s + seg_len]
+        pad = seg_len - len(chunk)
+        est = np.asarray(fwd(served["params"], np.pad(chunk, (0, pad))[None]))[0]
+        segments.append(est[..., :seg_len - pad])
+    tracks = JI.concatenate_tracks(JI.stitch_segments(
+        segments, SR, embed_fn=JE.make_ecapa_embedder(ckpt)))
+    for i in range(2):
+        j_write_wav(served["root"] / "ref.wav", tracks[i], SR)
+        ref, _ = j_read_wav(served["root"] / "ref.wav")
+        got, _ = read_wav(out / f"s{i + 1}_est.wav")
+        np.testing.assert_allclose(got, ref, rtol=0, atol=TRACK_REL * np.abs(ref).max() + PCM_STEP)
 
 
 def test_repo_config_targets_resolve_to_the_port():

@@ -8,12 +8,13 @@ Tolerances: the forward within 1e-4 · max|ref| (TF32 off; cuDNN's LSTMs
 and convolutions sum in another order). The train steps are held by
 ``chip_smoke.enh_step_check``, phase 14's and 15's rule: every side
 replays the card's branch at each kinked activation and PIT's choice of
-permutation, the loss within rel 1e-5, the clipped gradients within
-1e-4 · max|g| or, where the CPU's own float32 steps (at its default
-thread count and at two threads) lie further than that from its float64
-step, within ``ILL_FACTOR`` times that distance. ROADMAP C12: the
-mossformer case fails, the card's float32 step lying further from
-float64 than twice the CPU's.
+permutation; the step in float64 on the card within ``F64_REL`` (1e-9)
+· max|g64| of float64 on the CPU; in float32 the loss within rel 1e-5 and
+the clipped gradients within max(1e-4, ``ILL_FACTOR`` (2) times the CPU's
+own float32 distance from its float64 step, the larger of its default
+thread count and two threads) · max|g|. ROADMAP C12: the mossformer case
+fails in float32, the card's float32 step lying further from float64
+than twice the CPU's.
 
 These tests import neither jax nor the JAX package and use no conftest
 fixture, so they run on the card alone:
@@ -53,9 +54,8 @@ def test_full_width_forward_on_the_card(cuda_device, name):
 
 
 def _held(chk: dict) -> None:
-    assert chk["loss_rel"] <= chip_smoke.TRAIN_LOSS_REL, chk
-    assert chk["flip_rel"] <= chip_smoke.KINK_REL, chk
-    assert chk["grad_err"] <= chk["bound"], chk
+    print(chip_smoke._step_check_line(chk))
+    assert not chip_smoke.step_check_failures(chk), chk
 
 
 @pytest.mark.cuda
