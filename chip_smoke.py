@@ -275,8 +275,16 @@ ZOO_MODELS = {
                     kernel_size=4, sample_rate=SR),
 }
 ZOO = dict(models=ZOO_MODELS, seed=0, crop_s=2.0, window_s=10.0, reps=3, warmup=1,
-           segment_s=10.0, profile_reps=3)  # the recurrent models launch thousands of kernels a call
+           segment_s=10.0, profile_reps=3,  # the recurrent models launch thousands of kernels a call
+           schedule_s=0.25, bf16_cli="DPRNNTasNet")
 ZOO_REL = 1e-4  # float32 on the card vs the port on the CPU, of max|ref| (SERVE_REL)
+# Phases 11 and 13–15 in bf16 (``infer.precision``): each allowed model's
+# served output within rel-L2 BF16_REL_L2 of the card's own float32 on the
+# crop (tests/test_torch_bf16_{sep,enh}.py's gate), every module's dtypes
+# on the card those of the CPU (which those tests hold to the JAX package's)
+# on ``schedule_s`` of it; each allowed config's bf16 step held to its
+# float32 steps by phase 10's rule.
+BF16_REL_L2 = 0.05
 # Phase 12: SkiM streaming, skim.yaml's widths made causal without segment
 # overlap (the streamer's mode): 10 s of phase 8's first mixture at B=1 for
 # each depth, and the first 10 s of ``batch`` mixtures micro-batched.
@@ -327,7 +335,7 @@ ENH_MODELS = {
                                         win_length=320)),
 }
 ENH = dict(models=ENH_MODELS, seed=0, crop_s=4.0, window_s=10.0, reps=3, warmup=1,
-           eval_model="fullsubnet")
+           eval_model="fullsubnet", schedule_s=0.25, bf16_cli="fullsubnet", segment_s=10.0)
 # Phase 14: enhancement training, each config's loss and metric node
 # (written out, as ENH_MODELS; the CPU tests hold them to the files) by
 # config name, its Adam (lr 1e-3) and clip (5), float32. The step timed at
@@ -350,14 +358,16 @@ ENH_LOSSES = {
 PACK_REL = 1e-5  # a reloaded LSTM model vs the trained one, of max|out|
 ENH_TRAIN = dict(losses=ENH_LOSSES, seed=0, lr=1e-3, clip=5.0, batch=2, crop_s=4.0, reps=3,
                  warmup=1, check_batch=2, check_s=0.5, fit_model="fullsubnet", fit_samples=4,
-                 fit_epochs=2)
+                 fit_epochs=2, bf16_steps=3)
 # Phase 15: separation training, the model of each configs/separation/*.yaml
 # but convtasnet.yaml (phase 10) at its full width (ZOO_MODELS) with the
 # config's optimizer (written out, as the models; the CPU tests hold them to
 # the files), clip 5 and PIT neg-SNR, float32, from phase 11's seeded
 # weights: the step timed at the configs' B=2 x 4 s, held to the CPU by
-# ``enh_step_check`` on B=2 x 0.5 s for every config: at 1 s the CPU's
-# three sides of the ten checks would take about 800 s of the call.
+# ``enh_step_check`` on B=2 x 0.5 s for every config at half its depth
+# (``SEP_CHECK_DEPTH``, the repeated blocks; seeded alike): at full depth
+# the CPU's sides of the ten checks took about 490 s of the call, which
+# then ran within 45 s of its 1,200 s with the bf16 steps.
 SEP_OPTIMIZERS = {  # config: (model, lr, weight decay), in porting order
     "sudormrf": ("SuDORMRF", 1e-3, 0.0),
     "afrcnn": ("AFRCNN", 1e-3, 0.0),
@@ -371,7 +381,18 @@ SEP_OPTIMIZERS = {  # config: (model, lr, weight decay), in porting order
     "dprnn": ("DPRNNTasNet", 1e-3, 0.0),
 }
 SEP_TRAIN = dict(configs=SEP_OPTIMIZERS, models=ZOO_MODELS, seed=0, clip=5.0, batch=2,
-                 crop_s=4.0, reps=3, warmup=1, check_batch=2, check_s=0.5)
+                 crop_s=4.0, reps=3, warmup=1, check_batch=2, check_s=0.5, bf16_steps=3)
+SEP_CHECK_DEPTH = {"DPRNNTasNet": "num_layers", "SuDORMRF": "num_blocks",
+                   "AFRCNN": "num_blocks", "TDANet": "num_blocks", "DPTNetModel": "layer",
+                   "MossFormer": "num_blocks", "MossFormer2": "num_blocks", "BSRNN": "num_repeat",
+                   "TFGridNet": "n_layers", "SkiMNet": "layer"}
+
+
+def check_depth(name: str, args: dict) -> dict:
+    """Model ``name``'s arguments at half the depth of ``args`` (at least 1):
+    phase 15's check."""
+    key = SEP_CHECK_DEPTH[name]
+    return dict(args, **{key: max(1, args[key] // 2)})
 # Phase 16: the evaluation sidecars on seeded graphs (no .onnx weights are in
 # the repository): DNSMOS-shaped graphs at its inputs (the raw 9.01 s clip,
 # and ``audio_melspec`` of it: (1, 900, 120)), a SigMOS-shaped graph at its
@@ -1628,6 +1649,160 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def bf16_dtypes(model, x) -> dict:
+    """Module name → the floating dtypes it returned in ``model``'s bf16
+    forward of ``x`` (``infer.precision``'s call, forward hooks)."""
+    import torch
+
+    from sonicsim_tpu_torch.infer.precision import bf16_call, cast_state
+
+    def dtypes(out) -> set:
+        if isinstance(out, (tuple, list)):
+            return set().union(*(dtypes(o) for o in out)) if out else set()
+        return {str(out.dtype)} if torch.is_tensor(out) and out.is_floating_point() else set()
+
+    seen, hooks = {}, []
+    for name, m in model.named_modules():
+        hooks.append(m.register_forward_hook(
+            lambda mod, args, out, n=name: seen.setdefault(n, set()).update(dtypes(out))))
+    try:
+        with torch.inference_mode():
+            bf16_call(model, cast_state(model), x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def serve_bf16(device, name, cpu, model, crop, got32, x10, cfg) -> dict:
+    """Phases 11 and 13: ``model`` in bf16 through ``make_forward(model,
+    bf16=True)`` (the CLIs' ``--bf16``): its served output on ``crop``
+    against the card's float32 one ``got32`` (rel-L2 within BF16_REL_L2,
+    and not 0), its modules' dtypes on the card against the CPU model's on
+    ``cfg["schedule_s"]`` of the crop, and its 10 s forward's time and peak
+    extra memory. A refused model is shown to raise; returns its reason."""
+    import torch
+
+    from sonicsim_tpu_torch.infer.precision import BF16_MODELS
+    from sonicsim_tpu_torch.scripts.common import make_forward
+
+    try:
+        fwd = make_forward(model, bf16=True)
+    except NotImplementedError as e:
+        check(name not in BF16_MODELS, f"{name}: bf16 refused but listed: {e}")
+        return dict(refused=str(e))
+    check(name in BF16_MODELS, f"{name}: bf16 taken but not listed")
+    got = fwd(crop.to(device)).cpu()
+    rel = _rel_l2(got, got32)
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+          and 0 < rel <= BF16_REL_L2,
+          f"{name} bf16 vs float32 on the card: rel-L2 {rel} (gate {BF16_REL_L2}), dtype "
+          f"{got.dtype}")
+    short = crop[:, :int(cfg["schedule_s"] * SR)]
+    card, host = bf16_dtypes(model, short.to(device)), bf16_dtypes(cpu, short)
+    differ = sorted(n for n in set(card) | set(host) if card.get(n) != host.get(n))
+    check(not differ, f"{name} bf16 dtypes on the card vs the CPU differ at {differ[:5]}: "
+          f"{[(card.get(n), host.get(n)) for n in differ[:5]]}")
+    f32 = sum(1 for v in card.values() if "torch.float32" in v)
+    ms = median_ms(lambda: fwd(x10), device, reps=cfg["reps"], warmup=cfg["warmup"])
+    mib = _peak_mib(device, lambda: fwd(x10))
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          f"{name}: bf16 serving changed the stored weights")
+    return dict(rel=rel, ms=ms, audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib,
+                modules=len(card), f32_modules=f32)
+
+
+def fft_dtypes(device) -> str:
+    """What ``torch.fft.rfft`` does with each floating dtype on ``device``
+    (a bfloat16 spectrum is a fault the port must not reach: its STFTs
+    multiply by a float32 window first, as the JAX package's do)."""
+    import torch
+
+    seen = []
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        try:
+            out = torch.fft.rfft(torch.ones(2, 512, device=device, dtype=dtype))
+            seen.append(f"{dtype} -> {out.dtype}")
+        except RuntimeError as e:
+            seen.append(f"{dtype} raises ({str(e).splitlines()[0][:90]})")
+    return "; ".join(seen)
+
+
+def bf16_line(b: dict, cfg) -> str:
+    """``serve_bf16``'s readings as phases 11 and 13 print them."""
+    if "refused" in b:
+        return f"bf16 refused: {b['refused']}"
+    return (f"bf16 (make_forward(bf16=True)): rel-L2 {b['rel']:.4g} from the card's fp32 on the "
+            f"crop (gate {BF16_REL_L2}); dtypes of all {b['modules']} modules on the card those "
+            f"of the CPU ({b['f32_modules']} of them return float32); B=1 x "
+            f"{cfg['window_s']:g} s: {b['ms']:.4f} ms = {b['audio_s_per_s']:.1f} audio-s/s "
+            f"(CUDA-event median of {cfg['reps']} after {cfg['warmup']}), peak extra memory "
+            f"{b['peak_mib'] if b['peak_mib'] is None else round(b['peak_mib'], 1)} MiB")
+
+
+def bf16_cli_check(device, name, pack: Path, mix_path: Path, out_dir: Path, n_out: int,
+                   segment_s: float) -> str:
+    """The inference CLI on ``pack`` with and without ``--bf16`` over the
+    mixture at ``mix_path``: the bf16 tracks finite and within rel-L2
+    BF16_REL_L2 of the float32 ones."""
+    from sonicsim_tpu_torch.scripts import inference
+    from sonicsim_tpu_torch.utils import read_wav
+
+    walls, tracks = {}, {}
+    for bf16 in (False, True):
+        out = out_dir / f"cli_{'bf16' if bf16 else 'fp32'}"
+        argv = ["--model_path", str(pack), "--mix", str(mix_path), "--out_dir", str(out),
+                "--segment_seconds", str(segment_s), "--device", str(device)] + ["--bf16"] * bf16
+        t0 = time.perf_counter()
+        inference.main(argv)
+        walls[bf16] = time.perf_counter() - t0
+        tracks[bf16] = np.concatenate([read_wav(out / f"s{i + 1}_est.wav")[0]
+                                       for i in range(n_out)])
+    a, b = tracks[True].astype(np.float64), tracks[False].astype(np.float64)
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    check(np.isfinite(a).all() and rel <= BF16_REL_L2,
+          f"{name} inference --bf16 vs fp32: rel-L2 {rel} (gate {BF16_REL_L2})")
+    return (f"inference CLI --bf16 on {pack.name} over the {a.shape[-1] / SR:g} s mixture: "
+            f"{walls[True]:.3f} s (fp32 {walls[False]:.3f} s, load and WAV I/O included), its "
+            f"tracks rel-L2 {rel:.4g} from the fp32 CLI's (gate {BF16_REL_L2})")
+
+
+def train_bf16(device, what: str, fresh, x, y, f32_trace: list, cfg) -> dict:
+    """Phases 14 and 15: ``fresh(device, precision="bf16")``'s step, or its
+    refusal: ``cfg["bf16_steps"]`` steps on the batch held to the float32
+    steps ``f32_trace`` from the same weights by phase 10's rule (every loss
+    finite and falling, the first bf16 loss within 0.1·|f32| + 0.5 of the
+    first float32 one), master weights float32, then its time and peak
+    extra memory."""
+    import torch
+
+    try:
+        model, step = fresh(device, precision="bf16")
+    except NotImplementedError as e:
+        return dict(refused=str(e))
+    trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
+    check(all(np.isfinite(t).all() and t[-1] < t[0] for t in (f32_trace, trace)),
+          f"{what}: the loss did not fall: fp32 {f32_trace}, bf16 {trace}")
+    check(abs(trace[0] - f32_trace[0]) < 0.1 * abs(f32_trace[0]) + 0.5,
+          f"{what}: first bf16 loss {trace[0]} vs fp32 {f32_trace[0]} (tests/test_train.py's bound)")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          f"{what}: bf16 master weights are not float32")
+    ms = median_ms(lambda: step(x, y), device, reps=cfg["reps"], warmup=cfg["warmup"])
+    mib = _peak_mib(device, lambda: step(x, y))
+    del model, step
+    return dict(ms=ms, peak_mib=mib, trace=trace, f32_trace=f32_trace)
+
+
+def train_bf16_line(b: dict, cfg, audio_s: float) -> str:
+    if "refused" in b:
+        return f"bf16 refused: {b['refused']}"
+    return (f"bf16: {b['ms']:.4f} ms/step = {audio_s / (b['ms'] / 1e3):.1f} audio-s/s, peak "
+            f"extra memory {b['peak_mib'] if b['peak_mib'] is None else round(b['peak_mib'], 1)} "
+            f"MiB; {cfg['bf16_steps']} steps on the batch fp32 "
+            f"{[round(v, 4) for v in b['f32_trace']]}, bf16 {[round(v, 4) for v in b['trace']]} "
+            f"(phase 10's rule)")
+
+
 def phase_serving(device, cfg, folders, root: Path, smi) -> None:
     """Phase 9: ConvTasNet from a pack on the device; its forward against the
     CPU, its throughput, the inference CLI on phase 8's first mixture, and
@@ -2005,9 +2180,13 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
             est, _ = read_wav(root / f"sep_{name}" / f"s{i + 1}_est.wav")
             check(est.shape == (1, t_mix) and bool(np.isfinite(est).all()),
                   f"{name} inference: s{i + 1}_est.wav {est.shape}")
+        b16 = serve_bf16(device, name, cpu, model, crop, got, x10, cfg)
+        if name == cfg["bf16_cli"]:
+            b16["cli"] = bf16_cli_check(device, name, pack, mix_path, root / f"cli_{name}", 2,
+                                        cfg["segment_s"])
         stats[name] = dict(params=n_params, crop_s=crop_s, err=err, max_ref=peak, cpu_s=cpu_s,
                            ms=ms, audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib,
-                           cli_s=cli_s, build_s=build_s)
+                           cli_s=cli_s, build_s=build_s, bf16=b16)
         print(f"zoo[{name}]: {n_params} parameters, seeded, from {pack.name} via "
               f"from_pretrain ({build_s:.2f} s with the build on the CPU); fp32 vs the port on "
               f"the CPU on a {crop_s:g} s crop of phase 8's first mixture ({cpu_s:.2f} s there): "
@@ -2017,7 +2196,8 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
               f"{cfg['reps']} after {cfg['warmup']}), peak extra memory "
               f"{mib if mib is None else round(mib, 1)} MiB; inference CLI on the "
               f"{t_mix / SR:g} s mixture ({cfg['segment_s']:g} s windows, load and WAV I/O "
-              f"included, no warm-up of its own): {cli_s:.4f} s; {smi}", flush=True)
+              f"included, no warm-up of its own): {cli_s:.4f} s; {bf16_line(b16, cfg)}"
+              + (f"; {b16['cli']}" if "cli" in b16 else "") + f"; {smi}", flush=True)
         del model, fwd, cpu
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -2143,13 +2323,17 @@ def phase_enhancement(device, cfg, folders, root: Path, smi) -> dict:
     from sonicsim_tpu_torch.models import from_pretrain, save_model
     from sonicsim_tpu_torch.scripts import audio_test
     from sonicsim_tpu_torch.scripts.common import make_forward, pesq_columns, strict_float32
+    from sonicsim_tpu_torch.utils import write_wav
 
     strict_float32()
     root.mkdir()
     mono = _mono_mixes(folders)
+    mix_path = root / "mix.wav"
+    write_wav(mix_path, mono[0][None], SR, encoding="float32")
     t_win = int(cfg["window_s"] * SR)
     x10 = torch.from_numpy(mono[0][None, :t_win].copy()).to(device)
     crop = torch.from_numpy(mono[0][None, :int(cfg["crop_s"] * SR)].copy())
+    print(f"enh[torch.fft.rfft by dtype on {device}]: {fft_dtypes(device)}", flush=True)
     stats, served = {}, {}
     for stem, (name, args) in cfg["models"].items():
         t0 = time.perf_counter()
@@ -2172,8 +2356,12 @@ def phase_enhancement(device, cfg, folders, root: Path, smi) -> dict:
               f"{stem} on the device vs the CPU: max abs err {err} (max|ref| {peak})")
         ms = median_ms(lambda fwd=fwd: fwd(x10), device, reps=cfg["reps"], warmup=cfg["warmup"])
         mib = _peak_mib(device, lambda fwd=fwd: fwd(x10))
+        b16 = serve_bf16(device, name, cpu, model, crop, got, x10, cfg)
+        if stem == cfg["bf16_cli"]:
+            b16["cli"] = bf16_cli_check(device, stem, pack, mix_path, root / f"cli_{stem}", 1,
+                                        cfg["segment_s"])
         stats[stem] = dict(model=name, params=n_params, err=err, max_ref=peak, cpu_s=cpu_s, ms=ms,
-                           audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib)
+                           audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib, bf16=b16)
         print(f"enh[{stem}: {name}]: {n_params} parameters, seeded, from {pack.name} via "
               f"from_pretrain ({build_s:.2f} s with the build on the CPU); fp32 forward and "
               f"to_waveform vs the port on the CPU on a {cfg['crop_s']:g} s crop of phase 8's "
@@ -2181,7 +2369,8 @@ def phase_enhancement(device, cfg, folders, root: Path, smi) -> dict:
               f"{peak:.3g} (tol {ZOO_REL}·max|ref|); B=1 x {cfg['window_s']:g} s: {ms:.4f} ms = "
               f"{stats[stem]['audio_s_per_s']:.1f} audio-s/s (CUDA-event median of "
               f"{cfg['reps']} after {cfg['warmup']}), peak extra memory "
-              f"{mib if mib is None else round(mib, 1)} MiB; {smi}", flush=True)
+              f"{mib if mib is None else round(mib, 1)} MiB; {bf16_line(b16, cfg)}"
+              + (f"; {b16['cli']}" if "cli" in b16 else "") + f"; {smi}", flush=True)
         if stem == cfg["eval_model"]:
             served = dict(model=model, stem=stem)
         else:
@@ -2503,14 +2692,16 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
         loss_fn, metric_fn = _instantiate_loss(loss_node), _instantiate_loss(metric_node)
         weights = seeded_zoo(name, args, cfg["seed"]).state_dict()
 
-        def fresh(dev, name=name, args=args, weights=weights, loss_fn=loss_fn):
+        def fresh(dev, name=name, args=args, weights=weights, loss_fn=loss_fn, precision="f32"):
             model = get(name)(**args, device=dev)
             model.load_state_dict(weights)
             opt = make_optimizer(model.parameters(), cfg["lr"])
-            return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
+            return model, make_train_step(model, loss_fn, opt, precision, clip_norm=cfg["clip"])
 
         model, step = fresh(device)
-        check(bool(torch.isfinite(step(x, y))), f"{stem} step: loss not finite")
+        # The first steps on the batch: phase 10's float32 side of the bf16 rule.
+        f32_trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
+        check(np.isfinite(f32_trace).all(), f"{stem} step: loss not finite {f32_trace}")
         ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
                        warmup=cfg["warmup"])
         mib = _peak_mib(device, lambda step=step: step(x, y))
@@ -2518,11 +2709,12 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
             metric = float(metric_fn(model(x), y))
         check(np.isfinite(metric), f"{stem}: metric {metric}")
         del model, step
+        b16 = train_bf16(device, stem, fresh, x, y, f32_trace, cfg)
         chk = enh_step_check(fresh, xc, yc, device)
         _step_check_ok(chk, stem)
         stats[stem] = dict(model=name, params=chk["params"], ms=ms,
                            audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, metric=metric,
-                           **{k: v for k, v in chk.items() if k not in ("params", "ill")})
+                           bf16=b16, **{k: v for k, v in chk.items() if k not in ("params", "ill")})
         print(f"enh-train[{stem}: {name}]: {chk['params']} trained parameters, seeded, "
               f"{loss_node[0]} / {metric_node[0]}, Adam lr {cfg['lr']}, optax clip "
               f"{cfg['clip']}, fp32, B={cfg['batch']} x {cfg['crop_s']:g} s from phase 8's split: "
@@ -2530,7 +2722,8 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
               f"{cfg['reps']} after {cfg['warmup']}), peak extra memory "
               f"{mib if mib is None else round(mib, 1)} MiB, {metric_node[0]} {metric:.4f}; one "
               f"step on B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU "
-              f"({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; {smi}", flush=True)
+              f"({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; "
+              f"{train_bf16_line(b16, cfg, audio_s)}; {smi}", flush=True)
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -2605,11 +2798,11 @@ def sep_train_fresh(stem: str, weights: dict, cfg=SEP_TRAIN):
     name, lr, wd = cfg["configs"][stem]
     loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), pit_from="pw_mtx", threshold_byloss=False)
 
-    def fresh(dev, dtype=torch.float32):
+    def fresh(dev, dtype=torch.float32, precision="f32"):
         model = get(name)(**cfg["models"][name], device=dev).to(dtype)
         model.load_state_dict(weights)
         opt = make_optimizer(model.parameters(), lr, wd)
-        return model, make_train_step(model, loss_fn, opt, "f32", clip_norm=cfg["clip"])
+        return model, make_train_step(model, loss_fn, opt, precision, clip_norm=cfg["clip"])
 
     return fresh
 
@@ -2657,7 +2850,8 @@ def phase_sep_training(device, cfg, folders, smi) -> dict:
     """Phase 15: each separation config's model trained in float32 with its
     config's optimizer, clip and PIT neg-SNR, from phase 11's seeded
     weights: the step's time and peak extra memory at the configs' batch
-    and duration on phase 8's split, and one step on the device against the
+    and duration on phase 8's split, its bf16 step, and one step of the
+    model at half its depth (``check_depth``) on the device against the
     same step on the CPU by ``enh_step_check``. Returns each config's
     numbers."""
     import torch
@@ -2682,32 +2876,40 @@ def phase_sep_training(device, cfg, folders, smi) -> dict:
         fresh = sep_train_fresh(stem, weights, cfg)
         marks.append(time.perf_counter())
         model, step = fresh(device)
-        check(bool(torch.isfinite(step(x, y))), f"{stem} step: loss not finite")
+        n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
+        # The first steps on the batch: phase 10's float32 side of the bf16 rule.
+        f32_trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
+        check(np.isfinite(f32_trace).all(), f"{stem} step: loss not finite {f32_trace}")
         ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
                        warmup=cfg["warmup"])
         mib = _peak_mib(device, lambda step=step: step(x, y))
         del model, step
+        b16 = train_bf16(device, stem, fresh, x, y, f32_trace, cfg)
         marks.append(time.perf_counter())
-        check_s = cfg["check_s"]
+        check_s, half = cfg["check_s"], check_depth(name, cfg["models"][name])
+        depth = SEP_CHECK_DEPTH[name]
         xc, yc = _loudest_window(mix, tgt, cfg["check_batch"], int(check_s * SR))
-        chk = enh_step_check(fresh, xc, yc, device)
+        chk = enh_step_check(sep_train_fresh(stem, seeded_zoo(name, half, cfg["seed"]).state_dict(),
+                                             dict(cfg, models={name: half})), xc, yc, device)
         _step_check_ok(chk, stem)
         marks.append(time.perf_counter())
         seconds = marks[-1] - marks[0]
         split_s = "/".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
-        stats[stem] = dict(model=name, params=chk["params"], ms=ms,
+        stats[stem] = dict(model=name, params=n_params, ms=ms,
                            audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, check_s=check_s,
-                           seconds=seconds,
+                           seconds=seconds, bf16=b16, check_params=chk["params"],
                            **{k: v for k, v in chk.items() if k not in ("params", "ill")})
-        print(f"sep-train[{stem}: {name}]: {chk['params']} trained parameters, seeded, PIT "
+        print(f"sep-train[{stem}: {name}]: {n_params} trained parameters, seeded, PIT "
               f"neg-SNR, {'AdamW' if wd else 'Adam'} lr {lr:g}"
               f"{f' weight decay {wd:g}' if wd else ''}, optax clip {cfg['clip']}, fp32, "
               f"B={cfg['batch']} x {cfg['crop_s']:g} s from phase 8's split: {ms:.4f} ms/step = "
               f"{audio_s / (ms / 1e3):.1f} audio-s/s (CUDA-event median of {cfg['reps']} after "
               f"{cfg['warmup']}), peak extra memory {mib if mib is None else round(mib, 1)} MiB; "
-              f"one step on B={cfg['check_batch']} x {check_s:g} s vs the CPU "
-              f"({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; {seconds:.1f} s for the "
-              f"config (seeded weights / timing / check {split_s}); {smi}", flush=True)
+              f"{train_bf16_line(b16, cfg, audio_s)}; one step at half depth ({depth} "
+              f"{half[depth]}, {chk['params']} trained parameters) on B={cfg['check_batch']} x "
+              f"{check_s:g} s vs the CPU ({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; "
+              f"{seconds:.1f} s for the config (seeded weights / timing and bf16 / check "
+              f"{split_s}); {smi}", flush=True)
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return stats

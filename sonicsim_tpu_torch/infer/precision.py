@@ -1,46 +1,119 @@
-"""Reduced-precision inference.
+"""Reduced-precision serving and training, as the JAX package computes them.
 
-Port of ``sonicsim_tpu.infer.precision``. ``bf16_forward`` computes the
-whole model in bfloat16, the norms' statistics included, as the JAX
-package's ``bf16_forward`` does. ``torch.autocast`` is not that function:
-it keeps norms and reductions in float32.
+Port of ``sonicsim_tpu.infer.precision``. The JAX ``bf16_forward`` casts the
+variable tree and the input to bfloat16 and leaves the rest to JAX's type
+promotion, so a JAX model computes in bfloat16 only until something
+float32 meets it, and in float32 on bfloat16-rounded weights after that:
 
-bf16 is held against float32 for ConvTasNet alone (its serving and train
-step); the zoo's models refuse it (:func:`require_bf16`) until theirs is.
+* after each LSTM (flax's cell makes its zero carry in float32);
+* after each STFT (frames times a float32 window; ``jnp.fft`` takes no
+  bfloat16);
+* where a float32 constant table (a window, a pseudo-inverse, a mel bank,
+  positional and rotary tables) meets an activation.
+
+flax's built-in norms take their statistics in float32 and return the
+promoted dtype. The port computes the same schedule: :func:`cast_state`
+casts exactly the state the bridge maps into the JAX variable tree (every
+parameter, and the frozen BatchNorm statistics, ``running_mean`` and
+``running_var``) and nothing else, and the model runs on it through
+``torch.func.functional_call``; its layers follow the promotion rule
+(``models.layers``), its LSTMs flax's carry (``models.zoo_layers``), and its
+constant tables are float32 or the input's dtype where that is wider. The
+stored model stays float32. ``torch.autocast`` is not that function: it
+picks the dtype per operator, not by promotion. ``bf16_forward`` and
+``train.make_train_step(precision="bf16")`` share :func:`cast_state`.
+
+Which models take bf16: each whose JAX bf16 path runs and whose bf16
+output lies within rel-L2 0.05 of float32 on both sides
+(``BF16_MODELS``); :func:`require_bf16` refuses the others by name, with
+the reason (``BF16_REFUSED``), and bf16 training where the JAX package's
+bf16 step raises (``BF16_TRAIN_REFUSED``).
 """
 
 from __future__ import annotations
 
-import copy
 from typing import Callable
 
 import torch
 import torch.nn as nn
 
+BF16_MODELS = (
+    "ConvTasNet", "DPRNNTasNet", "DPTNetModel", "SuDORMRF", "AFRCNN", "BSRNN", "TFGridNet",
+    "MossFormer", "SkiMNet", "Fullband", "FullSubnet", "FastFullSubnet", "FullSubNet_Plus",
+    "Inter_SubNet", "DCCRN", "BSRNNESPNet", "TaylorSENet",
+)
+_CONV_DTYPES = ("the JAX package's bf16 raises at sonicsim_tpu/models/layers.py:156 "
+                "(lax.conv_general_dilated on a float32 input and bfloat16 weights)")
+BF16_REFUSED = {
+    "TDANet": _CONV_DTYPES,
+    "MossFormer2": _CONV_DTYPES,
+    "FRCRN": ("its bf16 waveform lies 6.9e-2 (rel-L2) from float32 in the JAX package and "
+              "in the port alike, over the zoo's 0.05 gate (seeded weights, "
+              "tests/test_torch_bf16_enh.py)"),
+    "GaGNet": ("at its config's width its bf16 waveform lies 0.45 (rel-L2) from float32 on a "
+               "tone in noise in the JAX package and in the port alike, and 0.30 on a "
+               "generated mixture on the card, over the zoo's 0.05 gate (seeded weights, "
+               "tests/test_torch_bf16_enh.py, chip_smoke.py phase 13)"),
+    "G2Net": ("at its config's width its bf16 waveform lies 0.49 (rel-L2) from float32 on a "
+              "tone in noise in the JAX package and in the port alike, over the zoo's 0.05 "
+              "gate (seeded weights, tests/test_torch_bf16_enh.py)"),
+}
+_MIXED_SHAPES = ("the JAX package's bf16 train step raises at sonicsim_tpu/train/trainer.py:123 "
+                 "(jnp.asarray(ests, jnp.float32) on outputs of mixed shapes)")
+BF16_TRAIN_REFUSED = {name: _MIXED_SHAPES for name in (
+    "Fullband", "FullSubnet", "FastFullSubnet", "FullSubNet_Plus", "Inter_SubNet", "FRCRN")}
+# The state the bridge maps besides the parameters: frozen BatchNorm statistics.
+_MAPPED_BUFFERS = ("running_mean", "running_var")
 
-BF16_MODELS = ("ConvTasNet",)
+
+def require_bf16(model: nn.Module, train: bool = False) -> None:
+    """Raise ``NotImplementedError`` unless ``model`` may run (with ``train``,
+    train) in bf16, naming the model and the reason."""
+    name = type(model).__name__
+    reasons = []
+    if name in BF16_REFUSED:
+        reasons.append(f"bf16 is refused: {BF16_REFUSED[name]}")
+    elif name not in BF16_MODELS:
+        reasons.append(f"bf16 is held against float32 for {BF16_MODELS} only")
+    if train and name in BF16_TRAIN_REFUSED:
+        reasons.append(f"bf16 training is refused: {BF16_TRAIN_REFUSED[name]}")
+    if reasons:
+        raise NotImplementedError(f"{name}: {'; '.join(reasons)}; run it in float32")
 
 
-def require_bf16(model: nn.Module) -> None:
-    """Raise unless ``model``'s bf16 path is held against its float32 one."""
-    if type(model).__name__ not in BF16_MODELS:
-        raise NotImplementedError(
-            f"{type(model).__name__}: bf16 is held against float32 for {BF16_MODELS} "
-            "only; run it in float32")
+def cast_state(model: nn.Module, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The state the bridge maps into the JAX variable tree, its floating
+    tensors cast to ``dtype`` (a differentiable ``.to``: gradients reach the
+    float32 parameters through it), for ``torch.func.functional_call``."""
+    state = dict(model.named_parameters())
+    state.update((n, b) for n, b in model.named_buffers()
+                 if n.rsplit(".", 1)[-1] in _MAPPED_BUFFERS)
+    return {n: t.to(dtype) if t.is_floating_point() else t for n, t in state.items()}
 
 
-def bf16_forward(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``fwd(x) -> float32 output`` computing in bfloat16.
+def to_float32(out):
+    """``out``'s floating tensors (in tuples and lists) as float32."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(to_float32(o) for o in out)
+    return out.to(torch.float32) if torch.is_tensor(out) and out.is_floating_point() else out
 
-    The forward runs on a bfloat16 copy of ``model``, made here, so the
-    float32 model is left as it is; weights changed on ``model`` after this
-    call are not seen by ``fwd``. The input is cast to bfloat16 and the
-    output back to float32.
+
+def bf16_call(model: nn.Module, state: dict, x: torch.Tensor):
+    """``model`` on ``state`` (:func:`cast_state`) and ``x`` cast to
+    bfloat16, its outputs in the dtypes the promotion leaves them in."""
+    return torch.func.functional_call(model, state, (x.to(torch.bfloat16),))
+
+
+def bf16_forward(model: nn.Module) -> Callable:
+    """``fwd(x) -> float32 output`` computing as the JAX ``bf16_forward``.
+
+    The state is cast here, once, so the float32 model is left as it is;
+    weights changed on ``model`` after this call are not seen by ``fwd``.
     """
     require_bf16(model)
-    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    state = {n: t.detach() for n, t in cast_state(model).items()}
 
-    def fwd(x: torch.Tensor) -> torch.Tensor:
-        return model16(x.to(torch.bfloat16)).to(torch.float32)
+    def fwd(x: torch.Tensor):
+        return to_float32(bf16_call(model, state, x))
 
     return fwd

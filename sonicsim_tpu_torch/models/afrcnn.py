@@ -19,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU
+from .layers import Conv1d, ConvTranspose1d, PReLU
 from .sudormrf import enc_lcm, fit_length, masked_decode, nearest_resize
 from .zoo_layers import ConvNormAct, DilatedConvNorm, GlobLN
 
@@ -42,7 +42,7 @@ class FusionBlock(nn.Module):
         self.concat_layer = nn.ModuleList(
             ConvNormAct(c * (2 if i in (0, d - 1) else 3), c, 1) for i in range(d))
         self.last_layer = nn.Sequential(ConvNormAct(c * d, c, 1))
-        self.res_conv = nn.Conv1d(c, out_channels, 1)
+        self.res_conv = Conv1d(c, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         levels = [self.spp_dw[0](self.proj_1x1(x))]
@@ -70,7 +70,7 @@ class _Recurrent(nn.Module):
         self.num_blocks = num_blocks
         self.blocks = FusionBlock(out_channels, in_channels, upsampling_depth)
         self.concat_block = nn.Sequential(
-            nn.Conv1d(out_channels, out_channels, 1, groups=out_channels), PReLU())
+            Conv1d(out_channels, out_channels, 1, groups=out_channels), PReLU())
 
     def forward(self, y0: torch.Tensor) -> torch.Tensor:
         y = self.blocks(y0)
@@ -94,14 +94,14 @@ class AFRCNN(BaseModel):
         k = enc_kernel_size
         self.num_sources, self.sample_rate = num_sources, sample_rate
         self.lcm = enc_lcm(k, upsampling_depth)
-        self.encoder = nn.Conv1d(1, enc_num_basis, k, stride=k // 2, padding=k // 2, bias=False)
+        self.encoder = Conv1d(1, enc_num_basis, k, stride=k // 2, padding=k // 2, bias=False)
         self.ln = GlobLN(enc_num_basis, eps=1e-5)
-        self.bottleneck = nn.Conv1d(enc_num_basis, out_channels, 1)
+        self.bottleneck = Conv1d(enc_num_basis, out_channels, 1)
         self.sm = _Recurrent(out_channels, in_channels, upsampling_depth, num_blocks)
-        self.mask_net = nn.Sequential(PReLU(), nn.Conv1d(out_channels,
+        self.mask_net = nn.Sequential(PReLU(), Conv1d(out_channels,
                                                          num_sources * enc_num_basis, 1))
-        self.decoder = nn.ConvTranspose1d(num_sources * enc_num_basis, num_sources, k,
-                                          stride=k // 2, padding=k // 2,
+        self.decoder = ConvTranspose1d(num_sources * enc_num_basis, num_sources, k,
+                                       stride=k // 2, padding=k // 2,
                                           output_padding=k // 2 - 1, bias=False)
         self.place(device)
 

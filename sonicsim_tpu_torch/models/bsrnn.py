@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .layers import Conv1d, GroupNorm
 from ..ops.stft import hann_window, istft, stft
 from .base import BaseModel, register_model
 from .zoo_layers import F32_EPS, ResRNN
@@ -67,13 +68,13 @@ class BSRNN(BaseModel):
         self.bands = band_widths(sample_rate, win // 2 + 1)
         fd, out = feature_dim, num_output
         self.BN = nn.ModuleList(
-            nn.Sequential(nn.GroupNorm(1, w * 2, F32_EPS), nn.Conv1d(w * 2, fd, 1))
+            nn.Sequential(GroupNorm(1, w * 2, F32_EPS), Conv1d(w * 2, fd, 1))
             for w in self.bands)
         self.separator = nn.Sequential(*(BSNet(fd) for _ in range(num_repeat)))
         self.mask = nn.ModuleList(
-            nn.Sequential(nn.GroupNorm(1, fd, F32_EPS), nn.Conv1d(fd, fd * out, 1), nn.Tanh(),
-                          nn.Conv1d(fd * out, fd * 2 * out, 1, groups=out), nn.Tanh(),
-                          nn.Conv1d(fd * 2 * out, w * 4 * out, 1, groups=out))
+            nn.Sequential(GroupNorm(1, fd, F32_EPS), Conv1d(fd, fd * out, 1), nn.Tanh(),
+                          Conv1d(fd * out, fd * 2 * out, 1, groups=out), nn.Tanh(),
+                          Conv1d(fd * 2 * out, w * 4 * out, 1, groups=out))
             for w in self.bands)
         self.place(device)
 

@@ -21,6 +21,7 @@ from itertools import accumulate
 import torch
 import torch.nn as nn
 
+from .layers import Conv1d, Linear
 from ..ops.stft import hann_window, istft, stft
 from .base import BaseModel, register_model
 from .zoo_layers import GroupNorm1, LSTMLayer
@@ -43,7 +44,7 @@ class BandSplit(nn.Module):
         super().__init__()
         self.subbands = tuple(subbands)
         self.norm = nn.ModuleList(GroupNorm1(2 * s, eps=1e-5) for s in self.subbands)
-        self.fc = nn.ModuleList(nn.Conv1d(2 * s, channels, 1) for s in self.subbands)
+        self.fc = nn.ModuleList(Conv1d(2 * s, channels, 1) for s in self.subbands)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t = x.shape[:2]
@@ -54,8 +55,8 @@ class BandSplit(nn.Module):
 
 
 def _mlp(channels: int, sub: int) -> nn.Sequential:
-    return nn.Sequential(GroupNorm1(channels, eps=1e-5), nn.Conv1d(channels, 4 * channels, 1),
-                         nn.Tanh(), nn.Conv1d(4 * channels, 4 * sub, 1), nn.GLU(dim=1))
+    return nn.Sequential(GroupNorm1(channels, eps=1e-5), Conv1d(channels, 4 * channels, 1),
+                         nn.Tanh(), Conv1d(4 * channels, 4 * sub, 1), nn.GLU(dim=1))
 
 
 class MaskDecoder(nn.Module):
@@ -86,10 +87,10 @@ class _BSRNN(nn.Module):
         width = 2 * n * (1 if causal else 2)
         self.norm_time = nn.ModuleList(GroupNorm1(n, 1e-5, True) for _ in range(layers))
         self.rnn_time = nn.ModuleList(LSTMLayer(n, 2 * n, not causal) for _ in range(layers))
-        self.fc_time = nn.ModuleList(nn.Linear(width, n) for _ in range(layers))
+        self.fc_time = nn.ModuleList(Linear(width, n) for _ in range(layers))
         self.norm_freq = nn.ModuleList(GroupNorm1(n, 1e-5, True) for _ in range(layers))
         self.rnn_freq = nn.ModuleList(LSTMLayer(n, 2 * n, True) for _ in range(layers))
-        self.fc_freq = nn.ModuleList(nn.Linear(4 * n, n) for _ in range(layers))
+        self.fc_freq = nn.ModuleList(Linear(4 * n, n) for _ in range(layers))
         self.mask_decoder = MaskDecoder(subbands, n)
 
 

@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU, get_activation, select_norm
+from .layers import Conv1d, ConvTranspose1d, PReLU, get_activation, select_norm
 
 
 class Conv1DBlock(nn.Module):
@@ -36,15 +36,15 @@ class Conv1DBlock(nn.Module):
         pad = dilation * (kernel_size - 1)
         left, right = (pad, 0) if causal else (pad // 2, pad - pad // 2)
         # A symmetric pad rides in the conv; an asymmetric one is a copy.
-        self.conv1x1 = nn.Conv1d(in_channels, out_channels, 1)
+        self.conv1x1 = Conv1d(in_channels, out_channels, 1)
         self.prelu1 = PReLU()
         self.norm1 = select_norm(norm_type, out_channels)
-        self.dwconv = nn.Conv1d(out_channels, out_channels, kernel_size,
-                                padding=left if left == right else 0,
+        self.dwconv = Conv1d(out_channels, out_channels, kernel_size,
+                             padding=left if left == right else 0,
                                 dilation=dilation, groups=out_channels)
         self.prelu2 = PReLU()
         self.norm2 = select_norm(norm_type, out_channels)
-        self.sconv = nn.Conv1d(out_channels, in_channels, 1)
+        self.sconv = Conv1d(out_channels, in_channels, 1)
         self._copy_pad = None if left == right else (left, right)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, Cin, T)
@@ -74,9 +74,9 @@ class Encoder(nn.Module):
 
     def __init__(self, N: int, L: int, B: int, norm: str):
         super().__init__()
-        self.encoder = nn.Conv1d(1, N, L, stride=L // 2)
+        self.encoder = Conv1d(1, N, L, stride=L // 2)
         self.norm = select_norm(norm, N)
-        self.conv1x1 = nn.Conv1d(N, B, 1)
+        self.conv1x1 = Conv1d(N, B, 1)
 
     def forward(self, wav: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         enc = self.encoder(wav[:, None, :])  # (B, N, T')
@@ -88,7 +88,7 @@ class Decoder(nn.Module):
 
     def __init__(self, H: int, L: int):
         super().__init__()
-        self.decoder = nn.ConvTranspose1d(H, 1, L, stride=L // 2)
+        self.decoder = ConvTranspose1d(H, 1, L, stride=L // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(x)[:, 0]
@@ -132,7 +132,7 @@ class ConvTasNet(BaseModel):
         self.sample_rate = sample_rate
         self.encoder = Encoder(N, L, B, norm)
         self.separation = Separation(B, H, P, X, R, norm, causal)
-        self.mask = nn.Conv1d(B, H * num_spks, 1)
+        self.mask = Conv1d(B, H * num_spks, 1)
         self.decoder = Decoder(H, L)
         self.place(device)
 

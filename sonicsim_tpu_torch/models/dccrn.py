@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.stft import _overlap_add
 from .base import BaseModel, register_model
-from .layers import PReLU
+from .layers import Conv2d, ConvTranspose2d, Linear, PReLU, float32_or_wider, promote
 from .zoo_layers import LSTMLayer, StatelessBatchNorm
 
 
@@ -74,7 +74,8 @@ def conv_stft(x: torch.Tensor, win_len: int, hop: int, fft_len: int,
     sqrt-Hann window."""
     pad = win_len - hop if pad_signal else 0
     xp = F.pad(x, (pad, pad)) if pad else x
-    frames = xp.unfold(-1, win_len, hop) * _window(win_len, sqrt_window, x.device).to(x.dtype)
+    window = _window(win_len, sqrt_window, x.device).to(float32_or_wider(x.dtype))
+    frames = xp.unfold(-1, win_len, hop) * window
     spec = torch.fft.rfft(frames, n=fft_len)  # (B, frames, F)
     return spec.real.transpose(1, 2), spec.imag.transpose(1, 2)
 
@@ -86,10 +87,11 @@ def conv_istft(real: torch.Tensor, imag: torch.Tensor, win_len: int, hop: int, f
     sliced or zero-padded to ``length``. The overlap-add is ``F.fold``, which
     sums each output sample in a fixed order, so repeated runs on the card
     are bit-equal."""
-    window = _window(win_len, sqrt_window, real.device).to(real.dtype)
+    table = float32_or_wider(real.dtype)
+    window = _window(win_len, sqrt_window, real.device).to(table)
     spec_ri = torch.cat([real, imag], dim=1)  # (B, 2F, frames)
-    pinv = _pinv_on(win_len, fft_len, real.device).to(real.dtype)
-    frames = torch.einsum("bft,fw->btw", spec_ri, pinv)
+    pinv = _pinv_on(win_len, fft_len, real.device).to(table)
+    frames = torch.einsum("bft,fw->btw", *promote(spec_ri, pinv))
     frames = frames * window
     n_frames = frames.shape[1]
     out = _overlap_add(frames, hop)
@@ -117,8 +119,8 @@ class ComplexConv2d(nn.Module):
                  causal_time_pad: int = 1):
         super().__init__()
         self.pads = (causal_time_pad, 0, freq_pad, freq_pad)
-        self.real_conv = nn.Conv2d(cin, cout, kernel, stride=(2, 1))
-        self.imag_conv = nn.Conv2d(cin, cout, kernel, stride=(2, 1))
+        self.real_conv = Conv2d(cin, cout, kernel, stride=(2, 1))
+        self.imag_conv = Conv2d(cin, cout, kernel, stride=(2, 1))
 
     def forward(self, real: torch.Tensor, imag: torch.Tensor):
         pr, pi = F.pad(real, self.pads), F.pad(imag, self.pads)
@@ -133,8 +135,8 @@ class ComplexConvTranspose2d(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel=(5, 2)):
         super().__init__()
-        self.real_conv = nn.ConvTranspose2d(cin, cout, kernel, stride=(2, 1))
-        self.imag_conv = nn.ConvTranspose2d(cin, cout, kernel, stride=(2, 1))
+        self.real_conv = ConvTranspose2d(cin, cout, kernel, stride=(2, 1))
+        self.imag_conv = ConvTranspose2d(cin, cout, kernel, stride=(2, 1))
 
     def forward(self, real: torch.Tensor, imag: torch.Tensor):
         f_in = real.shape[2]
@@ -152,8 +154,8 @@ class ComplexLSTM(nn.Module):
         self.real_lstm = LSTMLayer(input_size, hidden)
         self.imag_lstm = LSTMLayer(input_size, hidden)
         if projection_dim is not None:
-            self.r_trans = nn.Linear(hidden, projection_dim)
-            self.i_trans = nn.Linear(hidden, projection_dim)
+            self.r_trans = Linear(hidden, projection_dim)
+            self.i_trans = Linear(hidden, projection_dim)
 
     def forward(self, real: torch.Tensor, imag: torch.Tensor):
         out_r = self.real_lstm(real) - self.imag_lstm(imag)

@@ -22,14 +22,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU
+from .layers import Conv1d, Conv2d, ConvTranspose1d, PReLU
 from .zoo_layers import DualRNNBlock, GroupNorm1, overlap_add_sequence, segment_sequence
 
 
 class _Encoder(nn.Module):
     def __init__(self, n: int, k: int):
         super().__init__()
-        self.conv1d = nn.Conv1d(1, n, k, stride=k // 2, bias=False)
+        self.conv1d = Conv1d(1, n, k, stride=k // 2, bias=False)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:  # (B, T) → (B, N, T')
         return torch.relu(self.conv1d(wav[:, None, :]))
@@ -40,14 +40,14 @@ class _Separation(nn.Module):
                  spks: int):
         super().__init__()
         self.norm = GroupNorm1(n)
-        self.conv1d = nn.Conv1d(n, c, 1, bias=False)
+        self.conv1d = Conv1d(n, c, 1, bias=False)
         self.dual_rnn = nn.ModuleList(DualRNNBlock(c, hidden, bidirectional)
                                       for _ in range(layers))
         self.prelu = PReLU()
-        self.conv2d = nn.Conv2d(c, c * spks, 1)
-        self.output = nn.Sequential(nn.Conv1d(c, c, 1), nn.Tanh())
-        self.output_gate = nn.Sequential(nn.Conv1d(c, c, 1), nn.Sigmoid())
-        self.end_conv1x1 = nn.Conv1d(c, n, 1, bias=False)
+        self.conv2d = Conv2d(c, c * spks, 1)
+        self.output = nn.Sequential(Conv1d(c, c, 1), nn.Tanh())
+        self.output_gate = nn.Sequential(Conv1d(c, c, 1), nn.Sigmoid())
+        self.end_conv1x1 = Conv1d(c, n, 1, bias=False)
 
 
 @register_model
@@ -70,8 +70,8 @@ class DPRNNTasNet(BaseModel):
         self.encoder = _Encoder(in_channels, kernel_size)
         self.separation = _Separation(in_channels, out_channels, hidden_channels,
                                       bidirectional, num_layers, num_spks)
-        self.decoder = nn.ConvTranspose1d(in_channels, 1, kernel_size,
-                                          stride=kernel_size // 2, bias=False)
+        self.decoder = ConvTranspose1d(in_channels, 1, kernel_size,
+                                       stride=kernel_size // 2, bias=False)
         self.place(device)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:  # (B, T) → (B, S, T)

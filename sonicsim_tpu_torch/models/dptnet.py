@@ -26,7 +26,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU, get_activation
+from .layers import (Conv1d, Conv2d, ConvTranspose1d, Linear, MultiheadAttention, PReLU,
+                     float32_or_wider, get_activation, promote)
 from .zoo_layers import F32_EPS, LSTMLayer
 
 
@@ -41,9 +42,13 @@ class DPGlobLN(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, dim, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # flax's GroupNorm: statistics in float32, the promoted dtype out.
+        out = promote(x, self.gamma, self.beta)[0].dtype
+        x = x.to(float32_or_wider(out))
         centred = x - x.mean(dim=(1, 2), keepdim=True)
         var = (centred * centred).mean(dim=(1, 2), keepdim=True)
-        return centred * torch.rsqrt(var + F32_EPS) * self.gamma.view(-1) + self.beta.view(-1)
+        y = centred * torch.rsqrt(var + F32_EPS) * self.gamma.view(-1) + self.beta.view(-1)
+        return y.to(out)
 
 
 class ImprovedTransformerLayer(nn.Module):
@@ -53,12 +58,12 @@ class ImprovedTransformerLayer(nn.Module):
                  bidirectional: bool = True, activation: str = "relu"):
         super().__init__()
         self.activation = get_activation(activation)
-        self.self_attn = nn.MultiheadAttention(input_size, att_heads, batch_first=True)
+        self.self_attn = MultiheadAttention(input_size, att_heads, batch_first=True)
         self.norm_attn = DPGlobLN(input_size)
         self.rnn = LSTMLayer(input_size, hidden_size, bidirectional)
         # The reference's Sequential(activation, Dropout, Linear): its linear.
         self.feed_forward = nn.ModuleDict(
-            {"2": nn.Linear(hidden_size * (2 if bidirectional else 1), input_size)})
+            {"2": Linear(hidden_size * (2 if bidirectional else 1), input_size)})
         self.norm_ff = DPGlobLN(input_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +75,7 @@ class ImprovedTransformerLayer(nn.Module):
 class _Encoder(nn.Module):
     def __init__(self, channel: int, kernel_size: int, stride: int):
         super().__init__()
-        self.conv1d = nn.Conv1d(1, channel, kernel_size, stride=stride, bias=False)
+        self.conv1d = Conv1d(1, channel, kernel_size, stride=stride, bias=False)
 
 
 class _Core(nn.Module):
@@ -82,7 +87,7 @@ class _Core(nn.Module):
         self.col_transformer = nn.ModuleList(
             ImprovedTransformerLayer(channel, heads, unit, bidirectional, activation)
             for _ in range(layers))
-        self.output = nn.Sequential(PReLU(), nn.Conv2d(channel, channel * spks, 1))
+        self.output = nn.Sequential(PReLU(), Conv2d(channel, channel * spks, 1))
 
 
 class _Separator(nn.Module):
@@ -90,15 +95,15 @@ class _Separator(nn.Module):
         super().__init__()
         self.enc_LN = DPGlobLN(channel)
         self.dptnet = _Core(channel, heads, unit, bidirectional, activation, layers, spks)
-        self.output = nn.Sequential(nn.Conv1d(channel, channel, 1), nn.Tanh())
-        self.output_gate = nn.Sequential(nn.Conv1d(channel, channel, 1), nn.Sigmoid())
+        self.output = nn.Sequential(Conv1d(channel, channel, 1), nn.Tanh())
+        self.output_gate = nn.Sequential(Conv1d(channel, channel, 1), nn.Sigmoid())
 
 
 class _Decoder(nn.Module):
     def __init__(self, channel: int, kernel_size: int, stride: int):
         super().__init__()
-        self.convtrans1d = nn.ConvTranspose1d(channel, 1, kernel_size, stride=stride,
-                                              bias=False)
+        self.convtrans1d = ConvTranspose1d(channel, 1, kernel_size, stride=stride,
+                                           bias=False)
 
 
 @register_model

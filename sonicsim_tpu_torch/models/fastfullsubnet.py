@@ -28,6 +28,7 @@ from .fullsubnet import (
     offline_laplace_norm,
     stft_features,
 )
+from .layers import promote
 
 ENC_OUT, DEC_FREQS = 64, 257
 
@@ -109,7 +110,7 @@ class FastFullSubnet(BaseModel):
         mag, real, imag = stft_features(wav, self.n_fft, self.hop_length)
         mix_mag = look_ahead_pad(mag, self.look_ahead)
         b, _, t = mix_mag.shape
-        mel_mag = torch.einsum("bft,fm->bmt", mix_mag, self.mel_fb)  # (B, M, T)
+        mel_mag = torch.einsum("bft,fm->bmt", *promote(mix_mag, self.mel_fb))  # (B, M, T)
 
         h = self.encoder[0](offline_laplace_norm(mel_mag).transpose(1, 2))
         enc_out = self.encoder[1](h).transpose(1, 2)  # (B, 64, T)

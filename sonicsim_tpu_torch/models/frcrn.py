@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import Conv2d, ConvTranspose2d, Linear
 from .base import BaseModel, register_model
 from .dccrn import conv_istft, conv_stft
 from .zoo_layers import StatelessBatchNorm
@@ -45,9 +46,9 @@ class UniDeepFsmn(nn.Module):
     def __init__(self, dim: int = WIDTH, lorder: int = 20, hidden_size: int = WIDTH):
         super().__init__()
         self.lorder = lorder
-        self.linear = nn.Linear(dim, hidden_size)
-        self.project = nn.Linear(hidden_size, dim, bias=False)
-        self.conv1 = nn.Conv2d(dim, dim, (lorder, 1), groups=dim, bias=False)
+        self.linear = Linear(dim, hidden_size)
+        self.project = Linear(hidden_size, dim, bias=False)
+        self.conv1 = Conv2d(dim, dim, (lorder, 1), groups=dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p1 = self.project(torch.relu(self.linear(x)))
@@ -115,8 +116,8 @@ class SELayer(nn.Module):
         super().__init__()
 
         def gate():
-            return nn.Sequential(nn.Linear(channel, channel // reduction), nn.ReLU(),
-                                 nn.Linear(channel // reduction, channel), nn.Sigmoid())
+            return nn.Sequential(Linear(channel, channel // reduction), nn.ReLU(),
+                                 Linear(channel // reduction, channel), nn.Sigmoid())
 
         self.fc_r, self.fc_i = gate(), gate()
 
@@ -158,8 +159,8 @@ class ComplexEncoderLayer(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel, torch_compat: bool):
         super().__init__()
-        self.conv = _Pair(nn.Conv2d(cin, cout, kernel, stride=(2, 1)),
-                          nn.Conv2d(cin, cout, kernel, stride=(2, 1)), ("conv_re", "conv_im"))
+        self.conv = _Pair(Conv2d(cin, cout, kernel, stride=(2, 1)),
+                          Conv2d(cin, cout, kernel, stride=(2, 1)), ("conv_re", "conv_im"))
         self.bn = _ComplexBN(cout, torch_compat)
 
     def forward(self, re: torch.Tensor, im: torch.Tensor):
@@ -173,8 +174,8 @@ class ComplexDecoderLayer(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel, torch_compat: bool):
         super().__init__()
-        self.transconv = _Pair(nn.ConvTranspose2d(cin, cout, kernel, stride=(2, 1)),
-                               nn.ConvTranspose2d(cin, cout, kernel, stride=(2, 1)),
+        self.transconv = _Pair(ConvTranspose2d(cin, cout, kernel, stride=(2, 1)),
+                               ConvTranspose2d(cin, cout, kernel, stride=(2, 1)),
                                ("tconv_re", "tconv_im"))
         self.bn = _ComplexBN(cout, torch_compat)
 
@@ -203,7 +204,7 @@ class FRCRNUNet(nn.Module):
                 self.add_module(f"fsmn_dec{i}", ComplexFSMNFreq())
             if i < DEPTH - 2:
                 self.add_module(f"se_layer_dec{i}", SELayer())
-        self.linear = _Pair(nn.Conv2d(1, 1, 1), nn.Conv2d(1, 1, 1), ("conv_re", "conv_im"))
+        self.linear = _Pair(Conv2d(1, 1, 1), Conv2d(1, 1, 1), ("conv_re", "conv_im"))
 
     def forward(self, re: torch.Tensor, im: torch.Tensor):
         skips, x = [], (re, im)

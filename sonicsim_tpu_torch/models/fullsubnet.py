@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import Linear
 from ..ops.stft import hann_window, stft
 from .base import BaseModel, register_model
 from .zoo_layers import LSTMLayer
@@ -46,7 +47,7 @@ class SequenceModel(nn.Module):
                 f"sequence_model {sequence_model!r}: the port has the LSTM (the configs' own)")
         self.sequence_model = LSTMLayer(input_size, hidden_size, num_layers=num_layers)
         if output_size:
-            self.fc_output_layer = nn.Linear(hidden_size, output_size)
+            self.fc_output_layer = Linear(hidden_size, output_size)
         self.act = _ACTIVATIONS[output_activate_function] if output_activate_function else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

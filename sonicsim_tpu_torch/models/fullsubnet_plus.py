@@ -28,7 +28,7 @@ from .fullsubnet import (
     offline_laplace_norm,
     stft_features,
 )
-from .layers import GroupedConv1D, PReLU
+from .layers import Conv1d, GroupedConv1D, Linear, PReLU
 from .zoo_layers import GroupNorm1
 
 DILATIONS = (1, 2, 5, 9, 1, 2, 5, 9)
@@ -39,8 +39,8 @@ class ChannelSELayer(nn.Module):
 
     def __init__(self, num_channels: int, reduction_ratio: int = 2):
         super().__init__()
-        self.fc1 = nn.Linear(num_channels, num_channels // reduction_ratio)
-        self.fc2 = nn.Linear(num_channels // reduction_ratio, num_channels)
+        self.fc1 = Linear(num_channels, num_channels // reduction_ratio)
+        self.fc2 = Linear(num_channels // reduction_ratio, num_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate = torch.sigmoid(self.fc2(torch.relu(self.fc1(x.mean(dim=2)))))
@@ -55,14 +55,14 @@ class TCNBlock(nn.Module):
                  dilation: int = 1):
         super().__init__()
         pad = dilation * (kernel_size - 1) // 2
-        self.conv1x1 = nn.Conv1d(channels, hidden, 1)
+        self.conv1x1 = Conv1d(channels, hidden, 1)
         self.prelu1 = PReLU()
         self.norm1 = GroupNorm1(hidden, eps=1e-8)
         self.depthwise_conv = GroupedConv1D(hidden, hidden, kernel_size, padding=(pad, pad),
                                             dilation=dilation, groups=hidden)
         self.prelu2 = PReLU()
         self.norm2 = GroupNorm1(hidden, eps=1e-8)
-        self.sconv = nn.Conv1d(hidden, channels, 1)
+        self.sconv = Conv1d(hidden, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.norm1(self.prelu1(self.conv1x1(x)))
@@ -77,7 +77,7 @@ class TCNSequence(nn.Module):
     def __init__(self, channels: int, activate="ReLU"):
         super().__init__()
         self.sequence_model = nn.Sequential(*(TCNBlock(channels, dilation=d) for d in DILATIONS))
-        self.fc_output_layer = nn.Linear(channels, channels)
+        self.fc_output_layer = Linear(channels, channels)
         self.activate = activate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

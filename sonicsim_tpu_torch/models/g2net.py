@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .layers import Conv1d, Conv2d, Linear
 from .base import BaseModel, register_model
 from .gagnet import (
     _ACTIVATIONS,
@@ -44,9 +45,9 @@ class Gate2dConv(nn.Module):
     def __init__(self, cin: int, cout: int, kernel, stride=(1, 2)):
         super().__init__()
         kernel, stride = tuple(kernel), tuple(stride)
-        self.conv = nn.Sequential(causal_pad2d(kernel[0]), nn.Conv2d(cin, cout, kernel, stride))
+        self.conv = nn.Sequential(causal_pad2d(kernel[0]), Conv2d(cin, cout, kernel, stride))
         self.gate_conv = nn.Sequential(causal_pad2d(kernel[0]),
-                                       nn.Conv2d(cin, cout, kernel, stride), nn.Sigmoid())
+                                       Conv2d(cin, cout, kernel, stride), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x) * self.gate_conv(x)
@@ -65,13 +66,13 @@ class GatedSqueezedTCM(nn.Module):
                  norm=NormSwitch, branches=("dd_conv_main", "dd_conv_gate")):
         super().__init__()
         self.branches = branches
-        self.in_conv = nn.Conv1d(d_feat, cd1, 1, bias=False)
+        self.in_conv = Conv1d(d_feat, cd1, 1, bias=False)
         for name, tail in zip(branches, ([], [nn.Sigmoid()])):
             setattr(self, name, nn.Sequential(
                 ChannelPReLU(cd1), norm(cd1), causal_pad1d(kd1, dilation, is_causal),
-                nn.Conv1d(cd1, cd1, kd1, dilation=dilation, bias=False), *tail))
+                Conv1d(cd1, cd1, kd1, dilation=dilation, bias=False), *tail))
         self.out_conv = nn.Sequential(ChannelPReLU(cd1), norm(cd1),
-                                      nn.Conv1d(cd1, d_feat, 1, bias=False))
+                                      Conv1d(cd1, d_feat, 1, bias=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.in_conv(x)
@@ -110,10 +111,10 @@ class GlanceBranch(nn.Module):
     def __init__(self, head_feat, d_feat, kd1, cd1, tcn_num, dilas, n_freq, is_causal,
                  acti_type):
         super().__init__()
-        self.in_conv = nn.Conv1d(head_feat + n_freq, d_feat, 1)
+        self.in_conv = Conv1d(head_feat + n_freq, d_feat, 1)
         self.tcn_list = nn.ModuleList(GatedTCNList(kd1, cd1, d_feat, dilas, is_causal)
                                       for _ in range(tcn_num))
-        self.linear_mag = nn.Conv1d(d_feat, n_freq, 1)
+        self.linear_mag = Conv1d(d_feat, n_freq, 1)
         self.act = _ACTIVATIONS[acti_type]()
 
     def forward(self, feat_x: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
@@ -123,19 +124,19 @@ class GlanceBranch(nn.Module):
 
 class GazeBranch(nn.Module):
     """The complex residual (g2net.py:270-333): ``in_conv_r``/``in_conv_i``,
-    ``tcn_r``/``tcn_i``, then ``linear_r``/``linear_i`` (``nn.Linear`` over
+    ``tcn_r``/``tcn_i``, then ``linear_r``/``linear_i`` (``Linear`` over
     the channels) → (B, 2, F, T)."""
 
     def __init__(self, head_feat, d_feat, kd1, cd1, tcn_num, dilas, n_freq, is_causal):
         super().__init__()
-        self.in_conv_r = nn.Conv1d(head_feat + 2 * n_freq, d_feat, 1)
-        self.in_conv_i = nn.Conv1d(head_feat + 2 * n_freq, d_feat, 1)
+        self.in_conv_r = Conv1d(head_feat + 2 * n_freq, d_feat, 1)
+        self.in_conv_i = Conv1d(head_feat + 2 * n_freq, d_feat, 1)
         self.tcn_r = nn.ModuleList(GatedTCNList(kd1, cd1, d_feat, dilas, is_causal)
                                    for _ in range(tcn_num))
         self.tcn_i = nn.ModuleList(GatedTCNList(kd1, cd1, d_feat, dilas, is_causal)
                                    for _ in range(tcn_num))
-        self.linear_r = nn.Linear(d_feat, n_freq)
-        self.linear_i = nn.Linear(d_feat, n_freq)
+        self.linear_r = Linear(d_feat, n_freq)
+        self.linear_i = Linear(d_feat, n_freq)
 
     def forward(self, feat_x: torch.Tensor, com: torch.Tensor) -> torch.Tensor:
         z = torch.cat([feat_x, com], dim=1)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .layers import Conv1d, Conv2d, ConvTranspose2d
 from ..ops.stft import hann_window, stft
 from .base import BaseModel, register_model
 
@@ -122,7 +123,7 @@ class GateConv2d(nn.Module):
     def __init__(self, cin: int, cout: int, kernel, stride=(1, 2)):
         super().__init__()
         kernel = tuple(kernel)
-        self.conv = _padded(nn.Conv2d(cin, 2 * cout, kernel, tuple(stride)), kernel[0])
+        self.conv = _padded(Conv2d(cin, 2 * cout, kernel, tuple(stride)), kernel[0])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out, gate = self.conv(x).chunk(2, dim=1)
@@ -138,7 +139,7 @@ class Conv2dUnit(nn.Module):
         super().__init__()
         kernel = tuple(kernel)
         pad = [causal_pad2d(kernel[0])] if kernel[0] > 1 else []
-        self.conv = nn.Sequential(*pad, nn.Conv2d(dim, dim, kernel, (1, 2)), norm(dim),
+        self.conv = nn.Sequential(*pad, Conv2d(dim, dim, kernel, (1, 2)), norm(dim),
                                   ChannelPReLU(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +155,7 @@ class Deconv2dUnit(nn.Module):
         super().__init__()
         kernel = tuple(kernel)
         chomp = [ChompT(kernel[0] - 1)] if kernel[0] > 1 else []
-        self.deconv = nn.Sequential(nn.ConvTranspose2d(cin, dim, kernel, (1, 2)), *chomp,
+        self.deconv = nn.Sequential(ConvTranspose2d(cin, dim, kernel, (1, 2)), *chomp,
                                     norm(dim), ChannelPReLU(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -232,12 +233,12 @@ class SqueezedTCM(nn.Module):
 
     def __init__(self, kd1: int, cd1: int, d_feat: int, dilation: int, is_causal: bool = True):
         super().__init__()
-        self.in_conv = nn.Conv1d(d_feat, cd1, 1, bias=False)
+        self.in_conv = Conv1d(d_feat, cd1, 1, bias=False)
         self.d_conv = nn.Sequential(ChannelPReLU(cd1), NormSwitch(cd1),
                                     causal_pad1d(kd1, dilation, is_causal),
-                                    nn.Conv1d(cd1, cd1, kd1, dilation=dilation, bias=False))
+                                    Conv1d(cd1, cd1, kd1, dilation=dilation, bias=False))
         self.out_conv = nn.Sequential(ChannelPReLU(cd1), NormSwitch(cd1),
-                                      nn.Conv1d(cd1, d_feat, 1, bias=False))
+                                      Conv1d(cd1, d_feat, 1, bias=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.out_conv(self.d_conv(self.in_conv(x)))
@@ -260,7 +261,7 @@ def _tcn_groups(p: int, *args) -> nn.Sequential:
 
 def _gated_in(ci: int, d_feat: int):
     """``in_conv_main`` and ``in_conv_gate`` (conv, sigmoid)."""
-    return nn.Conv1d(ci, d_feat, 1), nn.Sequential(nn.Conv1d(ci, d_feat, 1), nn.Sigmoid())
+    return Conv1d(ci, d_feat, 1), nn.Sequential(Conv1d(ci, d_feat, 1), nn.Sigmoid())
 
 
 class GlanceBlock(nn.Module):
@@ -270,7 +271,7 @@ class GlanceBlock(nn.Module):
         super().__init__()
         self.in_conv_main, self.in_conv_gate = _gated_in(ci, d_feat)
         self.tcn_g = _tcn_groups(p, kd1, cd1, d_feat, dilas, is_causal)
-        self.linear_g = nn.Sequential(nn.Conv1d(d_feat, n_freq, 1), _ACTIVATIONS[acti_type]())
+        self.linear_g = nn.Sequential(Conv1d(d_feat, n_freq, 1), _ACTIVATIONS[acti_type]())
 
     def forward(self, inpt: torch.Tensor) -> torch.Tensor:
         return self.linear_g(self.tcn_g(self.in_conv_main(inpt) * self.in_conv_gate(inpt)))
@@ -284,8 +285,8 @@ class GazeBlock(nn.Module):
         self.in_conv_main, self.in_conv_gate = _gated_in(ci, d_feat)
         self.tcm_r = _tcn_groups(p, kd1, cd1, d_feat, dilas, is_causal)
         self.tcm_i = _tcn_groups(p, kd1, cd1, d_feat, dilas, is_causal)
-        self.linear_r = nn.Conv1d(d_feat, n_freq, 1)
-        self.linear_i = nn.Conv1d(d_feat, n_freq, 1)
+        self.linear_r = Conv1d(d_feat, n_freq, 1)
+        self.linear_i = Conv1d(d_feat, n_freq, 1)
 
     def forward(self, inpt: torch.Tensor) -> torch.Tensor:
         z = self.in_conv_main(inpt) * self.in_conv_gate(inpt)

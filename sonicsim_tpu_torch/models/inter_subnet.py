@@ -20,7 +20,7 @@ import torch.nn as nn
 
 from .base import BaseModel, register_model
 from .fullsubnet import freq_unfold, look_ahead_pad, offline_laplace_norm, stft_features
-from .layers import PReLU
+from .layers import Linear, PReLU
 from .zoo_layers import GroupNorm1, LSTMLayer
 
 
@@ -30,9 +30,9 @@ class SubbandInteraction(nn.Module):
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
-        self.input_linear = nn.Sequential(nn.Linear(input_size, hidden_size), PReLU())
-        self.mean_linear = nn.Sequential(nn.Linear(hidden_size, hidden_size), PReLU())
-        self.output_linear = nn.Sequential(nn.Linear(2 * hidden_size, input_size), PReLU())
+        self.input_linear = nn.Sequential(Linear(input_size, hidden_size), PReLU())
+        self.mean_linear = nn.Sequential(Linear(hidden_size, hidden_size), PReLU())
+        self.output_linear = nn.Sequential(Linear(2 * hidden_size, input_size), PReLU())
         self.norm = GroupNorm1(input_size, eps=1e-5, channel_last=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +65,7 @@ class _SubbandModel(nn.Module):
         super().__init__()
         self.sequence_list = nn.ModuleList([SILBlock(n_sub, 3 * n_sub, hidden),
                                             SILBlock(hidden, middle, hidden)])
-        self.fc_output_layer = nn.Linear(hidden, 2)
+        self.fc_output_layer = Linear(hidden, 2)
 
 
 @register_model

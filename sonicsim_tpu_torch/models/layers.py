@@ -2,9 +2,22 @@
 
 Port of ``sonicsim_tpu.models.layers`` in the reference's (B, C, T) layout,
 with the reference's parameter names and shapes (ConvTasnet.py:10-87), so a
-reference ``state_dict`` loads as it is. Every layer computes in the dtype
-of its input: a bfloat16 module on a bfloat16 input takes its statistics in
-bfloat16 too, as the JAX package's ``bf16_forward`` does.
+reference ``state_dict`` loads as it is.
+
+Mixed precision follows JAX's type promotion, as the JAX package's
+``bf16_forward`` meets it (``infer.precision``): a layer with weights
+computes in ``torch.promote_types(input, weight)`` (flax's
+``promote_dtype``), casting the weights up, never the input down, so a
+float32 input meeting bfloat16 weights (after an LSTM or an STFT) computes
+in float32 on bfloat16-rounded weights. ``Linear``, ``Conv1d``, ``Conv2d``,
+``ConvTranspose1d``, ``ConvTranspose2d`` and ``PReLU`` are torch's layers
+under that rule, with torch's parameter names. ``LayerNorm`` and
+``GroupNorm`` are flax's built-in norms: statistics in float32 (or the
+input's dtype where that is wider), output in the promoted dtype. The
+hand-written norms (gLN, cLN) compute as the JAX ones do, in the dtype of
+their input: their reductions of bfloat16 accumulate in float32 and round
+to bfloat16, as ``jnp.mean`` does. In float32 every rule here is the
+identity.
 
 ``GroupedConv1D`` is the JAX package's grouped/depthwise conv with its
 padding rules; the JAX module computes the depthwise case as shifted
@@ -19,6 +32,102 @@ from typing import Callable
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def promote(*tensors):
+    """``tensors`` (``None`` passes) cast to the widest of their dtypes by
+    ``torch.promote_types``: flax's ``promote_dtype``."""
+    dtype = None
+    for t in tensors:
+        if t is not None:
+            dtype = t.dtype if dtype is None else torch.promote_types(dtype, t.dtype)
+    return [t if t is None or t.dtype == dtype else t.to(dtype) for t in tensors]
+
+
+def float32_or_wider(dtype: torch.dtype) -> torch.dtype:
+    """The dtype flax's built-in norms take statistics in
+    (``force_float32_reductions``), and a float32 constant table promotes to:
+    float32, or ``dtype`` where that is wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return F.linear(*promote(x, self.weight, self.bias))
+
+
+class Conv1d(nn.Conv1d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return self._conv_forward(*promote(x, self.weight, self.bias))
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return self._conv_forward(*promote(x, self.weight, self.bias))
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """With the constructor's ``output_padding`` (no ``output_size``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.conv_transpose1d(x, w, b, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """With the constructor's ``output_padding`` (no ``output_size``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class MultiheadAttention(nn.MultiheadAttention):
+    """torch's attention (``batch_first``, packed in-projection, no mask)
+    in the dtype of the query promoted with the weights (flax's
+    ``MultiHeadDotProductAttention``)."""
+
+    def forward(self, query, key, value, need_weights: bool = False):  # type: ignore[override]
+        weights = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
+                   self.out_proj.bias)
+        dtype = promote(query, *weights)[0].dtype
+        if all(t is None or t.dtype == dtype for t in (query, key, value) + weights):
+            return super().forward(query, key, value, need_weights=need_weights)
+        q, k, v = (t.to(dtype).transpose(0, 1) for t in (query, key, value))
+        w_in, b_in, w_out, b_out = (None if t is None else t.to(dtype) for t in weights)
+        out, attn = F.multi_head_attention_forward(
+            q, k, v, self.embed_dim, self.num_heads, w_in, b_in, None, None, False, 0.0,
+            w_out, b_out, training=self.training, need_weights=need_weights)
+        return out.transpose(0, 1), attn
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm`` (torch's parameters): statistics in
+    :func:`float32_or_wider`, output in the promoted dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        out = promote(x, self.weight, self.bias)[0].dtype
+        s = float32_or_wider(out)
+        w, b = (None if p is None else p.to(s) for p in (self.weight, self.bias))
+        return F.layer_norm(x.to(s), self.normalized_shape, w, b, self.eps).to(out)
+
+
+def group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float) -> torch.Tensor:
+    """flax's ``nn.GroupNorm`` on (B, C, ...): ``F.group_norm`` with its
+    statistics in :func:`float32_or_wider`, output in the promoted dtype."""
+    out = promote(x, weight, bias)[0].dtype
+    s = float32_or_wider(out)
+    w, b = (None if p is None else p.to(s) for p in (weight, bias))
+    return F.group_norm(x.to(s), groups, w, b, eps).to(out)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm`` (torch's parameters), by :func:`group_norm`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
 
 
 class GlobalLayerNorm(nn.Module):
@@ -64,10 +173,14 @@ def select_norm(norm: str, dim: int) -> nn.Module:
 
 
 class PReLU(nn.PReLU):
-    """torch.nn.PReLU with one shared slope, init 0.25 (parameter ``weight``)."""
+    """torch.nn.PReLU, by default with one shared slope, init 0.25
+    (parameter ``weight``), in the promoted dtype."""
 
-    def __init__(self, init: float = 0.25):
-        super().__init__(num_parameters=1, init=init)
+    def __init__(self, num_parameters: int = 1, init: float = 0.25):
+        super().__init__(num_parameters=num_parameters, init=init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return F.prelu(*promote(x, self.weight))
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -94,7 +207,7 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
         raise ValueError(f"unsupported activation {name!r}") from None
 
 
-class GroupedConv1D(nn.Conv1d):
+class GroupedConv1D(Conv1d):
     """``nn.Conv1d(groups=)`` on (B, C, T) with the JAX ``GroupedConv1D``'s
     padding: an explicit ``(left, right)`` pair, ``"VALID"`` or ``"SAME"``
     (at stride 1, the extra sample on the right)."""

@@ -33,7 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU
+from .layers import Conv1d, ConvTranspose1d, LayerNorm, Linear, PReLU, float32_or_wider
 from .zoo_layers import GroupNorm1, PrefixTable, ignore_on_load
 
 
@@ -73,8 +73,8 @@ class ScaledSinuEmbedding(nn.Module):
 class _DepthwiseConv(nn.Module):
     def __init__(self, dim: int, kernel_size: int):
         super().__init__()
-        self.conv = nn.Conv1d(dim, dim, kernel_size, padding=(kernel_size - 1) // 2,
-                              groups=dim, bias=False)
+        self.conv = Conv1d(dim, dim, kernel_size, padding=(kernel_size - 1) // 2,
+                           groups=dim, bias=False)
 
 
 class ConvModuleRes(nn.Module):
@@ -98,8 +98,8 @@ class FFConvM(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, norm_type: str = "scalenorm",
                  linear_in: int | None = None):
         super().__init__()
-        norm = ScaleNorm(dim_in) if norm_type == "scalenorm" else nn.LayerNorm(dim_in, eps=1e-6)
-        self.mdl = nn.Sequential(norm, nn.Linear(linear_in or dim_in, dim_out), nn.SiLU(),
+        norm = ScaleNorm(dim_in) if norm_type == "scalenorm" else LayerNorm(dim_in, eps=1e-6)
+        self.mdl = nn.Sequential(norm, Linear(linear_in or dim_in, dim_out), nn.SiLU(),
                                  ConvModuleRes(dim_out), nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,8 +112,8 @@ def _rotary(x: torch.Tensor, rot_dim: int) -> torch.Tensor:
     t, half = x.shape[1], rot_dim // 2
     freqs = 1.0 / (10000 ** (np.arange(half) / half))
     angles = torch.from_numpy((np.arange(t)[:, None] * freqs[None, :]).astype(np.float32))
-    # In x's dtype: a float64 step takes its table in float64 on any device.
-    angles = angles.to(x.device, x.dtype)
+    # float32 as in the JAX package, float64 in a float64 step.
+    angles = angles.to(x.device, float32_or_wider(x.dtype))
     cos, sin = torch.cos(angles), torch.sin(angles)
     xr = x[..., :rot_dim]
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
@@ -189,7 +189,7 @@ class _Layers(nn.Module):
 class _Norm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.norm = LayerNorm(dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)
@@ -224,7 +224,7 @@ class _Mdl(nn.Module):
 class _Encoder(nn.Module):
     def __init__(self, n: int, k: int, stride: int):
         super().__init__()
-        self.conv1d = nn.Conv1d(1, n, k, stride=stride, bias=False)
+        self.conv1d = Conv1d(1, n, k, stride=stride, bias=False)
 
 
 class _MaskNet(nn.Module):
@@ -232,14 +232,14 @@ class _MaskNet(nn.Module):
         super().__init__()
         self.spks = spks
         self.norm = GroupNorm1(n)
-        self.conv1d_encoder = nn.Conv1d(n, n, 1, bias=False)
+        self.conv1d_encoder = Conv1d(n, n, 1, bias=False)
         self.pos_enc = ScaledSinuEmbedding(n)
         self.mdl = mdl
         self.prelu = PReLU()
-        self.conv1d_out = nn.Conv1d(n, n * spks, 1)
-        self.output = nn.Sequential(nn.Conv1d(n, n, 1), nn.Tanh())
-        self.output_gate = nn.Sequential(nn.Conv1d(n, n, 1), nn.Sigmoid())
-        self.conv1_decoder = nn.Conv1d(n, n_in, 1, bias=False)
+        self.conv1d_out = Conv1d(n, n * spks, 1)
+        self.output = nn.Sequential(Conv1d(n, n, 1), nn.Tanh())
+        self.output_gate = nn.Sequential(Conv1d(n, n, 1), nn.Sigmoid())
+        self.conv1_decoder = Conv1d(n, n_in, 1, bias=False)
 
     def forward(self, enc: torch.Tensor) -> torch.Tensor:  # (B, N, S) → (B·spks, N_in, S)
         x = self.conv1d_encoder(self.norm(enc)).transpose(1, 2)  # (B, S, N)
@@ -276,8 +276,8 @@ class MossFormer(BaseModel):
                             a["expansion_factor"]) for _ in range(a["num_blocks"])]
         setattr(self, self.ENC, _Encoder(n, k, a["stride"]))
         self.mask_net = _MaskNet(n, a["in_channels"], self.num_spks, self._mdl(flash, n))
-        setattr(self, self.DEC, nn.ConvTranspose1d(a["in_channels"], 1, k, stride=a["stride"],
-                                                   bias=a["bias"]))
+        setattr(self, self.DEC, ConvTranspose1d(a["in_channels"], 1, k, stride=a["stride"],
+                                                bias=a["bias"]))
         self.place(device)
 
     def _mdl(self, flash: list, dim: int) -> _Mdl:

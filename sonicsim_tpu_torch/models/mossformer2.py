@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import register_model
-from .layers import PReLU
+from .layers import Conv1d, Conv2d, LayerNorm, Linear, PReLU
 from .mossformer import FFConvM, MossFormer, _AttMdl, _Mdl
 
 
@@ -37,10 +37,10 @@ class DilatedDenseFSMN(nn.Module):
         super().__init__()
         self.dim, self.lorder, self.depth = dim, lorder, depth
         for i in range(depth):
-            setattr(self, f"conv{i + 1}", nn.Conv2d(dim * (i + 1), dim, (2 * lorder - 1, 1),
-                                                    dilation=(2**i, 1), groups=dim, bias=False))
+            setattr(self, f"conv{i + 1}", Conv2d(dim * (i + 1), dim, (2 * lorder - 1, 1),
+                                                 dilation=(2**i, 1), groups=dim, bias=False))
             setattr(self, f"norm{i + 1}", nn.InstanceNorm1d(dim, eps=1e-5, affine=True))
-            setattr(self, f"prelu{i + 1}", nn.PReLU(dim))
+            setattr(self, f"prelu{i + 1}", PReLU(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip, out = x, x
@@ -60,8 +60,8 @@ class UniDeepFsmnDilated(nn.Module):
 
     def __init__(self, input_dim: int, hidden_size: int, lorder: int = 20, depth: int = 2):
         super().__init__()
-        self.linear = nn.Linear(input_dim, hidden_size)
-        self.project = nn.Linear(hidden_size, input_dim, bias=False)
+        self.linear = Linear(input_dim, hidden_size)
+        self.project = Linear(hidden_size, input_dim, bias=False)
         self.conv = DilatedDenseFSMN(input_dim, lorder, depth)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -85,11 +85,11 @@ class GatedFSMNBlock(nn.Module):
 
     def __init__(self, dim: int, inner: int = 256):
         super().__init__()
-        self.conv1 = nn.Sequential(nn.Conv1d(dim, inner, 1), PReLU())
-        self.norm1 = nn.LayerNorm(inner, eps=1e-5)
+        self.conv1 = nn.Sequential(Conv1d(dim, inner, 1), PReLU())
+        self.norm1 = LayerNorm(inner, eps=1e-5)
         self.gated_fsmn = _GatedFSMN(inner)
-        self.norm2 = nn.LayerNorm(inner, eps=1e-5)
-        self.conv2 = nn.Conv1d(inner, dim, 1)
+        self.norm2 = LayerNorm(inner, eps=1e-5)
+        self.conv2 = Conv1d(inner, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm1(self.conv1(x.transpose(1, 2)).transpose(1, 2))
@@ -127,5 +127,5 @@ class MossFormer2(MossFormer):
 
     def _mdl(self, flash: list, dim: int) -> _Mdl:
         fsmn = [GatedFSMNBlock(dim, self._model_args["fsmn_inner"]) for _ in flash]
-        return _Mdl(_AttMdl(_FlashFSMN(flash, fsmn), nn.LayerNorm(dim, eps=1e-6)), dim,
+        return _Mdl(_AttMdl(_FlashFSMN(flash, fsmn), LayerNorm(dim, eps=1e-6)), dim,
                     ("intra_mdl", "intra_norm"))

@@ -32,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU, get_activation
+from .layers import Conv1d, ConvTranspose1d, Linear, PReLU, get_activation, group_norm, promote
 from .zoo_layers import F32_EPS, LSTMLayer, overlap_add_sequence, segment_sequence
 
 
@@ -49,9 +49,10 @@ class SkiMNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g, b = self.gamma.reshape(-1), self.beta.reshape(-1)
-        if self.causal:
+        if self.causal:  # the JAX cLN, in the promoted dtype
+            x, g, b = promote(x, g, b)
             return F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
-        return F.group_norm(x.movedim(-1, 1), 1, g, b, F32_EPS).movedim(1, -1)
+        return group_norm(x.movedim(-1, 1), 1, g, b, F32_EPS).movedim(1, -1)
 
 
 def _flat_states(s: torch.Tensor) -> torch.Tensor:
@@ -71,12 +72,16 @@ class SegLSTM(nn.Module):
     def __init__(self, input_size: int, hidden_size: int, bidirectional: bool, causal: bool):
         super().__init__()
         self.lstm = LSTMLayer(input_size, hidden_size, bidirectional)
-        self.proj = nn.Linear(hidden_size * (2 if bidirectional else 1), input_size)
+        self.proj = Linear(hidden_size * (2 if bidirectional else 1), input_size)
         self.norm = SkiMNorm(input_size, causal)
 
     def forward(self, x: torch.Tensor, hc=None):
         """(N, K, D) and ``(h, c)`` (or None: zeros) → (N, K, D), final
         ``(h, c)``."""
+        if hc is None:  # zeros in the input's dtype, as the JAX SegLSTM makes them
+            lstm = self.lstm
+            zeros = x.new_zeros(2 if lstm.bidirectional else 1, x.shape[0], lstm.hidden_size)
+            hc = (zeros, zeros)
         out, hc = self.lstm.run(x, hc)
         return x + self.norm(self.proj(out)), hc
 
@@ -87,7 +92,7 @@ class MemNet(nn.Module):
     def __init__(self, width: int, hidden: int, bidirectional: bool):
         super().__init__()
         self.rnn = LSTMLayer(width, hidden, bidirectional)
-        self.proj = nn.Linear(hidden * (2 if bidirectional else 1), width)
+        self.proj = Linear(hidden * (2 if bidirectional else 1), width)
 
 
 class MemLSTM(nn.Module):
@@ -130,7 +135,7 @@ class MemLSTM(nn.Module):
 class _Encoder(nn.Module):
     def __init__(self, dim: int, k: int):
         super().__init__()
-        self.conv1d = nn.Conv1d(1, dim, k, stride=k // 2, bias=False)
+        self.conv1d = Conv1d(1, dim, k, stride=k // 2, bias=False)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:  # (B, n) → (B, T', D)
         return torch.relu(self.conv1d(wav[:, None, :])).transpose(1, 2)
@@ -146,7 +151,7 @@ class _SkiM(nn.Module):
         self.mem_lstms = nn.ModuleList(
             MemLSTM(unit, bidirectional, mem_type, causal)
             for _ in range(layers - 1 if mem_type else 0))
-        self.output_fc = nn.Sequential(PReLU(), nn.Conv1d(dim, dim * spks, 1))
+        self.output_fc = nn.Sequential(PReLU(), Conv1d(dim, dim * spks, 1))
 
 
 class _Separation(nn.Module):
@@ -178,8 +183,8 @@ class SkiMNet(BaseModel):
         self.encoder = _Encoder(input_dim, kernel_size)
         self.separation = _Separation(dim=input_dim, unit=unit, layers=layer, spks=num_spk,
                                       causal=causal, mem_type=mem_type)
-        self.decoder = nn.ConvTranspose1d(input_dim, 1, kernel_size, stride=kernel_size // 2,
-                                          bias=False)
+        self.decoder = ConvTranspose1d(input_dim, 1, kernel_size, stride=kernel_size // 2,
+                                       bias=False)
         self.place(device)
 
     def masks(self, out: torch.Tensor) -> torch.Tensor:

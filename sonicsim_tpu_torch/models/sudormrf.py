@@ -23,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU
+from .layers import Conv1d, ConvTranspose1d, PReLU
 from .zoo_layers import ConvNormAct, DilatedConvNorm, GlobLN, NormAct
 
 
@@ -59,7 +59,7 @@ class UConvBlock(nn.Module):
                             groups=in_channels)
             for k in range(upsampling_depth))
         self.final_norm = NormAct(in_channels)
-        self.res_conv = nn.Conv1d(in_channels, out_channels, 1)
+        self.res_conv = Conv1d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         levels = [self.spp_dw[0](self.proj_1x1(x))]
@@ -71,7 +71,7 @@ class UConvBlock(nn.Module):
         return self.res_conv(self.final_norm(levels[-1])) + x
 
 
-def masked_decode(mask_net: nn.Sequential, decoder: nn.ConvTranspose1d, y: torch.Tensor,
+def masked_decode(mask_net: nn.Sequential, decoder: ConvTranspose1d, y: torch.Tensor,
                   enc: torch.Tensor, num_sources: int) -> torch.Tensor:
     """What SuDORMRF, AFRCNN and TDANet share after the separator: PReLU and
     a 1×1 conv to ``sources × basis`` masks, ReLU, times the encoder output,
@@ -104,15 +104,15 @@ class SuDORMRF(BaseModel):
         k = enc_kernel_size
         self.num_sources, self.sample_rate = num_sources, sample_rate
         self.lcm = enc_lcm(k, upsampling_depth)
-        self.encoder = nn.Conv1d(1, enc_num_basis, k, stride=k // 2, padding=k // 2, bias=False)
+        self.encoder = Conv1d(1, enc_num_basis, k, stride=k // 2, padding=k // 2, bias=False)
         self.ln = GlobLN(enc_num_basis, eps=1e-5)
-        self.bottleneck = nn.Conv1d(enc_num_basis, out_channels, 1)
+        self.bottleneck = Conv1d(enc_num_basis, out_channels, 1)
         self.sm = nn.Sequential(*(UConvBlock(out_channels, in_channels, upsampling_depth)
                                   for _ in range(num_blocks)))
-        self.mask_net = nn.Sequential(PReLU(), nn.Conv1d(out_channels,
+        self.mask_net = nn.Sequential(PReLU(), Conv1d(out_channels,
                                                          num_sources * enc_num_basis, 1))
-        self.decoder = nn.ConvTranspose1d(num_sources * enc_num_basis, num_sources, k,
-                                          stride=k // 2, padding=k // 2,
+        self.decoder = ConvTranspose1d(num_sources * enc_num_basis, num_sources, k,
+                                       stride=k // 2, padding=k // 2,
                                           output_padding=k // 2 - 1, bias=False)
         self.place(device)
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import Conv1d, Conv2d, ConvTranspose2d
 from .base import BaseModel, register_model
 from .g2net import GatedTCNList
 from .gagnet import (
@@ -49,7 +50,7 @@ class GateConvTranspose2d(nn.Module):
     def __init__(self, cin: int, cout: int, kernel, stride=(1, 2)):
         super().__init__()
         kernel = tuple(kernel)
-        conv = nn.ConvTranspose2d(cin, 2 * cout, kernel, tuple(stride))
+        conv = ConvTranspose2d(cin, 2 * cout, kernel, tuple(stride))
         self.conv = nn.Sequential(conv, ChompT(kernel[0] - 1)) if kernel[0] > 1 else conv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +77,7 @@ class U2NetDecoder(nn.Module):
             up(64 * 2 if i == 0 else 2 * c, c, k1, k2, scale, intra_connect)
             for i, scale in enumerate((1, 2, 3, 4)))
         self.last_conv = nn.Sequential(GateConvTranspose2d(2 * c, 16, (1, 5)), NORM(16),
-                                       ChannelPReLU(16), nn.Conv2d(16, 1, 1), nn.Sigmoid())
+                                       ChannelPReLU(16), Conv2d(16, 1, 1), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor, skips: list) -> torch.Tensor:
         # skips = [stage 0 … stage 3, bottom]: the first join pairs the
@@ -115,11 +116,11 @@ class HighOrderBlock(nn.Module):
 
     def __init__(self, kd1, cd1, d_feat, dilations, p, n_freq, is_causal):
         super().__init__()
-        self.in_conv = nn.Conv1d(d_feat + 2 * n_freq, d_feat, 1)
+        self.in_conv = Conv1d(d_feat + 2 * n_freq, d_feat, 1)
         self.tcms = nn.ModuleList(GatedTCNList(kd1, cd1, d_feat, dilations, is_causal, **TCM)
                                   for _ in range(p))
-        self.real_resi = nn.Conv1d(d_feat, n_freq, 1)
-        self.imag_resi = nn.Conv1d(d_feat, n_freq, 1)
+        self.real_resi = Conv1d(d_feat, n_freq, 1)
+        self.imag_resi = Conv1d(d_feat, n_freq, 1)
 
     def forward(self, feat: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
         b, _, t, f = pre.shape

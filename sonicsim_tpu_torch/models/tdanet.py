@@ -41,7 +41,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import PReLU
+from .layers import (Conv1d, ConvTranspose1d, LayerNorm, MultiheadAttention, PReLU,
+                     float32_or_wider, promote)
 from .sudormrf import fit_length, masked_decode, nearest_resize
 from .zoo_layers import ConvNorm, ConvNormAct, DilatedConvNorm, GlobLN, PrefixTable, ignore_on_load
 
@@ -75,17 +76,17 @@ class _PositionalAttention(nn.Module):
     def __init__(self, dim: int, torch_compat: bool):
         super().__init__()
         self.dim, self.torch_compat = dim, torch_compat
-        self.attn_in_norm = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = nn.MultiheadAttention(dim, N_HEAD, batch_first=True)
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.attn_in_norm = LayerNorm(dim, eps=1e-5)
+        self.attn = MultiheadAttention(dim, N_HEAD, batch_first=True)
+        self.norm = LayerNorm(dim, eps=1e-5)
         self._table = PrefixTable(lambda t: positional_table(t, dim))
         ignore_on_load(self, "pe")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, C)
-        h = self.attn_in_norm(x) + self._table(x.shape[1], x.device).to(x.dtype)
+        h = self.attn_in_norm(x) + self._table(x.shape[1], x.device).to(float32_or_wider(x.dtype))
         c = self.dim
         if self.torch_compat:
-            a = F.linear(h, self.attn.in_proj_weight[2 * c:], self.attn.in_proj_bias[2 * c:])
+            a = F.linear(*promote(h, self.attn.in_proj_weight[2 * c:], self.attn.in_proj_bias[2 * c:]))
             a = self.attn.out_proj(a)
         else:
             a = self.attn(h, h, h, need_weights=False)[0]
@@ -96,7 +97,7 @@ class _Mlp(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.fc1 = ConvNorm(dim, 2 * dim, 1, bias=False)
-        self.dwconv = nn.Conv1d(2 * dim, 2 * dim, 5, padding=2, groups=2 * dim)
+        self.dwconv = Conv1d(2 * dim, 2 * dim, 5, padding=2, groups=2 * dim)
         self.fc2 = ConvNorm(2 * dim, dim, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -151,7 +152,7 @@ class TDAUConvBlock(nn.Module):
         self.spp_dw = nn.ModuleList(
             DilatedConvNorm(c, c, 5, stride=1 if k == 0 else 2, groups=c) for k in range(d))
         self.loc_glo_fus = nn.ModuleList(Injection(c, 1) for _ in range(d))
-        self.res_conv = nn.Conv1d(c, out_channels, 1)
+        self.res_conv = Conv1d(c, out_channels, 1)
         self.globalatt = GlobalAttention(c, torch_compat)
         self.last_layer = nn.ModuleList(Injection(c, 5, with_sum=True) for _ in range(d - 1))
 
@@ -177,7 +178,7 @@ class _Recurrent(nn.Module):
         self.num_blocks = num_blocks
         self.unet = TDAUConvBlock(out_channels, in_channels, upsampling_depth, torch_compat)
         self.concat_block = nn.Sequential(
-            nn.Conv1d(out_channels, out_channels, 1, groups=out_channels), PReLU())
+            Conv1d(out_channels, out_channels, 1, groups=out_channels), PReLU())
 
     def forward(self, y0: torch.Tensor) -> torch.Tensor:
         y = self.unet(y0)
@@ -202,14 +203,14 @@ class TDANet(BaseModel):
         k = enc_kernel_size * sample_rate // 1000
         self.k, self.stride, basis = k, k // 4, k // 2 + 1
         self.num_sources, self.sample_rate = num_sources, sample_rate
-        self.encoder = nn.Conv1d(1, basis, k, stride=k // 4, padding=k // 2, bias=False)
+        self.encoder = Conv1d(1, basis, k, stride=k // 4, padding=k // 2, bias=False)
         self.ln = GlobLN(basis, eps=1e-5)
-        self.bottleneck = nn.Conv1d(basis, out_channels, 1)
+        self.bottleneck = Conv1d(basis, out_channels, 1)
         self.sm = _Recurrent(out_channels, in_channels, upsampling_depth, num_blocks,
                              torch_compat)
-        self.mask_net = nn.Sequential(PReLU(), nn.Conv1d(out_channels, num_sources * basis, 1))
-        self.decoder = nn.ConvTranspose1d(num_sources * basis, num_sources, k, stride=k // 4,
-                                          padding=k // 2, bias=False)
+        self.mask_net = nn.Sequential(PReLU(), Conv1d(out_channels, num_sources * basis, 1))
+        self.decoder = ConvTranspose1d(num_sources * basis, num_sources, k, stride=k // 4,
+                                       padding=k // 2, bias=False)
         self.place(device)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:  # (B, T) → (B, S, T)

@@ -28,13 +28,14 @@ import torch.nn.functional as F
 
 from ..ops.stft import hann_window, istft, stft
 from .base import BaseModel, register_model
-from .layers import PReLU
+from .layers import (Conv2d, ConvTranspose1d, ConvTranspose2d, GroupNorm, LayerNorm, Linear, PReLU,
+                     promote)
 from .zoo_layers import LSTMLayer
 
 
-def _conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def _conv1x1(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A 1×1 ``Conv2d`` on channel-last x."""
-    return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
+    return F.linear(*promote(x, conv.weight[:, :, 0, 0], conv.bias))
 
 
 class AllHeadPReLULN(nn.Module):
@@ -47,7 +48,7 @@ class AllHeadPReLULN(nn.Module):
         self.n_head, self.e_dim, self.eps = n_head, e_dim, eps
         self.gamma = nn.Parameter(torch.ones(1, n_head, e_dim, 1, n_freqs))
         self.beta = nn.Parameter(torch.zeros(1, n_head, e_dim, 1, n_freqs))
-        self.act = nn.PReLU(num_parameters=n_head, init=0.25)
+        self.act = PReLU(num_parameters=n_head, init=0.25)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, f, _ = x.shape
@@ -93,20 +94,20 @@ class GridNetV2Block(nn.Module):
         self.ks, self.hs, self.n_head = ks, hs, n_head
         self.e_dim = math.ceil(approx_qk_dim / n_freqs)
         self.v_dim = emb_dim // n_head
-        self.intra_norm = nn.LayerNorm(c, eps=eps)
+        self.intra_norm = LayerNorm(c, eps=eps)
         self.intra_rnn = LSTMLayer(c * ks, hidden, bidirectional=True)
-        self.inter_norm = nn.LayerNorm(c, eps=eps)
+        self.inter_norm = LayerNorm(c, eps=eps)
         self.inter_rnn = LSTMLayer(c * ks, hidden, bidirectional=True)
         if ks == hs:
-            self.intra_linear = nn.Linear(hidden * 2, c * ks)
-            self.inter_linear = nn.Linear(hidden * 2, c * ks)
+            self.intra_linear = Linear(hidden * 2, c * ks)
+            self.inter_linear = Linear(hidden * 2, c * ks)
         else:
-            self.intra_linear = nn.ConvTranspose1d(hidden * 2, c, ks, stride=hs)
-            self.inter_linear = nn.ConvTranspose1d(hidden * 2, c, ks, stride=hs)
+            self.intra_linear = ConvTranspose1d(hidden * 2, c, ks, stride=hs)
+            self.inter_linear = ConvTranspose1d(hidden * 2, c, ks, stride=hs)
         for name, width in (("Q", self.e_dim), ("K", self.e_dim), ("V", self.v_dim)):
-            setattr(self, f"attn_conv_{name}", nn.Conv2d(c, n_head * width, 1))
+            setattr(self, f"attn_conv_{name}", Conv2d(c, n_head * width, 1))
             setattr(self, f"attn_norm_{name}", AllHeadPReLULN(n_head, width, n_freqs, eps))
-        self.attn_concat_proj = nn.Sequential(nn.Conv2d(c, c, 1), PReLU(),
+        self.attn_concat_proj = nn.Sequential(Conv2d(c, c, 1), PReLU(),
                                               LayerNorm4DCF(c, n_freqs, eps))
 
     def _sub_band(self, norm, rnn, linear, x: torch.Tensor) -> torch.Tensor:
@@ -170,12 +171,12 @@ class TFGridNet(BaseModel):
         self.n_srcs, self.n_fft, self.stride = n_srcs, n_fft, stride
         self.sample_rate = sample_rate
         n_freqs = n_fft // 2 + 1
-        self.conv = nn.Sequential(nn.Conv2d(2, emb_dim, 3, padding=1),
-                                  nn.GroupNorm(1, emb_dim, eps=eps))
+        self.conv = nn.Sequential(Conv2d(2, emb_dim, 3, padding=1),
+                                  GroupNorm(1, emb_dim, eps=eps))
         self.blocks = nn.ModuleList(
             GridNetV2Block(emb_dim, emb_ks, emb_hs, n_freqs, lstm_hidden_units, attn_n_head,
                            attn_approx_qk_dim, eps) for _ in range(n_layers))
-        self.deconv = nn.ConvTranspose2d(emb_dim, n_srcs * 2, 3, padding=1)
+        self.deconv = ConvTranspose2d(emb_dim, n_srcs * 2, 3, padding=1)
         self.place(device)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:  # (B, T) → (B, S, T)

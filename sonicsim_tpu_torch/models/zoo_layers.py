@@ -4,13 +4,21 @@ Port of ``sonicsim_tpu.models.zoo_layers`` (reference
 separation/look2hear/models/{sudormrf,afrcnn,TDANet}.py GlobLN /
 ConvNormAct / DilatedConvNorm, dprnn.py:70-165 dual-path chunking and RNN
 blocks, bsrnn.py:6-48 ResRNN), under the reference's parameter names so a
-reference ``state_dict`` loads as it is. Convolutions are ``nn.Conv1d``
+reference ``state_dict`` loads as it is. Convolutions are ``Conv1d``
 (``groups=`` for the grouped and depthwise ones) on (B, C, T); the
 recurrent blocks work on channel-last (B, T, C), as ``nn.LSTM`` reads it.
 
 LSTMs. ``LSTMLayer`` is ``nn.LSTM(batch_first=True)`` returning the
 output sequence alone; a bidirectional one concatenates [forward,
-backward] along the channels, as flax's ``nn.Bidirectional`` does. The JAX
+backward] along the channels, as flax's ``nn.Bidirectional`` does. Its
+dtypes are flax's: the cell makes its zero carry in float32 (its
+``param_dtype``), so on bfloat16 weights and a bfloat16 input it returns
+float32, and the model runs in float32 after it; an initial state passed
+in sets the carry's dtype. The recurrence runs in float32 (or wider) on
+the weights cast up, and only its output and final state take the
+promoted dtype: cuDNN's bfloat16 RNN is not the JAX cell's function. flax
+computes the input projection of a bfloat16 input in bfloat16; the port
+computes it inside the float32 recurrence and does not round it. The JAX
 package's ``OptimizedLSTMCell`` keeps per-gate denses (gates i, f, g, o)
 and one bias per gate, equal to torch's ``bias_ih + bias_hh``; ``bridge``
 carries that bias into ``bias_ih`` and zeros into ``bias_hh``, so weights
@@ -30,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import PReLU
+from .layers import Conv1d, Linear, PReLU, group_norm, float32_or_wider
 
 F32_EPS = 1.1920929e-7  # torch.finfo(torch.float32).eps: GroupNorm1's epsilon
 
@@ -99,7 +107,7 @@ class GroupNorm1(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.channel_last:
             x = x.movedim(-1, 1)
-        y = F.group_norm(x, 1, self.weight, self.bias, self.eps)
+        y = group_norm(x, 1, self.weight, self.bias, self.eps)
         return y.movedim(1, -1) if self.channel_last else y
 
 
@@ -129,11 +137,11 @@ class StatelessBatchNorm(nn.Module):
 
 
 def _conv(nin: int, nout: int, k: int, stride: int, dilation: int, groups: int,
-          bias: bool) -> nn.Conv1d:
+          bias: bool) -> Conv1d:
     """The zoo's conv: the symmetric torch pad ``dilation·(k − 1)//2``
     (sudormrf.py:62, :129)."""
-    return nn.Conv1d(nin, nout, k, stride=stride, padding=dilation * ((k - 1) // 2),
-                     dilation=dilation, groups=groups, bias=bias)
+    return Conv1d(nin, nout, k, stride=stride, padding=dilation * ((k - 1) // 2),
+                  dilation=dilation, groups=groups, bias=bias)
 
 
 class ConvNormAct(nn.Module):
@@ -210,12 +218,29 @@ class LSTMLayer(nn.LSTM):
                 p.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
-        return super().forward(x)[0]
+        return self.run(x)[0]
 
     def run(self, x: torch.Tensor, hx=None):
         """``nn.LSTM``'s own call: ``(output, (h_n, c_n))`` from the initial
-        state ``hx = (h_0, c_0)``, each (directions, B, H), or zeros."""
-        return super().forward(x, hx)
+        state ``hx = (h_0, c_0)``, each (directions, B, H), or zeros, in
+        the dtypes of the module's docstring."""
+        # By name: ``torch.func.functional_call`` swaps the attributes, not
+        # ``_flat_weights``.
+        weights = [getattr(self, n) for n in self._flat_weights_names]
+        out = torch.promote_types(x.dtype, weights[0].dtype)
+        out = torch.promote_types(out, torch.float32 if hx is None else hx[0].dtype)
+        run = float32_or_wider(out)
+        if x.dtype == weights[0].dtype == run and (hx is None or hx[0].dtype == run):
+            return super().forward(x, hx)
+        if hx is None:
+            zeros = x.new_zeros(self.num_layers * (2 if self.bidirectional else 1), x.shape[0],
+                                self.hidden_size, dtype=run)
+            hx = (zeros, zeros)
+        y, h, c = torch._VF.lstm(x.to(run), tuple(s.to(run) for s in hx),
+                                 [w.to(run) for w in weights], self.bias, self.num_layers,
+                                 float(self.dropout), self.training, self.bidirectional,
+                                 self.batch_first)
+        return y.to(out), (h.to(out), c.to(out))
 
 
 class ResRNN(nn.Module):
@@ -226,7 +251,7 @@ class ResRNN(nn.Module):
         super().__init__()
         self.norm = GroupNorm1(input_size, channel_last=True)
         self.rnn = LSTMLayer(input_size, hidden_size, bidirectional)
-        self.proj = nn.Linear(hidden_size * (2 if bidirectional else 1), input_size)
+        self.proj = Linear(hidden_size * (2 if bidirectional else 1), input_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.proj(self.rnn(self.norm(x)))
@@ -268,10 +293,10 @@ class DualRNNBlock(nn.Module):
         super().__init__()
         width = hidden_channels * (2 if bidirectional else 1)
         self.intra_rnn = LSTMLayer(out_channels, hidden_channels, bidirectional)
-        self.intra_linear = nn.Linear(width, out_channels)
+        self.intra_linear = Linear(width, out_channels)
         self.intra_norm = GroupNorm1(out_channels, channel_last=True)
         self.inter_rnn = LSTMLayer(out_channels, hidden_channels, bidirectional)
-        self.inter_linear = nn.Linear(width, out_channels)
+        self.inter_linear = Linear(width, out_channels)
         self.inter_norm = GroupNorm1(out_channels, channel_last=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,16 @@ by term, not PyTorch's nearest calls:
   eps=1e-8)``. The JAX factory turns ``adam`` with a weight decay into
   optax ``adamw`` (decoupled decay), which is ``torch.optim.AdamW``;
   ``Adam(weight_decay=)`` would be L2 regularisation instead.
-* **bf16** casts every floating parameter inside the step (a
-  differentiable ``.to``) and runs the model through
-  ``torch.func.functional_call`` on a bf16 input; the estimates come back to
-  float32 before the loss. Gradients reach the float32 master weights
-  through the cast, and Adam's state stays float32. ``torch.autocast`` is
-  not that function: it keeps norms and reductions in float32.
+* **bf16** casts the state the bridge maps inside the step
+  (``infer.precision.cast_state``, a differentiable ``.to``, the cast
+  ``bf16_forward`` takes) and runs the model through
+  ``torch.func.functional_call`` on a bf16 input; the estimates reach the
+  loss as the JAX step's ``jnp.asarray(ests, jnp.float32)`` makes them: one
+  float32 tensor, a list or tuple of same-shape outputs stacked on a new
+  first axis (the GaGNet family's stage spectra). Where that call raises in
+  the JAX package (outputs of mixed shapes), the port refuses bf16 training
+  by name (``precision.BF16_TRAIN_REFUSED``). Gradients reach the float32
+  master weights through the cast, and Adam's state stays float32.
 
 The model is an ``nn.Module``, and ``Trainer.fit`` trains the weights it
 holds on the device they are on, so both packages can start from the same
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..infer.precision import require_bf16
+from ..infer.precision import bf16_call, cast_state, require_bf16
 from ..models.base import BaseModel, save_model
 from .schedulers import EarlyStopping, ReduceLROnPlateau
 
@@ -111,16 +115,13 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: torch.optim.
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unsupported precision {precision!r}")
     if precision == "bf16":
-        require_bf16(model)
+        require_bf16(model, train=True)
     params = list(model.parameters())
 
     def forward(mix: torch.Tensor) -> torch.Tensor:
         if precision == "f32":
             return model(mix)
-        cast = {name: p.to(torch.bfloat16) if p.is_floating_point() else p
-                for name, p in model.named_parameters()}
-        ests = torch.func.functional_call(model, cast, (mix.to(torch.bfloat16),))
-        return ests.to(torch.float32)
+        return stack_float32(bf16_call(model, cast_state(model), mix))
 
     def step(mix: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -132,6 +133,14 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: torch.optim.
         return loss.detach()
 
     return step
+
+
+def stack_float32(ests) -> torch.Tensor:
+    """``jnp.asarray(ests, jnp.float32)``: a tensor as float32, a list or
+    tuple of same-shape tensors stacked on a new first axis."""
+    if isinstance(ests, (tuple, list)):
+        return torch.stack([stack_float32(e) for e in ests])
+    return ests.to(torch.float32)
 
 
 def make_eval_step(model: nn.Module, metric_fn: Callable) -> Callable:

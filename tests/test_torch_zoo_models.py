@@ -2,7 +2,8 @@
 weights carried across by the bridge: each model's forward at small width
 (TDANet in both modes), every separation config's model built through the
 port's config resolution, the inference CLI on a zoo pack without jax, and
-bf16 refused for the zoo.
+bf16 refused for TDANet, whose JAX bf16 raises (tests/test_torch_bf16_sep.py
+holds the zoo's bf16).
 
 Tolerance: max abs diff ≤ 1e-5 · max|ref| at these widths, as for
 ConvTasNet (float32 convolutions, LSTMs and attention summed in another
@@ -136,13 +137,15 @@ def test_inference_cli_runs_a_zoo_pack_without_jax(tmp_path):
 
 
 def test_bf16_is_refused_for_the_zoo():
+    """Of the zoo, TDANet (and MossFormer2) refuse bf16, naming the JAX
+    package's line that raises."""
     from sonicsim_tpu_torch.infer import bf16_forward
     from sonicsim_tpu_torch.train import make_optimizer, make_train_step
 
-    model = TM.DPRNNTasNet(**SMALL["DPRNNTasNet"], device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    model = TM.TDANet(**SMALL["TDANet"], device="cpu")
+    with pytest.raises(NotImplementedError, match="TDANet.*sonicsim_tpu/models/layers.py:156"):
         bf16_forward(model)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(NotImplementedError, match="TDANet.*sonicsim_tpu/models/layers.py:156"):
         make_train_step(model, None, make_optimizer(model.parameters()), precision="bf16")
 
 
