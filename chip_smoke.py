@@ -143,7 +143,25 @@ Phases, one line each:
     defaults on the 60 s mixture (frame probabilities within 1e-4, spans
     the CPU's but at frames that near the threshold) and ``test --vad_ckpt
     --whisper --limit 1`` over phase 8's split, its ``asr`` column's host
-    seconds beside PESQ's and STOI's. It launches neither kernel.
+    seconds beside PESQ's and STOI's. It launches neither kernel;
+18. the model variants no config takes, each at its config's full width
+    with the flag flipped: DCCRN(use_clstm=False), Fullband, FullSubnet,
+    FastFullSubnet and FullSubNet+ with sequence_model="GRU", and
+    GaGNet(is_u2=False), seeded weights through the bridge and a pack:
+    phase 13's forward checks on a 2 s crop and its B=1 x 10 s timing, bf16
+    where ``require_bf16`` allows the variant (else its refusal), the
+    config's train step at B=2 x 4 s and one step held to the CPU by
+    ``enh_step_check`` (phase 14's rule). It launches neither kernel;
+19. (a) every name of the optimizer zoo (``make_optimizer``, optax's 14)
+    over DPTNet's full-width parameters at 2 of its 6 layers: three steps of seeded float64
+    gradients, the card in float64 within 1e-9 · max|Δp64| of the CPU, in
+    float32 by phase 10's rule, each step's time; (b) a two-epoch
+    ``Trainer.fit`` of enhancement SuDORMRF with lamb on
+    ``RemixTrainDataset`` items from phase 8's split, its stages timed by
+    ``StageTimer``; neither launches a kernel. (c) phase 6's banks as a
+    reference ``rir_save_*.pt`` through ``scripts.import_rir_banks`` and
+    ``BankRirOracle`` into phase 7's mixture step, bit-equal to phase 7's
+    (phase 7's path: both kernels launch).
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -419,6 +437,52 @@ SIDECAR_MODELS = dict(
     pyannet=dict(n_classes=1, lstm_hidden=128, lstm_layers=2, ff_layers=2),
     embed_s=10.0, reps=3, segment_s=10.0)
 SIDECAR_REL = 1e-4  # the card vs the port on the CPU, of max|ref| (TF32 off)
+# Phase 18: the model variants no config takes, each at its config's full
+# width with the flag flipped (ENH_MODELS): the fp32 forward against the
+# CPU on a 2 s crop of phase 8's first mixture, the B=1 x 10 s forward, bf16
+# where ``require_bf16`` allows the variant, the config's train step at
+# B=2 x 4 s and one step held by ``enh_step_check`` on B=2 x 0.5 s (phase
+# 14's window; the enhancement models have no SEP_CHECK_DEPTH, so full depth
+# as in phase 14).
+_GRU = dict(sequence_model="GRU")
+VARIANT_FLAGS = {  # variant: (config stem, the flag)
+    "dccrn-lstm": ("dccrn", dict(use_clstm=False)),
+    "fullband-gru": ("fullband", _GRU),
+    "fullsubnet-gru": ("fullsubnet", _GRU),
+    "fastfullsubnet-gru": ("fastfullsubnet", _GRU),
+    "fullsubnet_plus-gru": ("fullsubnet_plus", _GRU),
+    # 161 bins → 79, 39, 19, 9, 4 through the five stride-2 gates: 64 · 4 =
+    # 256, gagnet.yaml's d_feat.
+    "gagnet-unet": ("gagnet", dict(is_u2=False)),
+}
+VARIANTS = dict(models=ENH_MODELS, flags=VARIANT_FLAGS, losses=ENH_LOSSES, seed=0, crop_s=2.0,
+                window_s=10.0, reps=3, warmup=1, schedule_s=0.25, lr=1e-3, clip=5.0, batch=2,
+                train_s=4.0, check_batch=2, check_s=0.5, bf16_steps=3)
+# Phase 19: (a) the optimizer zoo: each of the 14 names over DPTNet's
+# full-width parameters at 2 of its 6 layers (convolutions, LSTMs with a
+# frozen bias_hh, MHA split into query, key and value leaves; the depth cut
+# for the call's time), three steps of seeded float64
+# gradients (the second ten times the others, the clip set to fire on it),
+# the LR changed after the first (``set_learning_rate``), weight decay 0.1;
+# the card in float64 within OPT_F64_REL · max|Δp64| of the CPU in float64,
+# in float32 within max(OPT_F32_REL, 2 x the CPU's float32 distance from
+# float64) · max|Δp64|; each optimizer's step time at that width. (b) a
+# two-epoch ``Trainer.fit`` of enhancement SuDORMRF with lamb on
+# ``RemixTrainDataset`` items built from phase 8's split, its stages timed
+# by ``StageTimer``. (c) phase 6's banks written as a reference-style
+# rir_save_*.pt, converted by ``scripts.import_rir_banks``, read back by
+# ``BankRirOracle`` and through phase 7's mixture step on the card: equal to
+# phase 7's from the same banks.
+OPTIM_NAMES = ("adam", "adamw", "sgd", "rmsprop", "adagrad", "adadelta", "lamb", "lars", "radam",
+               "adafactor", "novograd", "yogi", "adabelief", "lion")
+ADAPTERS = dict(optim_model="DPTNetModel", models=dict(
+                    ZOO_MODELS, DPTNetModel=dict(ZOO_MODELS["DPTNetModel"], layer=2)),
+                seed=0, lr=1e-3, lr2=4e-4,
+                weight_decay=0.1, reps=5, warmup=2, fit_model="sudormrf", enh_models=ENH_MODELS,
+                losses=ENH_LOSSES, fit_optimizer="lamb", fit_samples=4, batch=2, remix_s=2.0,
+                fit_epochs=2)
+OPT_F64_REL = 1e-9  # of max|Δp64|: F64_REL, the step checks' float64 rule
+OPT_F32_REL = 1e-5  # of max|Δp64|: TRAIN_LOSS_REL's floor for the float32 rule
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -1227,9 +1291,9 @@ def bank_mixture_plans(ways, t: int):
     return weights, offs, lens
 
 
-def phase_bank_mixture(device, banks, ways, static, cfg):
-    """Phase 6's banks as the moving banks of the mixture step, and its static
-    bank as the static RIRs, without leaving the device."""
+def bank_mixture_step(device, banks, ways, static, cfg):
+    """Phase 7's mixture step over ``banks`` (moving) and ``static``:
+    ``step(weights_form)`` and the padded banks' shape."""
     import torch
 
     from sonicsim_tpu_torch.parallel import pad_moving_plans, render_mixture_sources
@@ -1252,15 +1316,23 @@ def phase_bank_mixture(device, banks, ways, static, cfg):
             max_seg, static_audio, static[:, 0], cfg["speech_lufs"],
             cfg["static_lufs"], SR)
 
+    return step, tuple(banks_p.shape)
+
+
+def phase_bank_mixture(device, banks, ways, static, cfg):
+    """Phase 6's banks as the moving banks of the mixture step, and its static
+    bank as the static RIRs, without leaving the device."""
+    step, padded = bank_mixture_step(device, banks, ways, static, cfg)
     targets = list(cfg["speech_lufs"]) + list(cfg["static_lufs"])
     secs, lu, diff = _mixture_forms(device, step, targets, cfg["iters"])
-    print(f"bank->mixture: {len(banks)} moving banks {tuple(banks_p.shape)} + "
+    print(f"bank->mixture: {len(banks)} moving banks {padded} + "
           f"static {tuple(static[:, 0].shape)}, {cfg['duration']:.0f} s: fused "
           f"{secs['fused']:.4f} s/mixture, weights= {secs['weights']:.4f} "
           f"s/mixture; LUFS fused {[round(v, 4) for v in lu['fused']]} "
           f"weights= {[round(v, 4) for v in lu['weights']]} (targets "
           f"{targets}, tol {LUFS_TOL} LU); forms max abs diff {diff:.3g}",
           flush=True)
+
 
 def generation_corpus(root: Path, cfg):
     """Phase 8's corpus: PCM16 WAVs at 16 kHz from ``default_rng(cfg["seed"])``,
@@ -3667,11 +3739,297 @@ def phase_sidecar_models(device, cfg, folders, root: Path, pack: Path, smi) -> d
     return stats
 
 
+def phase_variants(device, cfg, folders, root: Path, smi) -> dict:
+    """Phase 18: each model variant no config takes (``cfg["flags"]``) at its
+    config's full width with seeded weights through the bridge and a pack on
+    the card: the fp32 forward and ``to_waveform`` against the port on the
+    CPU on a crop of phase 8's first mixture, the 10 s forward's time and
+    peak extra memory, bf16 where ``require_bf16`` allows the variant (else
+    its refusal), the config's train step at B=2 x 4 s (fp32 and, where
+    allowed, bf16) and one step held to the CPU by ``enh_step_check``.
+    Returns each variant's numbers."""
+    import torch
+
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.infer.precision import variant_name
+    from sonicsim_tpu_torch.models import from_pretrain, get, save_model
+    from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+
+    strict_float32()
+    root.mkdir()
+    mono = _mono_mixes(folders[:1])[0]
+    x10 = torch.from_numpy(mono[None, :int(cfg["window_s"] * SR)].copy()).to(device)
+    crop = torch.from_numpy(mono[None, :int(cfg["crop_s"] * SR)].copy())
+    split = folders[0].parent.parent
+    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                          num_spks=1, duration=cfg["train_s"], num_samples=cfg["batch"],
+                          batch_size=cfg["batch"], seed=cfg["seed"])
+    mix, tgt = next(iter(dm.train_batches(0)))
+    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
+    xc, yc = _loudest_window(mix, tgt, cfg["check_batch"], int(cfg["check_s"] * SR))
+    audio_s = cfg["batch"] * cfg["train_s"]
+    stats = {}
+    for stem, (config, flag) in cfg["flags"].items():
+        name, base = cfg["models"][config]
+        args = dict(base, **flag)
+        t0 = time.perf_counter()
+        cpu = seeded_zoo(name, args, cfg["seed"])
+        label = variant_name(cpu)
+        pack = root / f"{stem}.pkl"
+        save_model(cpu, pack)
+        model = from_pretrain(pack, device=device)
+        check(variant_name(model) == label and label != name,
+              f"{stem}: from_pretrain built {variant_name(model)}, not the variant {label}")
+        build_s = time.perf_counter() - t0
+        fwd = make_forward(model)
+        t0 = time.perf_counter()
+        ref = make_forward(cpu)(crop)
+        cpu_s = time.perf_counter() - t0
+        got = fwd(crop.to(device)).cpu()
+        err, peak = float((got - ref).abs().max()), float(ref.abs().max())
+        check(tuple(got.shape) == (1, 1, crop.shape[-1]) and bool(torch.isfinite(got).all()),
+              f"{stem}: output {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        check(err <= ZOO_REL * peak,
+              f"{stem} on the device vs the CPU: max abs err {err} (max|ref| {peak})")
+        ms = median_ms(lambda fwd=fwd: fwd(x10), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        mib = _peak_mib(device, lambda fwd=fwd: fwd(x10))
+        b16 = serve_bf16(device, label, cpu, model, crop, got, x10, cfg)
+        del fwd, model
+
+        loss_node, _ = cfg["losses"][config]
+        loss_fn = _instantiate_loss(loss_node)
+        weights = cpu.state_dict()
+
+        def fresh(dev, name=name, args=args, weights=weights, loss_fn=loss_fn, precision="f32"):
+            m = get(name)(**args, device=dev)
+            m.load_state_dict(weights)
+            return m, make_train_step(m, loss_fn, make_optimizer(m, cfg["lr"]), precision,
+                                      clip_norm=cfg["clip"])
+
+        m, step = fresh(device)
+        f32_trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
+        check(np.isfinite(f32_trace).all(), f"{stem} step: loss not finite {f32_trace}")
+        step_ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
+                            warmup=cfg["warmup"])
+        step_mib = _peak_mib(device, lambda step=step: step(x, y))
+        del m, step
+        b16t = train_bf16(device, label, fresh, x, y, f32_trace, cfg)
+        chk = enh_step_check(fresh, xc, yc, device)
+        _step_check_ok(chk, stem)
+        stats[stem] = dict(model=label, params=chk["params"], err=err, max_ref=peak, ms=ms,
+                           audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib, bf16=b16,
+                           step_ms=step_ms, step_audio_s_per_s=audio_s / (step_ms / 1e3),
+                           step_peak_mib=step_mib, bf16_step=b16t,
+                           **{k: v for k, v in chk.items() if k not in ("params", "ill")})
+        print(f"variant[{stem}: {label}]: {chk['params']} trained parameters, seeded, from "
+              f"{pack.name} via from_pretrain ({build_s:.2f} s with the build on the CPU); fp32 "
+              f"forward and to_waveform vs the port on the CPU on a {cfg['crop_s']:g} s crop of "
+              f"phase 8's first mixture ({cpu_s:.2f} s there): max abs err {err:.3g} of "
+              f"max|ref| {peak:.3g} (tol {ZOO_REL}·max|ref|); B=1 x {cfg['window_s']:g} s: "
+              f"{ms:.4f} ms = {stats[stem]['audio_s_per_s']:.1f} audio-s/s (CUDA-event median "
+              f"of {cfg['reps']} after {cfg['warmup']}), peak extra memory "
+              f"{mib if mib is None else round(mib, 1)} MiB; {bf16_line(b16, cfg)}; train "
+              f"step ({loss_node[0]}, Adam lr {cfg['lr']}, clip {cfg['clip']}, fp32, "
+              f"B={cfg['batch']} x {cfg['train_s']:g} s from phase 8's split): {step_ms:.4f} "
+              f"ms/step = {audio_s / (step_ms / 1e3):.1f} audio-s/s, peak extra memory "
+              f"{step_mib if step_mib is None else round(step_mib, 1)} MiB; one step on "
+              f"B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU ({chk['cpu_s']:.2f} s "
+              f"there), {_step_check_line(chk)}; {train_bf16_line(b16t, cfg, audio_s)}; {smi}",
+              flush=True)
+        del cpu
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return stats
+
+
+def phase_optim_zoo(device, cfg, smi) -> dict:
+    """Phase 19 (a): each optax name of the JAX factory through the port's
+    ``make_optimizer`` over ``cfg["optim_model"]``'s full-width parameters:
+    three steps of seeded float64 gradients, clipped by the step's
+    ``clip_by_global_norm`` (set to fire on the second), the LR changed
+    after the first. The card in float64 against the CPU in float64, the
+    card in float32 by the form of phase 10's rule, and the step's time in
+    float32 on the card. Returns each optimizer's readings."""
+    import torch
+
+    from sonicsim_tpu_torch.models import get
+    from sonicsim_tpu_torch.train import make_optimizer, set_learning_rate
+    from sonicsim_tpu_torch.train.trainer import clip_by_global_norm
+
+    name = cfg["optim_model"]
+    args = cfg["models"][name]
+    weights = seeded_zoo(name, args, cfg["seed"]).state_dict()
+    shapes = {n: tuple(p.shape) for n, p in get(name)(**args, device="cpu").named_parameters()
+              if p.requires_grad}
+    rng = np.random.default_rng(cfg["seed"] + 1)
+    grads = [{n: scale * rng.standard_normal(sh) for n, sh in shapes.items()}
+             for scale in (1.0, 10.0, 1.0)]
+    norms = sorted(float(np.sqrt(sum(np.sum(g * g) for g in tree.values()))) for tree in grads)
+    clip = float(np.sqrt(norms[1] * norms[2]))
+    p0 = {n: weights[n].double() for n in shapes}
+    cpu = torch.device("cpu")
+
+    def run(opt_name, dev, dtype, timed=False):
+        model = get(name)(**args, device=dev).to(dtype)
+        model.load_state_dict(weights)
+        opt = make_optimizer(model, cfg["lr"], cfg["weight_decay"], opt_name)
+        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        for k, tree in enumerate(grads):
+            for n, p in params.items():
+                p.grad = torch.from_numpy(tree[n]).to(dev, dtype)
+            clip_by_global_norm([p.grad for p in params.values()], clip)
+            opt.step()
+            if k == 0:
+                set_learning_rate(opt, cfg["lr2"])
+        out = {n: p.detach().double().cpu() for n, p in params.items()}
+        ms = median_ms(opt.step, dev, reps=cfg["reps"], warmup=cfg["warmup"]) if timed else None
+        return out, ms, type(opt).__name__
+
+    def dist(a, b):
+        return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+    stats = {}
+    for opt_name in cfg.get("names", OPTIM_NAMES):
+        c64, _, cls = run(opt_name, cpu, torch.float64)
+        d64, _, _ = run(opt_name, device, torch.float64)
+        c32, _, _ = run(opt_name, cpu, torch.float32)
+        d32, ms, _ = run(opt_name, device, torch.float32, timed=True)
+        moved = dist(c64, p0)
+        e64, e32, cpu32 = dist(d64, c64) / moved, dist(d32, c64) / moved, dist(c32, c64) / moved
+        bound = max(OPT_F32_REL, ILL_FACTOR * cpu32)
+        check(moved > 0 and e64 <= OPT_F64_REL,
+              f"{opt_name}: float64 on the device {e64}·max|Δp64| from the CPU (tol "
+              f"{OPT_F64_REL}; max|Δp64| {moved})")
+        check(e32 <= bound, f"{opt_name}: float32 on the device {e32}·max|Δp64| from float64 on "
+              f"the CPU, over {bound} (the CPU's float32 {cpu32})")
+        stats[opt_name] = dict(cls=cls, moved=moved, f64=e64, f32=e32, cpu_f32=cpu32, ms=ms)
+        print(f"optim[{opt_name} ({cls})]: {name} at full width, {args['layer']} layers, "
+              f"{sum(int(np.prod(s)) for s in shapes.values())} trained parameters, 3 steps "
+              f"of seeded gradients (clip {clip:.4g} fires on the second; lr {cfg['lr']} then "
+              f"{cfg['lr2']}; weight decay {cfg['weight_decay']}): max|Δp64| {moved:.4g}; "
+              f"float64 on the device {e64:.3g}·max|Δp64| from the CPU (tol {OPT_F64_REL}), "
+              f"float32 {e32:.3g} (tol {bound:.3g}: max({OPT_F32_REL}, {ILL_FACTOR} x the "
+              f"CPU's float32 {cpu32:.3g})); optimizer step {ms:.4f} ms in float32 (CUDA-event "
+              f"median of {cfg['reps']} after {cfg['warmup']}); {smi}", flush=True)
+    return stats
+
+
+def phase_remix_fit(device, cfg, folders, root: Path, smi) -> dict:
+    """Phase 19 (b): remix training sample directories (``s{i}.wav`` from
+    phase 8's ``moving_audio_{i}.wav``, ``noise.wav`` from its
+    ``noise_audio.wav``), their segment manifest, and a ``Trainer.fit`` of
+    ``cfg["fit_model"]`` with ``cfg["fit_optimizer"]`` on
+    ``RemixTrainDataset`` items, each stage timed by ``StageTimer``."""
+    import torch
+
+    from sonicsim_tpu_torch.dataset import RemixTrainDataset, build_segment_manifest
+    from sonicsim_tpu_torch.scripts.common import strict_float32
+    from sonicsim_tpu_torch.train import Trainer
+    from sonicsim_tpu_torch.utils import StageTimer
+
+    strict_float32()
+    timer = StageTimer()
+    tree = root / "remix"
+    with timer.stage("remix sample dirs"):
+        for i, f in enumerate(folders):
+            leaf = tree / f"sample{i}"
+            leaf.mkdir(parents=True)
+            for src in sorted(f.glob("moving_audio_*.wav")):
+                shutil.copyfile(src, leaf / f"s{src.stem.rsplit('_', 1)[1]}.wav")
+            shutil.copyfile(f / "noise_audio.wav", leaf / "noise.wav")
+    with timer.stage("build_segment_manifest"):
+        manifest = build_segment_manifest(tree, root / "segments.json", duration=cfg["remix_s"])
+    spans = sum(len(v) for v in manifest.values())
+    check(spans > 0, f"the segment manifest has no span: {manifest}")
+    ds = RemixTrainDataset(str(root / "segments.json"), duration=cfg["remix_s"],
+                           num_samples=cfg["fit_samples"], num_spks=1, seed=cfg["seed"])
+
+    def batches(epoch):
+        ds.set_epoch(epoch)
+        for i in range(0, len(ds), cfg["batch"]):
+            with timer.stage("remix batch"):
+                items = [ds[j] for j in range(i, min(i + cfg["batch"], len(ds)))]
+                batch = np.stack([m for m, _ in items]), np.stack([t for _, t in items])
+            yield batch
+
+    name, args = cfg["enh_models"][cfg["fit_model"]]
+    model = seeded_zoo(name, args, cfg["seed"]).to(device)
+    loss_node = cfg["losses"][cfg["fit_model"]][0]
+    trainer = Trainer(model=model, loss_fn=_instantiate_loss(loss_node), lr=cfg["lr"],
+                      max_epochs=cfg["fit_epochs"], exp_dir=root / "exp",
+                      optimizer_name=cfg["fit_optimizer"], save_top_k=1)
+    with timer.stage("Trainer.fit"):
+        state = trainer.fit(batches)
+        sync(device)
+    records = [json.loads(ln) for ln in (root / "exp" / "metrics.jsonl").read_text().splitlines()]
+    check(type(state.optimizer).__name__.lower() == cfg["fit_optimizer"]
+          and [r["epoch"] for r in records] == list(range(cfg["fit_epochs"]))
+          and all(np.isfinite(r["train_loss"]) for r in records)
+          and all(p.device.type == device.type for p in model.parameters()),
+          f"remix fit: {type(state.optimizer).__name__}, metrics.jsonl {records}")
+    print(f"remix-fit[{cfg['fit_model']}: {name}, {cfg['fit_optimizer']}]: {len(manifest)} "
+          f"sample dirs from phase 8's split, {spans} spans of {cfg['remix_s']:g} s in the "
+          f"manifest; {cfg['fit_samples']} RemixTrainDataset items per epoch, batch "
+          f"{cfg['batch']}, {loss_node[0]}, lr {cfg['lr']}: train loss "
+          f"{[round(r['train_loss'], 4) for r in records]}, s/epoch "
+          f"{[round(r['seconds'], 3) for r in records]}; {smi}; StageTimer:\n{timer.report()}",
+          flush=True)
+    del model, trainer, state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(spans=spans, stages=timer.summary(), records=records)
+
+
+def phase_bank_import(device, banks, ways, static, cfg, root: Path) -> dict:
+    """Phase 19 (c): phase 6's banks written as a reference-style
+    ``rir_save_*.pt`` (a list of (P, 1, C, L) tensors), converted by
+    ``python -m sonicsim_tpu_torch.scripts.import_rir_banks``'s ``main``,
+    each ``.npz`` loaded by ``BankRirOracle``, and phase 7's mixture step
+    over the loaded banks on the card: equal to phase 7's over phase 6's."""
+    import torch
+
+    from sonicsim_tpu_torch.scripts import import_rir_banks
+    from sonicsim_tpu_torch.sim import BankRirOracle, ChannelModel
+
+    sample = root / "set" / "scene" / "mixture"
+    sample.mkdir(parents=True)
+    torch.save([b.cpu() for b in banks], sample / "rir_save_train_Binaural.pt")
+    t0 = time.perf_counter()
+    n = import_rir_banks.main(["--sonicset_root", str(root / "set"),
+                               "--out_root", str(root / "banks")])
+    convert_s = time.perf_counter() - t0
+    check(n == len(banks), f"import_rir_banks converted {n} banks of {len(banks)}")
+    loaded = []
+    for i, bank in enumerate(banks):
+        oracle = BankRirOracle(root / "banks" / "scene" / "mixture" /
+                               f"rir_save_train_Binaural_spk{i + 1}.npz")
+        ir = oracle.render(np.zeros(3), np.zeros(3), ChannelModel("Binaural"))
+        check(np.array_equal(ir, bank[0, 0].cpu().numpy()), f"bank {i}: the oracle's IR differs")
+        loaded.append(torch.from_numpy(oracle._data["rirs"]).to(device))
+    check(all(torch.equal(a, b) for a, b in zip(loaded, banks)), "the imported banks differ")
+    ref_step = bank_mixture_step(device, banks, ways, static, cfg)[0]
+    step, padded = bank_mixture_step(device, loaded, ways, static, cfg)
+    for weights_form in (False, True):
+        want, got = ref_step(weights_form), step(weights_form)
+        sync(device)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"the mixture step over the imported banks differs from phase 7's "
+              f"({'weights=' if weights_form else 'fused'} form)")
+    print(f"bank-import: phase 6's {len(banks)} banks {tuple(banks[0].shape)} as "
+          f"rir_save_train_Binaural.pt -> import_rir_banks ({convert_s:.3f} s) -> "
+          f"BankRirOracle, bit-equal to phase 6's; phase 7's mixture step over them "
+          f"({padded}), fused and weights= forms, bit-equal to phase 7's over phase 6's",
+          flush=True)
+    return dict(banks=n, convert_s=convert_s)
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
         train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
         enh_train_cfg=ENH_TRAIN, sep_train_cfg=SEP_TRAIN, eval_cfg=EVAL_SIDECARS,
-        sidecar_cfg=SIDECAR_MODELS, env_line: str = "") -> None:
+        sidecar_cfg=SIDECAR_MODELS, variants_cfg=VARIANTS, adapters_cfg=ADAPTERS,
+        env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     seconds, mark = {}, [time.perf_counter()]
@@ -3680,6 +4038,7 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         now = time.perf_counter()
         seconds[name] = round(now - mark[0], 1)
         mark[0] = now
+        print(f"phase {name}: {seconds[name]} s (host wall)", flush=True)
 
     head = headline_plan(head_cfg)
     mix = mixture_inputs(mix_cfg)
@@ -3752,12 +4111,28 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
                              Path(tmp) / "sidecars", Path(tmp) / "serve" / "convtasnet.pkl", smi)
         sidecar_models = dict(kernels.LAUNCHES)
         lap("sidecar models (17)")
+        kernels.reset_launch_counts()
+        phase_variants(device, variants_cfg, runs["disk"]["produced"], Path(tmp) / "variants",
+                       smi)
+        variants = dict(kernels.LAUNCHES)
+        lap("variants (18)")
+        kernels.reset_launch_counts()
+        phase_optim_zoo(device, adapters_cfg, smi)
+        phase_remix_fit(device, adapters_cfg, runs["disk"]["produced"], Path(tmp) / "remix",
+                        smi)
+        adapters = dict(kernels.LAUNCHES)
+        lap("optimizers, remix fit (19a-b)")
+        kernels.reset_launch_counts()
+        phase_bank_import(device, banks, ways, static, bank_mix_cfg, Path(tmp) / "bank_import")
+        counts["bank import->mixture"] = dict(kernels.LAUNCHES)
+        lap("bank import (19c)")
     for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
                     ("enhancement training", enh_training),
                     ("separation training", sep_training),
                     ("the evaluation sidecars", eval_sidecars),
-                    ("the sidecar models", sidecar_models)):
+                    ("the sidecar models", sidecar_models), ("the variants", variants),
+                    ("the optimizers and the remix fit", adapters)):
         check(not any(c.values()), f"{path} launched a kernel: {c}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
@@ -3765,7 +4140,7 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         for path, c in counts.items():
             check(c["select_segments_ramp"] > 0,
                   f"select_segments (ramp form): no launch in {path}")
-        for path in ("mixture", "bank->mixture"):
+        for path in ("mixture", "bank->mixture", "bank import->mixture"):
             check(counts[path]["crossfade_combine"] > 0,
                   f"crossfade_combine: no launch in {path}")
     print(f"launches on the main paths: {counts} (the select form is off "
@@ -3776,8 +4151,10 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"enhancement zoo (phase 13): {enhancement}, nor enhancement training (phase 14): "
           f"{enh_training}, nor separation training (phase 15): {sep_training}, nor the "
           f"evaluation sidecars (phase 16): {eval_sidecars}, nor the sidecar models (phase "
-          f"17): {sidecar_models} (no zoo model or sidecar has a Pallas counterpart)",
-          flush=True)
+          f"17): {sidecar_models}, nor the variants (phase 18): {variants}, nor the "
+          f"optimizers and the remix fit (phase 19a-b): {adapters} (no zoo model, optimizer "
+          f"or sidecar has a Pallas counterpart); the imported banks' mixture step (phase "
+          f"19c) is phase 7's path", flush=True)
     print(f"phase seconds (host wall): {seconds}", flush=True)
 
     report = {"kernels": [

@@ -351,13 +351,73 @@ _LSTM = (_lstm_to_flax, _lstm_to_torch)
 # keeps its real and imaginary LSTMs as cells 0 and 1 of one flax node).
 _CELL = (lambda sd, k: _cell_to_flax(sd, k, "l0"),
          lambda n, k: _cell_to_torch(n, k, "l0"))
-# A stack of unidirectional layers (the enhancement models' SequenceModel):
-# layer i ↔ ``OptimizedLSTMCell_i``.
-_LSTM_STACK = (
-    lambda sd, k: {f"OptimizedLSTMCell_{i}": _cell_to_flax(sd, k, f"l{i}")
-                   for i in _ids(sd, rf"^{re.escape(k)}\.weight_ih_l(\d+)$")},
-    lambda n, k: {t: v for i in _ids(n, r"^OptimizedLSTMCell_(\d+)$")
-                  for t, v in _cell_to_torch(n[f"OptimizedLSTMCell_{i}"], k, f"l{i}").items()})
+
+
+def _gru_to_flax(sd: dict, key: str, suffix: str) -> dict:
+    """One direction of one layer of a torch GRU → a flax ``GRUCell``: input
+    denses ``ir``, ``iz``, ``in`` with biases, hidden denses ``hr``, ``hz``
+    without and ``hn`` with, gates ``r z n``. flax has no hidden bias on r
+    and z, so torch's r and z ``bias_hh`` thirds add into ``ir``/``iz``'s
+    bias; ``b_hn`` stays inside r ⊙ (·) as ``hn``'s."""
+    w_ih, w_hh = _np(sd[f"{key}.weight_ih_{suffix}"]), _np(sd[f"{key}.weight_hh_{suffix}"])
+    b_ih, b_hh = _np(sd[f"{key}.bias_ih_{suffix}"]), _np(sd[f"{key}.bias_hh_{suffix}"])
+    h = w_hh.shape[1]
+    r, z, n = (slice(i * h, (i + 1) * h) for i in range(3))
+    return {"ir": {"kernel": _arr(w_ih[r].T), "bias": b_ih[r] + b_hh[r]},
+            "iz": {"kernel": _arr(w_ih[z].T), "bias": b_ih[z] + b_hh[z]},
+            "in": {"kernel": _arr(w_ih[n].T), "bias": b_ih[n]},
+            "hr": {"kernel": _arr(w_hh[r].T)}, "hz": {"kernel": _arr(w_hh[z].T)},
+            "hn": {"kernel": _arr(w_hh[n].T), "bias": b_hh[n]}}
+
+
+def _gru_to_torch(cell: dict, key: str, suffix: str) -> dict:
+    """The inverse: ``bias_hh`` is (0, 0, b_hn), so flax→torch→flax is exact
+    and torch→flax→torch the same function."""
+    hn = np.asarray(cell["hn"]["bias"])
+    return {f"{key}.weight_ih_{suffix}": np.concatenate(
+                [np.asarray(cell[g]["kernel"]).T for g in ("ir", "iz", "in")]),
+            f"{key}.weight_hh_{suffix}": np.concatenate(
+                [np.asarray(cell[g]["kernel"]).T for g in ("hr", "hz", "hn")]),
+            f"{key}.bias_ih_{suffix}": np.concatenate(
+                [np.asarray(cell[g]["bias"]) for g in ("ir", "iz", "in")]),
+            f"{key}.bias_hh_{suffix}": np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn])}
+
+
+def _stack_to_flax(sd: dict, key: str) -> dict:
+    """A torch LSTM or GRU of any depth and direction → the JAX
+    ``SequenceModel``'s cells, ``OptimizedLSTMCell_j`` or ``GRUCell_j``:
+    layer i's forward cell is j = i (unidirectional) or 2i, its backward
+    cell 2i + 1."""
+    w_ih, w_hh = _np(sd[f"{key}.weight_ih_l0"]), _np(sd[f"{key}.weight_hh_l0"])
+    gru = w_ih.shape[0] == 3 * w_hh.shape[1]
+    name, conv = ("GRUCell", _gru_to_flax) if gru else ("OptimizedLSTMCell", _cell_to_flax)
+    suffixes = ("", "_reverse") if f"{key}.weight_ih_l0_reverse" in sd else ("",)
+    return {f"{name}_{i * len(suffixes) + d}": conv(sd, key, f"l{i}{sfx}")
+            for i in _ids(sd, rf"^{re.escape(key)}\.weight_ih_l(\d+)$")
+            for d, sfx in enumerate(suffixes)}
+
+
+def _stack_to_torch(node: dict, key: str, bidirectional: bool = False) -> dict:
+    gru = any(n.startswith("GRUCell_") for n in node)
+    name, conv = ("GRUCell", _gru_to_torch) if gru else ("OptimizedLSTMCell", _cell_to_torch)
+    per = 2 if bidirectional else 1
+    sd = {}
+    for j in _ids(node, rf"^{name}_(\d+)$"):
+        layer, d = divmod(j, per)
+        sd.update(conv(node[f"{name}_{j}"], key, f"l{layer}" + ("_reverse" if d else "")))
+    return sd
+
+
+def _rnn_stack(bidirectional: bool = False) -> tuple:
+    """A stack of LSTM or GRU layers (the enhancement models'
+    ``SequenceModel``) ↔ its flax cells (:func:`_stack_to_flax`)."""
+    return (_stack_to_flax, lambda n, k: _stack_to_torch(n, k, bidirectional))
+
+
+def _cell_at(suffix: str) -> tuple:
+    """One flax LSTM cell ↔ layer ``suffix`` (``l1``…) of a torch LSTM."""
+    return (lambda sd, k: _cell_to_flax(sd, k, suffix),
+            lambda n, k: _cell_to_torch(n, k, suffix))
 
 
 def _mha_to_flax(sd: dict, key: str, heads: int) -> dict:
@@ -877,10 +937,10 @@ _FSMN_MEMORY = (
     lambda n, k: {f"{k}.weight": np.asarray(n["kernel"])[:, 0, :].T[:, None, :, None]})
 
 
-def _seq_model(f: str, t: str, fc: bool = True) -> list:
-    """SequenceModel (torch_import.py:476-486): ``sequence_model`` and
-    ``fc_output_layer``."""
-    return ([(f, f"{t}.sequence_model", _LSTM_STACK)]
+def _seq_model(f: str, t: str, fc: bool = True, bidirectional: bool = False) -> list:
+    """SequenceModel (torch_import.py:476-486): ``sequence_model`` (LSTM or
+    GRU) and ``fc_output_layer``."""
+    return ([(f, f"{t}.sequence_model", _rnn_stack(bidirectional))]
             + ([(f"{f}/fc_output", f"{t}.fc_output_layer", _LINEAR)] if fc else []))
 
 
@@ -978,10 +1038,12 @@ def inter_subnet_state_dict(params: dict) -> dict:
     return _spec_to_torch(params, _inter_subnet_spec())
 
 
-def _dccrn_spec(enc, rnn, projected) -> list:
-    """DCCRN (torch_import.py:430-474) but its BatchNorms (``_dccrn_bns``)."""
+def _dccrn_spec(enc, rnn, projected, plain: bool = False) -> list:
+    """DCCRN (torch_import.py:430-474) but its BatchNorms (``_dccrn_bns``);
+    ``plain``: ``use_clstm=False``'s two-layer LSTM and ``tranform``."""
     n = len(enc)
-    spec = []
+    spec = ([(f"OptimizedLSTMCell_{i}", "enhance", _cell_at(f"l{i}")) for i in range(2)]
+            + [("tranform", "tranform", _LINEAR)]) if plain else []
     for i in enc:
         for part in ("real_conv", "imag_conv"):
             spec += [(f"enc_{i}/{part}", f"encoder.{i}.0.{part}", _CONV2D),
@@ -1015,7 +1077,7 @@ def dccrn_flax_params(state_dict: dict) -> dict:
     enc = _ids(state_dict, r"^encoder\.(\d+)\.0\.")
     out = _spec_to_flax(state_dict, _dccrn_spec(
         enc, _ids(state_dict, r"^enhance\.(\d+)\."),
-        _ids(state_dict, r"^enhance\.(\d+)\.r_trans\.")))
+        _ids(state_dict, r"^enhance\.(\d+)\.r_trans\."), "tranform.weight" in state_dict))
     for key, first, second in _dccrn_bns(len(enc)):
         node = _BN[0](state_dict, key)
         half = node["scale"].shape[0] // 2
@@ -1030,7 +1092,8 @@ def dccrn_state_dict(params: dict) -> dict:
     keys = _flat(params)
     enc = _ids(keys, r"^enc_(\d+)/")
     sd = _spec_to_torch(params, _dccrn_spec(enc, _ids(keys, r"^clstm_(\d+)/"),
-                                            _ids(keys, r"^clstm_(\d+)/r_trans/")))
+                                            _ids(keys, r"^clstm_(\d+)/r_trans/"),
+                                            "tranform/kernel" in keys))
     p = params.get("params", params)
     for key, first, second in _dccrn_bns(len(enc)):
         halves = (_BN[1](p[first], key), _BN[1](p[second], key))
@@ -1219,9 +1282,21 @@ def _count(keys, pattern: str) -> int:
     return len(_ids(keys, pattern))
 
 
-def _gagnet_spec(q: int, p: int, n_dil: int, k1, k2) -> list:
-    """GaGNet (torch_import.py:578-604)."""
-    spec = _u2_encoder_spec("en", "en", k1, k2, (2, 5), _gate, _IN)
+def _unet_encoder_spec(k1) -> list:
+    """GaGNet's plain encoder (``is_u2=False``): ``unet_{i}_{gate,norm,prelu}``
+    ↔ ``en.{i}.{0,1,2}``."""
+    spec = []
+    for i, k in enumerate([(2, 5)] + [k1] * 4):
+        spec += _gate(f"unet_{i}_gate", f"en.{i}.0", k) + [
+            (f"unet_{i}_norm", f"en.{i}.1", _IN), (f"unet_{i}_prelu", f"en.{i}.2", _PRELU)]
+    return spec
+
+
+def _gagnet_spec(q: int, p: int, n_dil: int, k1, k2, u2: bool = True) -> list:
+    """GaGNet (torch_import.py:578-604), with the U² encoder or (``u2``
+    False) the plain one."""
+    spec = (_u2_encoder_spec("en", "en", k1, k2, (2, 5), _gate, _IN) if u2
+            else _unet_encoder_spec(k1))
     for i in range(q):
         f, g, z = f"gag_{i}", f"gags.{i}.glance_block", f"gags.{i}.gaze_block"
         spec += [(f"{f}/glance_main", f"{g}.in_conv_main", _CONV1D),
@@ -1246,7 +1321,8 @@ def gagnet_flax_params(state_dict: dict, k1=(2, 3), k2=(1, 3)) -> dict:
     sd = state_dict
     return _spec_to_flax(sd, _gagnet_spec(
         _count(sd, r"^gags\.(\d+)\."), _count(sd, r"^gags\.0\.glance_block\.tcn_g\.(\d+)\."),
-        _count(sd, r"^gags\.0\.glance_block\.tcn_g\.0\.tcns\.(\d+)\."), tuple(k1), tuple(k2)))
+        _count(sd, r"^gags\.0\.glance_block\.tcn_g\.0\.tcns\.(\d+)\."), tuple(k1), tuple(k2),
+        any(k.startswith("en.meta_unet_list.") for k in sd)))
 
 
 def gagnet_state_dict(params: dict, k1=(2, 3), k2=(1, 3)) -> dict:
@@ -1254,7 +1330,8 @@ def gagnet_state_dict(params: dict, k1=(2, 3), k2=(1, 3)) -> dict:
     keys = _flat(params)
     return _spec_to_torch(params, _gagnet_spec(
         _count(keys, r"^gag_(\d+)/"), _count(keys, r"^gag_0/glance_tcn_(\d+)/"),
-        _count(keys, r"^gag_0/glance_tcn_0/tcm_(\d+)/"), tuple(k1), tuple(k2)))
+        _count(keys, r"^gag_0/glance_tcn_0/tcm_(\d+)/"), tuple(k1), tuple(k2),
+        any(k.startswith("en/") for k in keys)))
 
 
 _G2NET_HEADS = ("ri_en", "mag_en")

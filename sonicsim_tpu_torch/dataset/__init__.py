@@ -1,9 +1,8 @@
 """SonicSet generation, training and evaluation data (port of
 ``sonicsim_tpu.dataset``): seeded plans, dry-track assembly on the host or
 on the device, the per-mixture render, the split loop, the samplers that
-read a generated split, the prefetching loader and ``MovingDataModule``.
-The remix training set (``dataset/remix.py``) is not ported (ROADMAP
-A7c)."""
+read a generated split, the prefetching loader, ``MovingDataModule`` and
+the segment-manifest remix training set (``RemixTrainDataset``)."""
 
 from .assemble import (
     assemble_long_audio,
@@ -40,6 +39,7 @@ from .plan import (
     scan_audio_lengths,
     select_files_to_fill,
 )
+from .remix import RemixTrainDataset, build_segment_manifest
 from .sampler import (
     MovingTestDataset,
     MovingTestEvalDataset,
@@ -64,12 +64,14 @@ __all__ = [
     "MovingTestEvalDataset",
     "MovingTrainDataset",
     "Placement",
+    "RemixTrainDataset",
     "UtteranceCache",
     "apply_sir",
     "apply_snr",
     "assemble_long_audio",
     "assemble_plans_on_device",
     "batched_loader",
+    "build_segment_manifest",
     "dispatch_mixture",
     "finalize_mixture",
     "find_bottom_directories",

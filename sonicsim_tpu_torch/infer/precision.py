@@ -27,7 +27,10 @@ Which models take bf16: each whose JAX bf16 path runs and whose bf16
 output lies within rel-L2 0.05 of float32 on both sides
 (``BF16_MODELS``); :func:`require_bf16` refuses the others by name, with
 the reason (``BF16_REFUSED``), and bf16 training where the JAX package's
-bf16 step raises (``BF16_TRAIN_REFUSED``).
+bf16 step raises (``BF16_TRAIN_REFUSED``). A variant no config takes (a
+GRU FullSubNet, DCCRN without its complex LSTM, GaGNet without its U²
+encoder) is decided by its own name (:func:`variant_name`), never as its
+config's model.
 """
 
 from __future__ import annotations
@@ -41,6 +44,11 @@ BF16_MODELS = (
     "ConvTasNet", "DPRNNTasNet", "DPTNetModel", "SuDORMRF", "AFRCNN", "BSRNN", "TFGridNet",
     "MossFormer", "SkiMNet", "Fullband", "FullSubnet", "FastFullSubnet", "FullSubNet_Plus",
     "Inter_SubNet", "DCCRN", "BSRNNESPNet", "TaylorSENet",
+    # Variants no config takes (variant_name), each within the gate three
+    # ways at the tests' widths (tests/test_torch_variants.py).
+    "Fullband(sequence_model='GRU')", "FullSubnet(sequence_model='GRU')",
+    "FastFullSubnet(sequence_model='GRU')", "FullSubNet_Plus(sequence_model='GRU')",
+    "DCCRN(use_clstm=False)",
 )
 _CONV_DTYPES = ("the JAX package's bf16 raises at sonicsim_tpu/models/layers.py:156 "
                 "(lax.conv_general_dilated on a float32 input and bfloat16 weights)")
@@ -54,6 +62,10 @@ BF16_REFUSED = {
                "tone in noise in the JAX package and in the port alike, and 0.30 on a "
                "generated mixture on the card, over the zoo's 0.05 gate (seeded weights, "
                "tests/test_torch_bf16_enh.py, chip_smoke.py phase 13)"),
+    "GaGNet(is_u2=False)": (
+        "at its config's other widths its bf16 waveform lies 0.29 (rel-L2) from float32 on a "
+        "tone in noise in the JAX package and in the port alike, over the zoo's 0.05 gate "
+        "(seeded weights, tests/test_torch_variants.py)"),
     "G2Net": ("at its config's width its bf16 waveform lies 0.49 (rel-L2) from float32 on a "
               "tone in noise in the JAX package and in the port alike, over the zoo's 0.05 "
               "gate (seeded weights, tests/test_torch_bf16_enh.py)"),
@@ -66,17 +78,39 @@ BF16_TRAIN_REFUSED = {name: _MIXED_SHAPES for name in (
 _MAPPED_BUFFERS = ("running_mean", "running_var")
 
 
+# The arguments whose other values make a variant no config takes, each
+# held on its own (tests/test_torch_variants.py), by the configs' value.
+# Inter-SubNet's ``sequence_model`` is no such argument: the JAX model never
+# reads it.
+_CONFIG_VALUES = {"sequence_model": "LSTM", "use_clstm": True, "is_u2": True}
+_IGNORED = {"Inter_SubNet": ("sequence_model",)}
+
+
+def variant_name(model: nn.Module) -> str:
+    """The model's class name, and in parentheses each argument that makes
+    it a variant no config takes (``"DCCRN(use_clstm=False)"``): what
+    :func:`require_bf16` decides by."""
+    name = type(model).__name__
+    args = model.model_args() if hasattr(model, "model_args") else {}
+    flips = [f"{k}={args[k]!r}" for k, v in _CONFIG_VALUES.items()
+             if k in args and args[k] != v and k not in _IGNORED.get(name, ())]
+    return f"{name}({', '.join(flips)})" if flips else name
+
+
 def require_bf16(model: nn.Module, train: bool = False) -> None:
     """Raise ``NotImplementedError`` unless ``model`` may run (with ``train``,
-    train) in bf16, naming the model and the reason."""
-    name = type(model).__name__
+    train) in bf16, naming the model, its variant and the reason. bf16
+    training is refused for a model's every variant where it is refused for
+    the model."""
+    name = variant_name(model)
     reasons = []
     if name in BF16_REFUSED:
         reasons.append(f"bf16 is refused: {BF16_REFUSED[name]}")
     elif name not in BF16_MODELS:
         reasons.append(f"bf16 is held against float32 for {BF16_MODELS} only")
-    if train and name in BF16_TRAIN_REFUSED:
-        reasons.append(f"bf16 training is refused: {BF16_TRAIN_REFUSED[name]}")
+    base = type(model).__name__
+    if train and base in BF16_TRAIN_REFUSED:
+        reasons.append(f"bf16 training is refused: {BF16_TRAIN_REFUSED[base]}")
     if reasons:
         raise NotImplementedError(f"{name}: {'; '.join(reasons)}; run it in float32")
 

@@ -15,8 +15,10 @@ Parameter names are the reference's (``encoder.{i}.{0.{real,imag}_conv,1,2}``,
 ``decoder.{i}.{0.{real,imag}_conv,1,2}``); each layout is (B, C, F, T).
 The BatchNorms (``*.1``) run on batch statistics, as the JAX model does
 unless ``torch_compat`` (the reference checkpoints' frozen running
-statistics) is set. ``use_clstm=False`` (two real LSTMs) is taken by no
-config and has no converter, so it raises.
+statistics) is set. ``use_clstm=False`` (taken by no config) runs a
+two-layer real LSTM over the real and imaginary features joined
+(``enhance``) and a Dense back to both (``tranform``), as the JAX model's
+``OptimizedLSTMCell_{0,1}`` and ``tranform``.
 """
 
 from __future__ import annotations
@@ -180,9 +182,6 @@ class DCCRN(BaseModel):
                               masking_mode=masking_mode, use_clstm=use_clstm, use_cbn=use_cbn,
                               kernel_size=kernel_size, kernel_num=tuple(kernel_num),
                               sample_rate=sample_rate, torch_compat=torch_compat))
-        if not use_clstm:
-            raise NotImplementedError("DCCRN use_clstm=False: the port has the complex LSTM "
-                                      "(the config's own)")
         self.win_len, self.win_inc, self.fft_len = win_len, win_inc, fft_len
         self.masking_mode = masking_mode
         halves = [k // 2 for k in (2,) + tuple(kernel_num)]
@@ -196,10 +195,18 @@ class DCCRN(BaseModel):
         for _ in range(n):
             f_b = (f_b - 1) // 2 + 1
         width = f_b * halves[-1]
-        self.enhance = nn.ModuleList(
-            ComplexLSTM(width if li == 0 else rnn_units // 2, rnn_units // 2,
-                        width if li == rnn_layers - 1 else None)
-            for li in range(rnn_layers))
+        self.use_clstm = use_clstm
+        if use_clstm:
+            self.enhance = nn.ModuleList(
+                ComplexLSTM(width if li == 0 else rnn_units // 2, rnn_units // 2,
+                            width if li == rnn_layers - 1 else None)
+                for li in range(rnn_layers))
+        else:
+            # The real LSTM over [real; imag] features (dccrn.py:231-236): two
+            # layers of ``rnn_units`` whatever ``rnn_layers`` says, as in the
+            # JAX model, then the Dense the reference spells ``tranform``.
+            self.enhance = LSTMLayer(2 * width, rnn_units, num_layers=2)
+            self.tranform = Linear(rnn_units, 2 * width)
         self.decoder = nn.ModuleList()
         for i in range(n):
             cin, cout = 2 * halves[-1 - i], halves[-2 - i] if i < n - 1 else 1
@@ -229,8 +236,11 @@ class DCCRN(BaseModel):
         b, c_b, f_b, t_b = real.shape
         r_in = real.permute(0, 3, 1, 2).reshape(b, t_b, c_b * f_b)
         i_in = imag.permute(0, 3, 1, 2).reshape(b, t_b, c_b * f_b)
-        for clstm in self.enhance:
-            r_in, i_in = clstm(r_in, i_in)
+        if self.use_clstm:
+            for clstm in self.enhance:
+                r_in, i_in = clstm(r_in, i_in)
+        else:
+            r_in, i_in = self.tranform(self.enhance(torch.cat([r_in, i_in], -1))).chunk(2, -1)
         real = r_in.reshape(b, t_b, c_b, f_b).permute(0, 2, 3, 1)
         imag = i_in.reshape(b, t_b, c_b, f_b).permute(0, 2, 3, 1)
 

@@ -11,8 +11,9 @@ noisy_imag)``, which ``losses.cirm.cirm_inference`` turns into a waveform.
 
 Parameter names are the reference's (``fullband_model``, ``fb_model``,
 ``sb_model``, each ``{sequence_model,fc_output_layer}``). ``sequence_model``
-is an LSTM stack (``zoo_layers.LSTMLayer``); the JAX package's GRU option is
-taken by no config and has no converter, so it raises here.
+is a stack of LSTMs (``zoo_layers.LSTMLayer``) or, for any other
+``sequence_model`` name, of GRUs with flax's gates (``zoo_layers.GRULayer``),
+as the JAX ``SequenceModel`` picks its cell; no config takes the GRU.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from .layers import Linear
 from ..ops.stft import hann_window, stft
 from .base import BaseModel, register_model
-from .zoo_layers import LSTMLayer
+from .zoo_layers import recurrent_layer
 
 _ACTIVATIONS = {
     "Tanh": torch.tanh,
@@ -35,19 +36,19 @@ _ACTIVATIONS = {
 
 
 class SequenceModel(nn.Module):
-    """A stack of unidirectional LSTMs and a linear head (fullband.py:53-152),
-    (B, T, F) → (B, T, out): ``sequence_model`` and, when ``output_size``,
-    ``fc_output_layer``; then ``output_activate_function``."""
+    """A stack of uni- or bidirectional LSTMs or GRUs and a linear head
+    (fullband.py:53-152), (B, T, F) → (B, T, out): ``sequence_model`` and,
+    when ``output_size``, ``fc_output_layer``; then
+    ``output_activate_function``."""
 
     def __init__(self, input_size: int, output_size: int, hidden_size: int, num_layers: int,
-                 sequence_model: str = "LSTM", output_activate_function=None):
+                 sequence_model: str = "LSTM", output_activate_function=None,
+                 bidirectional: bool = False):
         super().__init__()
-        if sequence_model != "LSTM":
-            raise NotImplementedError(
-                f"sequence_model {sequence_model!r}: the port has the LSTM (the configs' own)")
-        self.sequence_model = LSTMLayer(input_size, hidden_size, num_layers=num_layers)
+        self.sequence_model = recurrent_layer(sequence_model, input_size, hidden_size,
+                                              bidirectional, num_layers)
         if output_size:
-            self.fc_output_layer = Linear(hidden_size, output_size)
+            self.fc_output_layer = Linear(hidden_size * (2 if bidirectional else 1), output_size)
         self.act = _ACTIVATIONS[output_activate_function] if output_activate_function else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

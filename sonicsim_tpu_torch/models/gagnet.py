@@ -322,6 +322,21 @@ class GlanceGazeModule(nn.Module):
         return from_polar(mag * gain, phase) + self.gaze_block(inpt)
 
 
+def unet_encoder(cin: int, c: int, k1) -> nn.Sequential:
+    """GaGNet's plain encoder (``is_u2=False``, the JAX model's
+    gagnet.py:316-323): five gated convs of frequency stride 2, kernels
+    (2, 5) then ``k1`` four times, each with an instance norm and a PReLU;
+    ``c`` channels, 64 in the last. ``{i}.{0,1,2}`` hold the JAX model's
+    ``unet_{i}_{gate,norm,prelu}``."""
+    blocks, n_in = [], cin
+    for i, k in enumerate([(2, 5)] + [tuple(k1)] * 4):
+        n_out = 64 if i == 4 else c
+        blocks.append(nn.Sequential(GateConv2d(n_in, n_out, k), NormSwitch(n_out),
+                                    ChannelPReLU(n_out)))
+        n_in = n_out
+    return nn.Sequential(*blocks)
+
+
 def compressed_spectrum(wav: torch.Tensor, fft_num: int, hop_length: int):
     """RMS-normalised ``wav`` (B, L) → its √mag-compressed STFT (B, 2, T, F),
     the compressed magnitude (B, T, F) and the phase (B, T, F)
@@ -344,9 +359,9 @@ def flatten_channels(h: torch.Tensor) -> torch.Tensor:
 class GaGNet(BaseModel):
     """Keyword names are the JAX package's fields (gagnet.yaml). The JAX
     model takes ``is_squeezed`` and ``norm_type`` without reading them;
-    so does this one. ``is_u2=False`` (a plain UNet encoder) is taken by no
-    config and has no converter, so it raises. Built on ``device``: the card
-    unless the caller names another."""
+    so does this one. ``is_u2=False`` (taken by no config) swaps the U²
+    encoder for :func:`unet_encoder`. Built on ``device``: the card unless
+    the caller names another."""
 
     def __init__(self, cin: int = 2, k1=(2, 3), k2=(1, 3), c: int = 64, kd1: int = 3,
                  cd1: int = 64, d_feat: int = 256, p: int = 2, q: int = 3,
@@ -361,13 +376,11 @@ class GaGNet(BaseModel):
                               acti_type=acti_type, intra_connect=intra_connect,
                               norm_type=norm_type, n_fft=n_fft, hop_length=hop_length,
                               win_length=win_length, sample_rate=sample_rate))
-        if not is_u2:
-            raise NotImplementedError("GaGNet(is_u2=False): the port has the U² encoder "
-                                      "(the configs' own)")
         self.fft_num, self.hop_length, self.d_feat = fft_num, hop_length, d_feat
         self.n_fft, self.win_length = n_fft, win_length
         n_freq = fft_num // 2 + 1
-        self.en = U2Encoder(cin, c, tuple(k1), tuple(k2), intra_connect)
+        self.en = (U2Encoder(cin, c, tuple(k1), tuple(k2), intra_connect) if is_u2
+                   else unet_encoder(cin, c, tuple(k1)))
         self.gags = nn.ModuleList(
             GlanceGazeModule(kd1, cd1, d_feat, p, tuple(dilas), n_freq, is_causal, acti_type)
             for _ in range(q))

@@ -70,8 +70,11 @@ class _SubbandModel(nn.Module):
 
 @register_model
 class Inter_SubNet(BaseModel):
-    """Keyword names are the JAX package's fields (inter_subnet.yaml). Built
-    on ``device``: the card unless the caller names another."""
+    """Keyword names are the JAX package's fields (inter_subnet.yaml). The
+    JAX model declares ``sequence_model`` and never reads it: its SIL blocks
+    run LSTMs whatever it names, and so do this model's (it stays in
+    ``model_args``). Built on ``device``: the card unless the caller names
+    another."""
 
     def __init__(self, num_freqs: int = 257, look_ahead: int = 2, sequence_model: str = "LSTM",
                  sb_num_neighbors: int = 15, sb_output_activate_function=False,
@@ -88,9 +91,6 @@ class Inter_SubNet(BaseModel):
                               num_groups_in_drop_band=num_groups_in_drop_band,
                               sbinter_middle_hidden_times=sbinter_middle_hidden_times,
                               weight_init=weight_init, sample_rate=sample_rate))
-        if sequence_model != "LSTM":
-            raise NotImplementedError(
-                f"sequence_model {sequence_model!r}: the port has the LSTM (the config's own)")
         self.look_ahead, self.sb_num_neighbors = look_ahead, sb_num_neighbors
         self.n_fft, self.hop_length, self.win_length = n_fft, hop_length, win_length
         middle = int(sbinter_middle_hidden_times * sb_model_hidden_size)

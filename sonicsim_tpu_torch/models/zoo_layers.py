@@ -34,6 +34,8 @@ No block applies dropout: the JAX models never do, in training either.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -224,23 +226,92 @@ class LSTMLayer(nn.LSTM):
         """``nn.LSTM``'s own call: ``(output, (h_n, c_n))`` from the initial
         state ``hx = (h_0, c_0)``, each (directions, B, H), or zeros, in
         the dtypes of the module's docstring."""
-        # By name: ``torch.func.functional_call`` swaps the attributes, not
-        # ``_flat_weights``.
-        weights = [getattr(self, n) for n in self._flat_weights_names]
-        out = torch.promote_types(x.dtype, weights[0].dtype)
-        out = torch.promote_types(out, torch.float32 if hx is None else hx[0].dtype)
-        run = float32_or_wider(out)
-        if x.dtype == weights[0].dtype == run and (hx is None or hx[0].dtype == run):
-            return super().forward(x, hx)
-        if hx is None:
-            zeros = x.new_zeros(self.num_layers * (2 if self.bidirectional else 1), x.shape[0],
-                                self.hidden_size, dtype=run)
-            hx = (zeros, zeros)
-        y, h, c = torch._VF.lstm(x.to(run), tuple(s.to(run) for s in hx),
-                                 [w.to(run) for w in weights], self.bias, self.num_layers,
-                                 float(self.dropout), self.training, self.bidirectional,
-                                 self.batch_first)
-        return y.to(out), (h.to(out), c.to(out))
+        return _run_wide(self, nn.LSTM.forward, torch._VF.lstm, 2, x, hx)
+
+
+class GRULayer(nn.GRU):
+    """A uni- or bidirectional GRU over axis 1 of (B, T, C) →
+    (B, T, H · directions), zero initial state, with flax's ``GRUCell``
+    gates (the enhancement models' ``sequence_model="GRU"``).
+
+    flax computes r = σ(W_ir·x + b_ir + W_hr·h), z = σ(W_iz·x + b_iz +
+    W_hz·h) and n = tanh(W_in·x + b_in + r ⊙ (W_hn·h + b_hn)), h′ = (1 − z)·n
+    + z·h: torch's formula with no hidden bias on r and z. So ``bias_ih`` is
+    (b_ir, b_iz, b_in) and ``bias_hh`` is (0, 0, b_hn), and a gradient hook
+    keeps the r and z thirds of ``bias_hh`` where they are: Adam and the
+    global-norm clip see flax's biases alone, as for the LSTM's frozen
+    ``bias_hh``. A reference checkpoint's nonzero thirds still load and add
+    in. The carry and the recurrence are float32 (or wider), as
+    :class:`LSTMLayer`'s."""
+
+    def __init__(self, input_size: int, hidden: int, bidirectional: bool = False,
+                 num_layers: int = 1):
+        super().__init__(input_size, hidden, num_layers=num_layers, batch_first=True,
+                         bidirectional=bidirectional)
+        for name, p in self.named_parameters():
+            if name.startswith("bias_hh"):
+                p.register_hook(functools.partial(_keep_rz, 2 * hidden))
+
+    def frozen_elements(self) -> dict:
+        """Each parameter name → the boolean mask of its elements no flax
+        parameter holds (the r and z thirds of each ``bias_hh``)."""
+        out = {}
+        for name, p in self.named_parameters():
+            if name.startswith("bias_hh"):
+                mask = torch.zeros(p.shape, dtype=torch.bool)
+                mask[: 2 * self.hidden_size] = True
+                out[name] = mask
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return self.run(x)[0]
+
+    def run(self, x: torch.Tensor, hx=None):
+        """``nn.GRU``'s own call, ``(output, h_n)``, in the dtypes of
+        :meth:`LSTMLayer.run`."""
+        return _run_wide(self, nn.GRU.forward, torch._VF.gru, 1, x, hx)
+
+
+def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx):
+    """``rnn``'s call with the recurrence and carry in float32 or wider:
+    ``own`` (its class's ``forward``) where the input, weights and state
+    already share that dtype, else ``op`` (``torch._VF.lstm`` or ``.gru``)
+    on them cast up, the output and the state (``n_states`` tensors, a
+    tuple of them for the LSTM) cast back to their promoted dtype."""
+    # By name: ``torch.func.functional_call`` swaps the attributes, not
+    # ``_flat_weights``.
+    weights = [getattr(rnn, n) for n in rnn._flat_weights_names]
+    states = () if hx is None else tuple(hx) if isinstance(hx, (tuple, list)) else (hx,)
+    out = torch.promote_types(x.dtype, weights[0].dtype)
+    out = torch.promote_types(out, states[0].dtype if states else torch.float32)
+    run = float32_or_wider(out)
+    if x.dtype == weights[0].dtype == run and all(s.dtype == run for s in states):
+        return own(rnn, x, hx)
+    if not states:
+        states = (x.new_zeros(rnn.num_layers * (2 if rnn.bidirectional else 1), x.shape[0],
+                              rnn.hidden_size, dtype=run),) * n_states
+    wide = tuple(s.to(run) for s in states)
+    y, *h = op(x.to(run), wide if n_states > 1 else wide[0], [w.to(run) for w in weights],
+               rnn.bias, rnn.num_layers, float(rnn.dropout), rnn.training, rnn.bidirectional,
+               rnn.batch_first)
+    h = tuple(s.to(out) for s in h)
+    return y.to(out), h if n_states > 1 else h[0]
+
+
+def _keep_rz(n: int, grad: torch.Tensor) -> torch.Tensor:
+    """``grad`` with its first ``n`` elements (a GRU ``bias_hh``'s r and z
+    thirds) zero."""
+    grad = grad.clone()
+    grad[:n] = 0
+    return grad
+
+
+def recurrent_layer(kind: str, input_size: int, hidden: int, bidirectional: bool = False,
+                    num_layers: int = 1) -> nn.Module:
+    """``LSTMLayer`` for the JAX ``sequence_model`` name ``"LSTM"``, else
+    ``GRULayer``, as the JAX ``SequenceModel`` picks its cell."""
+    cls = LSTMLayer if kind == "LSTM" else GRULayer
+    return cls(input_size, hidden, bidirectional, num_layers)
 
 
 class ResRNN(nn.Module):

@@ -1,6 +1,7 @@
 """Acoustic simulation: rooms, channels, materials, RIR oracles, the
 batched RIR-bank renderer, navigable space and scenes (port of
-``sonicsim_tpu.sim``; the habitat oracle and ``visual`` are not ported)."""
+``sonicsim_tpu.sim``), the live habitat oracle and the visual path
+(``sim.visual``)."""
 
 from .bank_render import render_bank_batched, render_rir_banks
 from .channels import (
@@ -46,12 +47,14 @@ from .materials import (
 from .oracle import (
     ACOUSTIC_CONFIG,
     BankRirOracle,
+    HabitatRirOracle,
     RirOracle,
     SyntheticRirOracle,
     render_rir_bank,
     save_rir_bank,
 )
 from .scene import Scene
+from .visual import habitat_render_fn, interpolate_rgb_images, render_envmap, topdown_render_fn
 
 __all__ = [
     "ACOUSTIC_CONFIG",
@@ -66,9 +69,12 @@ __all__ = [
     "densify_path",
     "generate_xy_grid_points",
     "grid_cache_path",
+    "habitat_render_fn",
+    "HabitatRirOracle",
     "image_sources",
     "image_sources_walls",
     "interpolate_receiver_poses",
+    "interpolate_rgb_images",
     "LINEAR_4CH_ARRAY",
     "load_material_config",
     "load_room_grid",
@@ -80,6 +86,7 @@ __all__ = [
     "real_sh_matrix",
     "Receiver",
     "render_bank_batched",
+    "render_envmap",
     "render_rir_bank",
     "render_rir_banks",
     "render_shoebox_rir",
@@ -97,6 +104,7 @@ __all__ = [
     "SyntheticRirOracle",
     "tail_noise",
     "topdown_map",
+    "topdown_render_fn",
     "wall_curves_from_labels",
     "WallPhysics",
     "WALLS",

@@ -6,9 +6,10 @@ the ``RirOracle`` protocol:
 1. ``SyntheticRirOracle`` — the built-in shoebox image-source engine, here
    in torch on ``device`` (the card unless it names another);
 2. ``BankRirOracle`` — precomputed per-scene banks (.npz, read by
-   ``bridge.load_rir_bank``).
+   ``bridge.load_rir_bank``);
+3. ``HabitatRirOracle`` — the live habitat-sim adapter (host code; its
+   ``habitat`` module is injectable, and imported only when not given).
 
-The reference's live habitat-sim adapter is not ported (ROADMAP A5).
 ``render_rir_bank`` renders all (source, receiver) pairs of a bank, through
 the batched renderer (``bank_render``) whenever the oracle is multiband.
 """
@@ -143,6 +144,127 @@ class BankRirOracle:
                 f"bank has {rir.shape[0]} channels, requested {channel.count}"
             )
         return np.asarray(rir, np.float32)
+
+
+class HabitatRirOracle:
+    """Live habitat-sim adapter: one persistent Simulator + audio sensor,
+    re-posed per render (SonicSim_rir.py:214-436 role: create_scene →
+    add_audio_sensor → update_receiver/update_source → render_ir).
+
+    Unlike the reference — which owns trajectory sampling, audio, and
+    rendering in one Scene god-object — this is only the acoustic backend
+    behind the ``RirOracle`` protocol, so banks rendered live drop into the
+    same pipeline as synthetic/precomputed ones. ``habitat`` is injectable
+    for tests (a mock module); by default the real habitat_sim is imported.
+    Host code, as in the JAX package: ``render`` returns a (C, L) float32
+    numpy IR, as the port's other oracles do.
+    """
+
+    def __init__(
+        self,
+        scene_glb: str | Path,
+        navmesh: str | Path | None = None,
+        material_json: str | Path | None = None,
+        channel: ChannelModel | None = None,
+        sample_rate: int = 16000,
+        sensor_height: float = 1.5,
+        acoustic_config: dict | None = None,
+        seed: int = 0,
+        habitat=None,
+    ):
+        if habitat is None:
+            try:
+                import habitat_sim as habitat  # noqa: F811
+            except ImportError as e:
+                raise ImportError(
+                    "habitat_sim is not installed. Render RIR banks offline "
+                    "with the reference pipeline and load them via "
+                    "BankRirOracle, or use SyntheticRirOracle."
+                ) from e
+        self._hs = habitat
+        self.sample_rate = int(sample_rate)
+        self.sensor_height = float(sensor_height)
+        cfg = dict(ACOUSTIC_CONFIG, sampleRate=self.sample_rate)
+        cfg.update(acoustic_config or {})
+
+        # Simulator over the scene mesh (create_scene, rir.py:214-258).
+        backend_cfg = habitat.SimulatorConfiguration()
+        backend_cfg.scene_id = str(scene_glb)
+        backend_cfg.load_semantic_mesh = True
+        backend_cfg.enable_physics = False
+        agent_cfg = habitat.agent.AgentConfiguration()
+        self.sim = habitat.Simulator(
+            habitat.Configuration(backend_cfg, [agent_cfg])
+        )
+        if navmesh is not None:
+            self.sim.pathfinder.load_nav_mesh(str(navmesh))
+        self.sim.seed(int(seed))
+
+        # Audio sensor from the acoustic config (add_audio_sensor,
+        # rir.py:275-307).
+        spec = habitat.AudioSensorSpec()
+        spec.uuid = "audio_sensor"
+        spec.enableMaterials = material_json is not None
+        if channel is not None:
+            spec.channelLayout.type = getattr(
+                habitat.sensor.RLRAudioPropagationChannelLayoutType,
+                channel.channel_type,
+            )
+            spec.channelLayout.channelCount = channel.count
+        ac = spec.acousticsConfig
+        ac.sampleRate = cfg["sampleRate"]
+        ac.direct = cfg["direct"]
+        ac.indirect = cfg["indirect"]
+        ac.diffraction = cfg["diffraction"]
+        ac.transmission = cfg["transmission"]
+        ac.directSHOrder = cfg["directSHOrder"]
+        ac.indirectSHOrder = cfg["indirectSHOrder"]
+        ac.unitScale = cfg["unitScale"]
+        ac.frequencyBands = cfg["frequencyBands"]
+        ac.indirectRayCount = cfg["indirectRayCount"]
+        spec.position = [0.0, self.sensor_height, 0.0]
+        self.sim.add_sensor(spec)
+        self._sensor = self.sim.get_agent(0)._sensors["audio_sensor"]
+        if material_json is not None:
+            self._sensor.setAudioMaterialsJSON(str(material_json))
+
+    def render(
+        self,
+        source_position: np.ndarray,
+        receiver_position: np.ndarray,
+        channel: ChannelModel,
+        receiver_rotation: float = 90.0,
+    ) -> np.ndarray:
+        """Pose agent + source, read one observation → (C, L) float32
+        (update_receiver rir.py:335-352 + update_source rir.py:398-414 +
+        render_ir rir.py:427-436)."""
+        import math
+
+        agent = self.sim.get_agent(0)
+        state = agent.get_state()
+        state.position = np.asarray(receiver_position, np.float32)
+        state.rotation = self._hs.utils.common.quat_from_angle_axis(
+            math.radians(receiver_rotation), np.array([0.0, 1.0, 0.0])
+        )
+        state.sensor_states = {}
+        agent.set_state(state, True)
+        self._sensor.setAudioSourceTransform(
+            np.asarray(source_position, np.float32)
+            + np.array([0.0, self.sensor_height, 0.0], np.float32)
+        )
+        ir = np.asarray(
+            self.sim.get_sensor_observations()["audio_sensor"], np.float32
+        )
+        ir = np.atleast_2d(ir)
+        if ir.shape[0] != channel.count:
+            raise ValueError(
+                f"habitat returned {ir.shape[0]} channels, requested "
+                f"{channel.count}"
+            )
+        return ir
+
+    def close(self) -> None:
+        self.sim.close()
 
 
 def render_rir_bank(

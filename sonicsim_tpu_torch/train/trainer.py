@@ -3,8 +3,8 @@
 Port of ``sonicsim_tpu.train.trainer`` (the reference's
 AudioLightningModule + pl.Trainer, audio_litmodule.py:36-211,
 train.py:28-109). The step computes the JAX package's function (optax
-``clip_by_global_norm`` then ``adam``/``adamw`` behind an injected LR) term
-by term, not PyTorch's nearest calls:
+``clip_by_global_norm`` then the named optax optimizer behind an injected
+LR) term by term, not PyTorch's nearest calls:
 
 * **Clipping** is optax's: ``g_norm = sqrt(Σ_leaves Σ g²)``; below
   ``max_norm`` the gradients pass unchanged, else each becomes
@@ -13,7 +13,8 @@ by term, not PyTorch's nearest calls:
 * **Optimizer.** optax ``adam`` is ``torch.optim.Adam(lr, (0.9, 0.999),
   eps=1e-8)``. The JAX factory turns ``adam`` with a weight decay into
   optax ``adamw`` (decoupled decay), which is ``torch.optim.AdamW``;
-  ``Adam(weight_decay=)`` would be L2 regularisation instead.
+  ``Adam(weight_decay=)`` would be L2 regularisation instead. The other
+  twelve names are ``train.optim``'s ports of optax's functions.
 * **bf16** casts the state the bridge maps inside the step
   (``infer.precision.cast_state``, a differentiable ``.to``, the cast
   ``bf16_forward`` takes) and runs the model through
@@ -55,10 +56,15 @@ from .schedulers import EarlyStopping, ReduceLROnPlateau
 
 logger = logging.getLogger(__name__)
 
-# The JAX factory's optimizer names (optax); the port has adam and adamw.
+# The JAX factory's optimizer names (optax): adam and adamw are torch's Adam
+# and AdamW, the other twelve ``train.optim``'s.
 _OPTAX_NAMES = ("adam", "adamw", "sgd", "rmsprop", "adagrad", "adadelta", "lamb",
                 "lars", "radam", "adafactor", "novograd", "yogi", "adabelief", "lion")
 _OPTAX_ADAMW_DECAY = 1e-4  # optax.adamw's default, where the config sets none
+# optax.adam(w)'s keywords: those torch's Adam(W) computes, and those it
+# takes at their default only.
+_ADAM_KEYWORDS = ("b1", "b2", "eps")
+_ADAM_FIXED = dict(eps_root=0.0, mu_dtype=None, nesterov=False, mask=None)
 
 
 @dataclass
@@ -68,22 +74,46 @@ class TrainState:
     step: int = 0
 
 
-def make_optimizer(params: Iterable[torch.Tensor], lr: float = 1e-3,
-                   weight_decay: float = 0.0, name: str = "adam") -> torch.optim.Optimizer:
-    """The JAX factory's ``name`` optimizer over ``params``, its LR in
-    ``param_groups`` (:func:`set_learning_rate`). Clipping is the train
-    step's (:func:`make_train_step`)."""
+def make_optimizer(model, lr: float = 1e-3, weight_decay: float = 0.0, name: str = "adam",
+                   **kwargs) -> torch.optim.Optimizer:
+    """The JAX factory's ``name`` optimizer (sonicsim_tpu/train/trainer.py:
+    42-84) over ``model`` (a zoo model, whose flax leaves the layerwise
+    optimizers take their statistics over, ``optim.flax_leaf_map``) or a
+    bare parameter list (each tensor one leaf), its LR in ``param_groups``
+    (:func:`set_learning_rate`). As in the JAX factory, ``adam`` with a
+    weight decay is ``adamw``; ``weight_decay`` reaches the optimizers whose
+    optax function takes it (adamw, adadelta, lamb, lars, novograd, lion),
+    and where it is 0 they keep optax's default (adamw 1e-4, lion 1e-3, the
+    others 0); ``kwargs`` are the optax function's keywords. Clipping is
+    the train step's (:func:`make_train_step`)."""
+    from ..models.base import _FLAX_LAYOUT
+    from . import optim
+
     key = name.lower()
     if key not in _OPTAX_NAMES:
         raise KeyError(f"unknown optimizer {name!r}; known: {sorted(_OPTAX_NAMES)}")
-    if key not in ("adam", "adamw"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to sonicsim_tpu_torch yet (ROADMAP "
-            "A7c); the port has adam and adamw")
-    if key == "adam" and not weight_decay:
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay or _OPTAX_ADAMW_DECAY)
+    if weight_decay and key == "adam":
+        key = "adamw"
+    zoo = isinstance(model, nn.Module) and type(model).__name__.lower() in _FLAX_LAYOUT
+    params = list(model.parameters() if isinstance(model, nn.Module) else model)
+    if key in ("adam", "adamw"):
+        for k, v in kwargs.items():
+            if k not in _ADAM_KEYWORDS and k not in _ADAM_FIXED:
+                raise TypeError(f"{key}() got an unexpected keyword argument {k!r}")
+            if k in _ADAM_FIXED and v != _ADAM_FIXED[k]:
+                raise NotImplementedError(f"{key}({k}={v!r}): the port takes {k} at its "
+                                          f"default, {_ADAM_FIXED[k]!r}")
+        betas = (kwargs.get("b1", 0.9), kwargs.get("b2", 0.999))
+        eps = kwargs.get("eps", 1e-8)
+        if key == "adam":
+            return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
+                                 weight_decay=weight_decay or _OPTAX_ADAMW_DECAY)
+    cls = optim.OPTIMIZERS[key]
+    if weight_decay and "weight_decay" in cls.KEYWORDS:
+        kwargs["weight_decay"] = weight_decay
+    leaf_map = optim.flax_leaf_map(model) if zoo else optim.tensor_leaf_map(params)
+    return cls(leaf_map, lr, **kwargs)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -199,8 +229,21 @@ class Trainer:
     n_devices: int | None = None
     optimizer_name: str = "adam"
     precision: str = "f32"  # 'bf16': bf16 compute with float32 master weights
+    wandb_project: str | None = None  # optional W&B mirror of the JSONL log
     history: list = field(default_factory=list)
     _batch_divisor = 1  # the JAX package's mesh size: one device here
+
+    def _init_wandb(self):
+        """The W&B run mirroring ``metrics.jsonl`` (the JAX ``Trainer``'s),
+        or None without a project or without ``wandb``."""
+        if not self.wandb_project:
+            return None
+        try:
+            import wandb
+
+            return wandb.init(project=self.wandb_project, name=Path(self.exp_dir).name)
+        except ImportError:
+            return None
 
     def _val_loss(self, eval_step, batches, device) -> float | None:
         """Weighted mean of the val metric over ``batches``, exact under
@@ -294,8 +337,8 @@ class Trainer:
         (exp_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
         device = next(self.model.parameters()).device
 
-        optimizer = make_optimizer(self.model.parameters(), self.lr, self.weight_decay,
-                                   self.optimizer_name)
+        wb = self._init_wandb()
+        optimizer = make_optimizer(self.model, self.lr, self.weight_decay, self.optimizer_name)
         train_step = make_train_step(self.model, self.loss_fn, optimizer,
                                      self.precision, self.clip_norm)
         # The val metric defaults to the training loss (the reference's
@@ -327,6 +370,8 @@ class Trainer:
                 self.history.append(rec)
                 with open(exp_dir / "metrics.jsonl", "a") as f:
                     f.write(json.dumps(rec) + "\n")
+                if wb is not None:
+                    wb.log(rec)
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.time()
             losses = []
@@ -352,6 +397,8 @@ class Trainer:
             self.history.append(rec)
             with open(exp_dir / "metrics.jsonl", "a") as f:
                 f.write(json.dumps(rec) + "\n")
+            if wb is not None:
+                wb.log(rec)
 
             ckpt = exp_dir / "checkpoints" / f"epoch={epoch}-val_loss={val_loss:.4f}.pkl"
             # NaN/inf epochs never enter top-k: a NaN entry defeats the

@@ -1,6 +1,6 @@
 """Host helpers: WAV I/O, seeding, audio and list helpers, transcripts, the
-component registry and the YAML config system (port of
-``sonicsim_tpu.utils``)."""
+component registry, the YAML config system and per-stage timing and
+traces (port of ``sonicsim_tpu.utils``)."""
 
 from .audio import (
     all_pairs,
@@ -14,6 +14,7 @@ from .audio import (
     sum_arrays_with_different_length,
 )
 from .config import import_target, instantiate, load_config, save_config
+from .profiling import StageTimer, annotate, trace
 from .registry import Registry
 from .seeding import stable_seed
 from .transcripts import load_transcripts, process_librispeech
@@ -21,7 +22,9 @@ from .wavio import read_wav, resample, wav_num_frames, write_wav
 
 __all__ = [
     "Registry",
+    "StageTimer",
     "all_pairs",
+    "annotate",
     "clip_all",
     "clip_two",
     "import_target",
@@ -39,6 +42,7 @@ __all__ = [
     "save_config",
     "stable_seed",
     "sum_arrays_with_different_length",
+    "trace",
     "wav_num_frames",
     "write_wav",
 ]

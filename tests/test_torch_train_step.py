@@ -261,8 +261,9 @@ def test_make_optimizer_maps_the_jax_factory():
     assert make_optimizer(p, weight_decay=0.1).defaults["weight_decay"] == 0.1
     # optax.adamw's own default decay where the config sets none
     assert make_optimizer(p, name="adamw").defaults["weight_decay"] == 1e-4
-    with pytest.raises(NotImplementedError, match="A7c"):
-        make_optimizer(p, name="sgd")
+    sgd = make_optimizer(p, name="sgd")  # optax.sgd: no momentum, no decay by default
+    assert type(sgd).__name__ == "SGD" and not isinstance(sgd, torch.optim.SGD)
+    assert sgd.defaults == dict(lr=1e-3, momentum=None, nesterov=False)
     with pytest.raises(KeyError):
         make_optimizer(p, name="nope")
     set_learning_rate(adam, 5e-4)
