@@ -162,6 +162,25 @@ Phases, one line each:
     reference ``rir_save_*.pt`` through ``scripts.import_rir_banks`` and
     ``BankRirOracle`` into phase 7's mixture step, bit-equal to phase 7's
     (phase 7's path: both kernels launch).
+20. the device mesh (``parallel.mesh``): two replicas of the card, and
+    ``make_mesh()`` where the host has more cards; each sharded call held
+    to the unsharded call on the card and both timed: (a)
+    ``render_mixture_sources(mesh=)`` at the headline's shapes (12 sources
+    x 60 s, 40 binaural 16,000-tap RIRs, 2 static sources), fused and
+    ``weights=``, within 1e-6; (b) phase 6's banks through
+    ``render_rir_banks(mesh=)``, a bank across the shards, within 1e-6,
+    peak 1 per bank; (c) phase 8's first mixture through
+    ``render_mixture(mesh=)``, both sinks, within one int16 step; (d)
+    ``wav_chunk_inference(mesh=)`` of a 60 s mixture with ConvTasNet and
+    DCCRN at their configs' widths, within 1e-5 · max|ref| of the unsharded
+    call at ``batch_size`` x 2 (DCCRN's batch statistics over every window
+    of a call); (e) the data-parallel train step (ConvTasNet at B=8 x 4 s,
+    DCCRN and FRCRN at B=2 x 4 s): float64 within 1e-9 · max|g64| of the
+    unsharded step, float32 within max(1e-4, 2 x the unsharded float32
+    step's largest distance over three roundings: the batch in order,
+    reversed, each item twice) · max|g64| of the unsharded float64 step
+    (phase 14's rule), ms/step sharded and unsharded. (a)-(c) are a main path: K1's
+    ramp form and K2 launch there.
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -483,6 +502,22 @@ ADAPTERS = dict(optim_model="DPTNetModel", models=dict(
                 fit_epochs=2)
 OPT_F64_REL = 1e-9  # of max|Δp64|: F64_REL, the step checks' float64 rule
 OPT_F32_REL = 1e-5  # of max|Δp64|: TRAIN_LOSS_REL's floor for the float32 rule
+# Phase 20: the device mesh (ROADMAP A11), two replicas of the card (and
+# ``make_mesh()`` where there are more cards), each sharded call against the
+# unsharded call on the card: (a) the mixture step at the headline's shapes,
+# (b) phase 6's banks, (c) phase 8's first mixture, (d) chunked inference
+# of a 60 s mixture at the configs' widths, (e) the data-parallel train step
+# at phase 10's and phase 14's batches. Budget: 60 s of the call.
+MESH = dict(replicas=2, n_src=HEADLINE["n_src"], iters=3, chunk_s=60.0,
+            chunk=dict(target_length=12.0, hop_length=4.0, batch_size=10),
+            chunk_models={"convtasnet": ("ConvTasNet", SERVE["model"], 2),
+                          "dccrn": ENH_MODELS["dccrn"] + (1,)},
+            train={"convtasnet": ("ConvTasNet", SERVE["model"], 8),
+                   "dccrn": ENH_MODELS["dccrn"] + (2,), "frcrn": ENH_MODELS["frcrn"] + (2,)},
+            losses=ENH_LOSSES, crop_s=4.0, lr=1e-3, clip=5.0, reps=3, warmup=1, seed=0)
+MESH_ATOL = 1e-6  # tests/test_pipeline_mesh.py:114-118: sharded tracks and banks
+MESH_PCM = 1.01 / 32768  # one int16 step: generated WAVs (test_pipeline_mesh.py:191)
+MESH_CHUNK_REL = 1e-5  # of max|ref|: chunked output against batch_size x replicas
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -1112,7 +1147,8 @@ def _bank_parting(oracle, channel, srcs, mic, where, label: str, trace_dir) -> N
     room = bank_render._bank_params(oracle)
     flat = bank_render._flatten_items(oracle, [srcs[s]], mic, channel, [90.0] * len(mic))
     traces, delays = {}, {}
-    for side, dev in (("device", bank_render._device(oracle, None)), ("cpu", torch.device("cpu"))):
+    for side, dev in (("device", bank_render.resolve_device(oracle.device)),
+                      ("cpu", torch.device("cpu"))):
         items = {k: torch.tensor(v, device=dev) for k, v in zip(
             ("srcs", "recvs", "normals", "chan_idx", "seeds"), flat)}
         items["chan_idx"], items["seeds"] = items["chan_idx"].long(), items["seeds"].long()
@@ -4024,12 +4060,356 @@ def phase_bank_import(device, banks, ways, static, cfg, root: Path) -> dict:
     return dict(banks=n, convert_s=convert_s)
 
 
+def _mesh_render(device, mesh, cfg, mix_cfg, counted) -> dict:
+    """Phase 20 (a): the mixture step at the headline's shapes, each form
+    sharded and not; inputs uploaded once."""
+    import torch
+
+    from sonicsim_tpu_torch.parallel import render_mixture_sources
+
+    lufs = tuple(-17.0 - 0.25 * i for i in range(cfg["n_src"]))
+    inp = mixture_inputs(dict(mix_cfg, speech_lufs=lufs))
+    up = {k: torch.from_numpy(inp[k]).to(device) for k in ("speech", "banks", "weights",
+                                                            "static_audio", "static_rirs")}
+    out = {}
+    for form in ("fused", "weights"):
+        args = (up["speech"], up["banks"], up["weights"] if form == "weights" else None,
+                inp["offsets"], inp["lengths"], inp["max_seg"], up["static_audio"],
+                up["static_rirs"], inp["speech_lufs"], inp["static_lufs"], SR)
+
+        def one(args=args):
+            return render_mixture_sources(*args, device=device)
+
+        def sharded(args=args):
+            return render_mixture_sources(*args, mesh=mesh)
+
+        want = one()
+        got = counted(sharded)
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"mesh render ({form}) not finite")
+        check(all(g.shape == w.shape and g.device == w.device for g, w in zip(got, want)),
+              f"mesh render ({form}): shapes or devices differ")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(err <= MESH_ATOL, f"mesh render ({form}) vs unsharded: max abs err {err}")
+        out[form] = dict(err=err, ms=median_ms(sharded, device, cfg["iters"], 1),
+                         one_ms=median_ms(one, device, cfg["iters"], 1))
+    return out
+
+
+def _mesh_banks(device, mesh, cfg, bank_cfg, counted) -> dict:
+    """Phase 20 (b): phase 6's three banks in one render over the mesh."""
+    import torch
+
+    from sonicsim_tpu_torch.parallel.mesh import shard_slices
+    from sonicsim_tpu_torch.sim import render_rir_banks
+
+    oracle, channel = bank_scene(bank_cfg, device=device)
+    mic = [np.asarray(bank_cfg["receiver"], np.float64)]
+    ways = [bank_ways(k, bank_cfg["n_ways"]) for k in range(bank_cfg["n_banks"])]
+
+    def one():
+        return render_rir_banks(oracle, ways, mic, channel, out_device=True)
+
+    def sharded():
+        return render_rir_banks(oracle, ways, mic, channel, out_device=True, mesh=mesh)
+
+    want = one()
+    got = counted(sharded)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    peaks = [float(g.abs().max()) for g in got]
+    check(err <= MESH_ATOL, f"mesh banks vs unsharded: max abs err {err}")
+    check(all(abs(p - 1.0) <= MESH_ATOL for p in peaks), f"mesh banks' peaks {peaks}")
+    check(all(bool(torch.isfinite(g).all()) for g in got), "mesh banks not finite")
+    # which banks lie across two shards of the item axis
+    per_item = channel.count * len(mic)
+    bounds = np.cumsum([0] + [len(w) * per_item for w in ways])
+    cuts = [sl.start for _, sl in shard_slices(int(bounds[-1]), mesh)][1:]
+    across = [k for k in range(len(ways)) if any(bounds[k] < c < bounds[k + 1] for c in cuts)]
+    check(bool(across), f"no bank lies across the shards (cuts at {cuts})")
+    return dict(err=err, across=across, items=int(bounds[-1]),
+                s=_host_median_s(lambda: (sharded(), sync(device)), cfg["iters"]),
+                one_s=_host_median_s(lambda: (one(), sync(device)), cfg["iters"]))
+
+
+def _mesh_generation(device, mesh, gen, folder: Path, root: Path, counted) -> dict:
+    """Phase 20 (c): phase 8's first mixture again, through render_mixture
+    with and without the mesh, on each sink."""
+    import torch
+
+    from sonicsim_tpu_torch.bridge import plan_from_json
+    from sonicsim_tpu_torch.dataset import render_mixture
+    from sonicsim_tpu_torch.utils import read_wav
+
+    plan = plan_from_json(folder / "mixture_plan.json")
+    scene = gen["factory"](folder.parent.name)
+    out = {}
+    for sink in ("disk", "device"):
+        runs = {}
+        for label, m in (("one", None), ("mesh", mesh)):
+            dest = root / f"{sink}_{label}"
+            t0 = time.perf_counter()
+            if m is None:
+                meta = render_mixture(scene, plan, dest, save_trace=False, sink=sink)
+            else:
+                meta = counted(lambda dest=dest: render_mixture(
+                    scene, plan, dest, save_trace=False, sink=sink, mesh=m))
+            sync(device)
+            runs[label] = (meta, time.perf_counter() - t0)
+        if sink == "disk":
+            names = _track_names(len(plan.speech_plans))
+            err = max(float(np.abs(read_wav(root / "disk_mesh" / n)[0]
+                                   - read_wav(root / "disk_one" / n)[0]).max()) for n in names)
+            check(err <= MESH_PCM, f"mesh generation (disk): WAVs differ by {err * 32768} steps")
+        else:
+            a, b = (runs[k][0]["tracks"] for k in ("mesh", "one"))
+            err = float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
+            if b.dtype == torch.int16:
+                err /= 32768.0
+            check(a.shape == b.shape and err <= MESH_PCM,
+                  f"mesh generation (device): tracks differ by {err * 32768} steps")
+        out[sink] = dict(err_steps=err * 32768, s=runs["mesh"][1], one_s=runs["one"][1])
+    return out
+
+
+def _mesh_chunked(device, mesh, cfg, mix60, counted) -> dict:
+    """Phase 20 (d): ``wav_chunk_inference`` of a 60 s mixture, ``batch_size``
+    windows per replica, against the unsharded call at ``batch_size`` x the
+    replicas."""
+    import torch
+
+    from sonicsim_tpu_torch import bridge
+    from sonicsim_tpu_torch.infer import wav_chunk_inference
+    from sonicsim_tpu_torch.models import ConvTasNet
+
+    x = torch.from_numpy(mix60).to(device)
+    kw = dict(cfg["chunk"])
+    b = kw.pop("batch_size")
+    out = {}
+    for stem, (name, args, n_tracks) in cfg["chunk_models"].items():
+        if name == "ConvTasNet":
+            model = ConvTasNet(**args, device=device).eval()
+            weights = seeded_convtasnet(args, cfg["seed"])
+            model.load_state_dict(bridge.convtasnet_state_dict(weights))
+        else:
+            model = seeded_zoo(name, args, cfg["seed"]).to(device)
+
+        def one(model=model, n_tracks=n_tracks):
+            return wav_chunk_inference(model, x, SR, batch_size=b * mesh.size, n_tracks=n_tracks,
+                                       **kw)
+
+        def sharded(model=model, n_tracks=n_tracks):
+            return wav_chunk_inference(model, x, SR, batch_size=b, n_tracks=n_tracks, mesh=mesh,
+                                       **kw)
+
+        want = one()
+        got = counted(sharded)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"mesh chunked ({stem}): {tuple(got.shape)} not finite or not {tuple(want.shape)}")
+        ref = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= MESH_CHUNK_REL * ref, f"mesh chunked ({stem}): max abs err {err} of {ref}")
+        out[stem] = dict(err_rel=err / ref, ms=median_ms(sharded, device, 2, 0),
+                         one_ms=median_ms(one, device, 2, 0))
+        del model
+    return out
+
+
+def _grad_dist(a: dict, b: dict) -> float:
+    """max |a − b| over every gradient, of max |b| over the tree."""
+    g_max = max(float(g.abs().max()) for g in b.values())
+    return max(float((a[n].double() - g.double()).abs().max()) for n, g in b.items()) / g_max
+
+
+def _mesh_training(device, mesh, cfg, folders, counted) -> dict:
+    """Phase 20 (e): one data-parallel train step of each model (the loss on
+    the gathered outputs, one backward, clip, Adam) against the unsharded
+    step from the same weights and batch, in float64 and float32; ms/step of
+    each in float32. For the batch-statistics models, the float32 step with
+    per-shard statistics, which must miss the float32 bound."""
+    import torch
+
+    from sonicsim_tpu_torch import bridge
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
+    from sonicsim_tpu_torch.models import ConvTasNet, get
+    from sonicsim_tpu_torch.parallel import Mesh, gather
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+
+    class PerShard(torch.nn.Module):
+        """Each of ``n`` shards through the unsharded model, the outputs
+        gathered: the per-shard-statistics step a mesh step must not be."""
+
+        def __init__(self, inner, n):
+            super().__init__()
+            self.inner, self.n = inner, n
+
+        def forward(self, x):
+            return gather([self.inner(s) for s in x.tensor_split(self.n)], x.device)
+
+    split = folders[0].parent.parent
+    out = {}
+    for stem, (name, args, batch) in cfg["train"].items():
+        if name == "ConvTasNet":
+            weights = bridge.convtasnet_state_dict(seeded_convtasnet(args, cfg["seed"]))
+            loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), pit_from="pw_mtx",
+                                     threshold_byloss=False)
+            spks = 2
+        else:
+            weights = seeded_zoo(name, args, cfg["seed"]).state_dict()
+            loss_fn = _instantiate_loss(cfg["losses"][stem][0])
+            spks = 1
+        dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                              num_spks=spks, duration=cfg["crop_s"], num_samples=batch,
+                              batch_size=batch, seed=cfg["seed"])
+        mix, tgt = (torch.from_numpy(a).to(device) for a in next(iter(dm.train_batches(0))))
+
+        def fresh(dtype, m, shards=0, name=name, args=args, weights=weights, loss_fn=loss_fn):
+            model = (ConvTasNet(**args, device=device) if name == "ConvTasNet"
+                     else get(name)(**args, device=device))
+            model.load_state_dict(weights)
+            model.to(dtype)
+            step = make_train_step(PerShard(model, shards) if shards else model, loss_fn,
+                                   make_optimizer(model.parameters(), cfg["lr"]),
+                                   clip_norm=cfg["clip"], mesh=m)
+            return model, step
+
+        # the largest part of the mesh the batch divides, as Trainer.fit takes
+        n_dev = max(d for d in range(1, mesh.size + 1) if batch % d == 0)
+        sub = Mesh(mesh.devices[:n_dev])
+        grads, losses, ms, wall = {}, {}, {}, {}
+        runs = [(torch.float64, "one", None), (torch.float64, "mesh", sub),
+                (torch.float32, "one", None), (torch.float32, "mesh", sub),
+                (torch.float32, "reversed", None), (torch.float32, "doubled", None)]
+        # the test's power: the batch-statistics models' per-shard step must
+        # miss the float32 bound (ConvTasNet has no batch statistics, and its
+        # mean loss over equal shards is the whole batch's)
+        if name != "ConvTasNet" and n_dev > 1:
+            runs.append((torch.float32, "per_shard", None))
+        for dtype, label, m in runs:
+            t0 = time.perf_counter()
+            model, step = fresh(dtype, m, n_dev if label == "per_shard" else 0)
+            x, y = {"reversed": (mix.flip(0), tgt.flip(0)),
+                    "doubled": (torch.cat([mix, mix]), torch.cat([tgt, tgt])),
+                    }.get(label, (mix, tgt))
+            x, y = x.to(dtype), y.to(dtype)
+            run = (lambda step=step, x=x, y=y: step(x, y))
+            losses[dtype, label] = float(counted(run) if m is not None else run())
+            grads[dtype, label] = {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters() if p.grad is not None}
+            if dtype == torch.float32 and label in ("one", "mesh"):
+                ms[label] = median_ms(run, device, cfg["reps"], cfg["warmup"])
+            wall[f"{str(dtype)[6:]} {label}"] = round(time.perf_counter() - t0, 2)
+            del model, step
+        d64 = _grad_dist(grads[torch.float64, "mesh"], grads[torch.float64, "one"])
+        # phase 14's rule, float64 refereeing: the unsharded float32 step's
+        # largest distance from it over three roundings of its function (the
+        # batch in order, reversed, and each item twice: the mean loss and
+        # the batch statistics stay, the kernels see another batch size, as
+        # on the shards) sets the sharded float32 step's bound
+        f32_vs_64 = max(_grad_dist(grads[torch.float32, k], grads[torch.float64, "one"])
+                        for k in ("one", "reversed", "doubled"))
+        d32 = _grad_dist(grads[torch.float32, "mesh"], grads[torch.float64, "one"])
+        bound = max(TRAIN_GRAD_REL, ILL_FACTOR * f32_vs_64)
+        check(all(np.isfinite(v) for v in losses.values()), f"mesh step ({stem}): {losses}")
+        check(d64 <= F64_REL, f"mesh step ({stem}) float64 vs unsharded: {d64:.3g} of max|g64|")
+        check(d32 <= bound, f"mesh step ({stem}) float32 vs the unsharded float64 step: "
+              f"{d32:.3g} of max|g64| (bound {bound:.3g})")
+        per_shard = (_grad_dist(grads[torch.float32, "per_shard"], grads[torch.float64, "one"])
+                     if (torch.float32, "per_shard") in grads else None)
+        if per_shard is not None:
+            check(per_shard > bound, f"mesh step ({stem}): the per-shard-statistics step, "
+                  f"{per_shard:.3g} of max|g64|, meets the bound {bound:.3g}")
+        out[stem] = dict(batch=batch, devices=n_dev, wall=wall, d64=d64, d32=d32, bound=bound,
+                         f32_vs_64=f32_vs_64, per_shard=per_shard, ms=ms["mesh"],
+                         one_ms=ms["one"],
+                         loss_rel=abs(losses[torch.float32, "mesh"] - losses[torch.float32, "one"])
+                         / abs(losses[torch.float32, "one"]))
+        del grads
+    return out
+
+
+def phase_mesh(device, cfg, mix_cfg, bank_cfg, gen, folders, root: Path, smi):
+    """Phase 20: the device mesh. Returns (each mesh's numbers, the kernel
+    launches of its sharded render paths, (a)-(c))."""
+    import torch
+
+    from sonicsim_tpu_torch.ops import kernels
+    from sonicsim_tpu_torch.parallel import Mesh, make_mesh
+    from sonicsim_tpu_torch.scripts.common import strict_float32
+
+    strict_float32()
+    root.mkdir()
+    meshes = {f"{cfg['replicas']} x {device}": Mesh([device] * cfg["replicas"])}
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        meshes[f"make_mesh(): {torch.cuda.device_count()} cards"] = make_mesh()
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def counted(fn):
+        kernels.reset_launch_counts()
+        result = fn()
+        sync(device)
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v
+        return result
+
+    mix60 = _mono_mixes(folders[:1])[0][: int(cfg["chunk_s"] * SR)]
+    stats = {}
+    for i, (label, mesh) in enumerate(meshes.items()):
+        part_s, mark = {}, [time.perf_counter()]
+
+        def part(name, result, part_s=part_s, mark=mark):
+            now = time.perf_counter()
+            part_s[name] = round(now - mark[0], 1)
+            mark[0] = now
+            return result
+
+        render = part("a", _mesh_render(device, mesh, cfg, mix_cfg, counted))
+        banks = part("b", _mesh_banks(device, mesh, cfg, bank_cfg, counted))
+        generation = part("c", _mesh_generation(device, mesh, gen, folders[0], root / f"gen{i}",
+                                                counted))
+        paths = dict(launches)
+        chunked = part("d", _mesh_chunked(device, mesh, cfg, mix60, counted))
+        training = part("e", _mesh_training(device, mesh, cfg, folders, counted))
+        check(launches == paths, f"mesh chunked inference or training launched a kernel: "
+              f"{launches} against {paths}")
+        stats[label] = dict(render=render, banks=banks, generation=generation, chunked=chunked,
+                            training=training, seconds=part_s)
+        print(f"mesh[{label}] (a) render_mixture_sources, {cfg['n_src']} src x "
+              f"{mix_cfg['duration']:g} s + 2 static, {mix_cfg['p']} x {mix_cfg['c']} x "
+              f"{mix_cfg['l']} banks: " + "; ".join(
+                  f"{k} {v['ms']:.3f} ms sharded vs {v['one_ms']:.3f} unsharded, max abs err "
+                  f"{v['err']:.3g}" for k, v in render.items()) + " (medians of "
+              f"{cfg['iters']}); (b) phase 6's banks, {banks['items']} items: "
+              f"{banks['s'] * 1e3:.2f} ms sharded vs {banks['one_s'] * 1e3:.2f} unsharded (host "
+              f"medians), max abs err {banks['err']:.3g}, banks {banks['across']} across the "
+              f"shards, peaks 1; (c) phase 8's first mixture: " + "; ".join(
+                  f"{k} sink {v['s']:.3f} s sharded vs {v['one_s']:.3f} unsharded, "
+                  f"{v['err_steps']:.3g} int16 steps apart" for k, v in generation.items()),
+              flush=True)
+        print(f"mesh[{label}] (d) wav_chunk_inference, {cfg['chunk_s']:g} s at "
+              f"{cfg['chunk']}: " + "; ".join(
+                  f"{k} {v['ms']:.2f} ms sharded vs {v['one_ms']:.2f} at batch_size x "
+                  f"{mesh.size}, {v['err_rel']:.3g} of max|ref|" for k, v in chunked.items())
+              + "; (e) train step, seeded, Adam lr " + f"{cfg['lr']}, clip {cfg['clip']}: "
+              + "; ".join(
+                  f"{k} B={v['batch']} x {cfg['crop_s']:g} s over {v['devices']} {v['ms']:.2f} "
+                  f"ms/step sharded vs "
+                  f"{v['one_ms']:.2f} unsharded, float64 {v['d64']:.3g} of max|g64| from the "
+                  f"unsharded float64 step, float32 {v['d32']:.3g} (bound {v['bound']:.3g}; the "
+                  f"unsharded float32 step's three roundings {v['f32_vs_64']:.3g}; "
+                  + ("no batch statistics" if v["per_shard"] is None else
+                     f"per-shard statistics {v['per_shard']:.3g}") + "), loss rel "
+                  f"{v['loss_rel']:.3g}, host s per run {v['wall']}"
+                  for k, v in training.items()) + f"; host seconds of each part {part_s}; {smi}",
+              flush=True)
+    return stats, launches
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
         train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
         enh_train_cfg=ENH_TRAIN, sep_train_cfg=SEP_TRAIN, eval_cfg=EVAL_SIDECARS,
         sidecar_cfg=SIDECAR_MODELS, variants_cfg=VARIANTS, adapters_cfg=ADAPTERS,
-        env_line: str = "") -> None:
+        mesh_cfg=MESH, env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     seconds, mark = {}, [time.perf_counter()]
@@ -4126,6 +4506,9 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         phase_bank_import(device, banks, ways, static, bank_mix_cfg, Path(tmp) / "bank_import")
         counts["bank import->mixture"] = dict(kernels.LAUNCHES)
         lap("bank import (19c)")
+        _, counts["mesh"] = phase_mesh(device, mesh_cfg, mix_cfg, bank_cfg, gen,
+                                       runs["disk"]["produced"], Path(tmp) / "mesh", smi)
+        lap("mesh (20)")
     for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
                     ("enhancement training", enh_training),
@@ -4140,7 +4523,7 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         for path, c in counts.items():
             check(c["select_segments_ramp"] > 0,
                   f"select_segments (ramp form): no launch in {path}")
-        for path in ("mixture", "bank->mixture", "bank import->mixture"):
+        for path in ("mixture", "bank->mixture", "bank import->mixture", "mesh"):
             check(counts[path]["crossfade_combine"] > 0,
                   f"crossfade_combine: no launch in {path}")
     print(f"launches on the main paths: {counts} (the select form is off "
@@ -4154,7 +4537,8 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"17): {sidecar_models}, nor the variants (phase 18): {variants}, nor the "
           f"optimizers and the remix fit (phase 19a-b): {adapters} (no zoo model, optimizer "
           f"or sidecar has a Pallas counterpart); the imported banks' mixture step (phase "
-          f"19c) is phase 7's path", flush=True)
+          f"19c) is phase 7's path; the mesh (phase 20) counts its sharded (a)-(c) alone, and "
+          f"its chunked inference and train steps launch neither kernel", flush=True)
     print(f"phase seconds (host wall): {seconds}", flush=True)
 
     report = {"kernels": [

@@ -5,11 +5,12 @@ is held against. This package imports neither jax nor ``sonicsim_tpu``.
 Ported so far: the moving-source render, the RIR-bank render, SonicSet
 generation end to end, ConvTasNet serving, evaluation and training, the
 separation zoo with SkiM's streaming, and the enhancement zoo, served and
-trained.
+trained, on one device or over a mesh of devices.
 
 * ``ops`` — trajectory plans, FFT convolutions, BS.1770 loudness, levels,
   and the two Hopper kernels (``ops.kernels``, sources in ``csrc/``).
-* ``parallel`` — ``render_mixture_sources``, one device.
+* ``parallel`` — ``render_mixture_sources`` and the device mesh (shards,
+  replicas, data parallelism in one process).
 * ``sim`` — rooms, channels, materials, RIR oracles, the batched
   RIR-bank renderer, navigable space and scenes.
 * ``dataset`` — SonicSet generation: plans, dry-track assembly, the
@@ -27,7 +28,7 @@ trained.
 * ``losses`` and ``metrics`` — SI-SDR/SNR, PIT, the enhancement zoo's
   losses, BSS SDR, STOI, PESQ and the ``MetricsTracker``.
 * ``train`` — the LR controllers, the optax-exact train step (fp32, bf16)
-  and the one-device ``Trainer``.
+  and the ``Trainer``, data-parallel over a mesh.
 * ``utils`` — WAV I/O, seeding, audio helpers, transcripts, YAML configs.
 * ``scripts`` — ``python -m sonicsim_tpu_torch.scripts.<name>`` for
   ``generate_sonicset``, ``train``, ``inference``, ``audio_test``, ``test``,

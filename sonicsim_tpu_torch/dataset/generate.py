@@ -258,18 +258,18 @@ def dispatch_mixture(
 
     ``sink="device"`` renders the same computation but keeps every output
     on the device: no copies, no bank, trace or WAV bytes. It separates the
-    device's work from the host's artifact path."""
+    device's work from the host's artifact path.
+
+    ``mesh``: a ``parallel.mesh.Mesh``: the bank render and the source
+    render are sharded over it (as the JAX package passes its mesh to
+    both), and every output is gathered on its first device, where the
+    tracks are packed and copied from."""
     if sink not in ("disk", "device"):
         raise ValueError(f"sink must be 'disk' or 'device', got {sink!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded generation is not ported yet (ROADMAP A11); call "
-            "without mesh"
-        )
     if sink == "device":
         save_bank = False
         save_trace = False
-    device = resolve_device(scene.device)
+    device = resolve_device(scene.device) if mesh is None else mesh.primary
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     sr = plan.sample_rate
@@ -286,6 +286,7 @@ def dispatch_mixture(
         + [[np.asarray(plan.noise_point), np.asarray(plan.music_point)]],
         [mic],
         out_device=True,
+        mesh=mesh,
     )
     banks = [b[:, 0] for b in all_banks[:-1]]  # (P, C, L) each
     rir_noise, rir_music = all_banks[-1][0, 0], all_banks[-1][1, 0]
@@ -339,10 +340,11 @@ def dispatch_mixture(
             np.asarray(plan.lufs_speech, np.float32),
             np.asarray([plan.lufs_noise, plan.lufs_music], np.float32),
             sr,
+            mesh=mesh,
             weight_mask=np.asarray(
                 [1.0 if w.any() else 0.0 for w in weights], np.float32
             ),
-            device=device,
+            device=None if mesh is not None else device,
         )
         if wav_encoding == "pcm16":
             tracks, peak_scales = pack_tracks(moving_t, static_t)
@@ -357,6 +359,9 @@ def dispatch_mixture(
     else:
         # A trajectory of one waypoint: per-source renders on the device,
         # each brought to the host.
+        if mesh is not None:
+            logger.warning("a single-waypoint trajectory renders source by source on %s, "
+                           "unsharded", device)
         moving = []
         for i, (sp, traj, bank) in enumerate(
             zip(plan.speech_plans, plan.trajectories, banks)
@@ -544,7 +549,8 @@ def render_mixture(
     ``wav_encoding``: "pcm16" (half-size copies and files; peak-guarded,
     scales recorded in json_data.json) or "float32" (the reference's
     format). ``sink="device"``: compute only, no copies and no files (see
-    :func:`dispatch_mixture`). ``mesh=`` is not ported (ROADMAP A11)."""
+    :func:`dispatch_mixture`). ``mesh``: the bank and source renders
+    sharded over a ``parallel.mesh.Mesh`` (:func:`dispatch_mixture`)."""
     return finalize_mixture(
         dispatch_mixture(
             scene, plan, output_dir, transcripts, save_bank, save_trace,

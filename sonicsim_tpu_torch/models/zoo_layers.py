@@ -117,7 +117,14 @@ class StatelessBatchNorm(nn.Module):
     """Batch statistics over every non-channel axis of a channel-last tensor
     with a per-channel affine (``weight``, ``bias``), no running statistics;
     with ``use_running_stats`` the frozen ``running_mean``/``running_var``
-    of an eval-mode ``BatchNorm`` instead."""
+    of an eval-mode ``BatchNorm`` instead.
+
+    Under a mesh the JAX package reduces the statistics over the global
+    batch. So a replica (``parallel.mesh.replicate``) takes them over every
+    replica's shard (:func:`_global_moments`, through
+    ``parallel.mesh.all_reduce_sum``). A replica run outside
+    ``parallel_apply`` raises rather than normalise its shard by its own
+    statistics."""
 
     def __init__(self, dim: int, eps: float = 1e-5, use_running_stats: bool = False):
         super().__init__()
@@ -131,11 +138,36 @@ class StatelessBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_running_stats:
             mu, var = self.running_mean, self.running_var
+        elif getattr(self, "_is_replica", False):
+            mu, var = _global_moments(x)
         else:
             axes = tuple(range(x.dim() - 1))
             mu = x.mean(dim=axes, keepdim=True)
             var = x.var(dim=axes, keepdim=True, unbiased=False)
         return (x - mu) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def _global_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and (biased) variance over every non-channel axis of the
+    replicas' shards of one batch, on this replica's device: each shard's
+    own ``mean`` and ``var`` (torch's reductions, as the unsharded norm
+    takes them), combined by their item counts as Chan et al.'s pairwise
+    update does, ``var = Σ (n_i / n)(var_i + (mean_i − mean)²)``. A mesh of
+    one device gives the unsharded statistics bit for bit."""
+    from ..parallel.mesh import all_reduce_sum, replica_context
+
+    if replica_context() is None:
+        raise RuntimeError(
+            "StatelessBatchNorm: a mesh replica with batch statistics runs outside its "
+            "replica context; call the replicas through parallel.mesh.parallel_apply")
+    axes = tuple(range(x.dim() - 1))
+    n = x.numel() // x.shape[-1]
+    share = n / all_reduce_sum(n)
+    mu_i = x.mean(dim=axes, keepdim=True)
+    var_i = x.var(dim=axes, keepdim=True, unbiased=False)
+    mu = all_reduce_sum(mu_i * share)
+    var = all_reduce_sum((var_i + (mu_i - mu) ** 2) * share)
+    return mu, var
 
 
 def _conv(nin: int, nout: int, k: int, stride: int, dilation: int, groups: int,

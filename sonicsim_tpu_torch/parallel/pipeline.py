@@ -1,9 +1,9 @@
-"""The per-mixture render step of SonicSet generation, on one device.
+"""The per-mixture render step of SonicSet generation.
 
 Port of the JAX package's ``parallel/pipeline.py``: every speaker's moving
 convolution, the static noise/music reverbs and all the BS.1770 loudness
-normalisations of one mixture, batched over sources. The sharded form
-(``mesh=``) is not ported yet (ROADMAP A11).
+normalisations of one mixture, batched over sources, on one device or
+(``mesh=``) sharded over the source axes of a ``parallel.mesh.Mesh``.
 
 Per-source trajectory plans have ragged shapes, so :func:`pad_moving_plans`
 pads them to one shape: extra bank entries repeat the last RIR and extra
@@ -23,6 +23,7 @@ from ..ops.fftconv import (
     moving_block_plan,
 )
 from ..ops.loudness import lufs_norm
+from .mesh import gather, shard_slices
 
 
 def pad_moving_plans(
@@ -105,6 +106,32 @@ def _audio(x, device) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.to(torch.float32)
 
 
+def _render_moving(speech, banks, weights, block_off, block_seg, block, offsets,
+                   lengths, mask, speech_lufs, sample_rate, device) -> torch.Tensor:
+    """The moving sources of one device: the blocked conv (K1's ramp form
+    with ``weights=None``, else K2's combine), then the loudness."""
+    speech = _audio(speech, device)
+    banks = torch.as_tensor(banks, device=device)
+    if weights is None:
+        moving = convolve_moving_blocked(
+            speech, banks, None, block_off, block_seg, block,
+            seg_offsets=offsets, seg_lengths=lengths,
+            w_scale=torch.as_tensor(mask, device=device),
+        )
+    else:
+        moving = convolve_moving_blocked(
+            speech, banks, torch.as_tensor(weights, device=device),
+            block_off, block_seg, block,
+        )
+    return lufs_norm(moving, sample_rate, torch.as_tensor(speech_lufs, device=device))[0]
+
+
+def _render_static(static_audio, static_rirs, static_lufs, sample_rate, device) -> torch.Tensor:
+    static = convolve_fixed_receiver(_audio(static_audio, device),
+                                     torch.as_tensor(static_rirs, device=device))
+    return lufs_norm(static, sample_rate, torch.as_tensor(static_lufs, device=device))[0]
+
+
 def render_mixture_sources(
     speech,
     banks,
@@ -132,18 +159,22 @@ def render_mixture_sources(
     ``device`` defaults to the device of ``speech`` where it is a tensor,
     else to the card: numpy input with no ``device`` raises where CUDA is
     absent, and runs on the CPU only with ``device="cpu"``.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``; ``device`` is then its first)
+    the moving and the static sources are each cut into one contiguous run
+    per device (the last runs one shorter, or empty, where the mesh does not
+    divide them; the JAX package pads with silent sources instead), every
+    run rendered on its device, and the tracks gathered on the first.
     Returns (moving (S, C, T), static (K, C, T)) tensors on that device.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded rendering is not ported yet (ROADMAP A11); call "
-            "without mesh"
-        )
-    if device is None and torch.is_tensor(speech):
+        device = mesh.primary
+    elif device is None and torch.is_tensor(speech):
         device = speech.device
     else:
         device = resolve_device(device)
     s = int(speech.shape[0])
+    k = int(static_audio.shape[0])
     t = int(speech.shape[-1])
     offsets = np.asarray(offsets)
     lengths = np.asarray(lengths)
@@ -154,30 +185,23 @@ def render_mixture_sources(
     ]
     block_off = np.stack([p[0] for p in plans])
     block_seg = np.stack([p[1] for p in plans])
+    mask = (
+        np.ones(s, np.float32) if weight_mask is None
+        else np.asarray(weight_mask, np.float32)
+    )
 
-    speech = _audio(speech, device)
-    static_audio = _audio(static_audio, device)
-    banks = torch.as_tensor(banks, device=device)
-    static_rirs = torch.as_tensor(static_rirs, device=device)
-    speech_lufs = torch.as_tensor(speech_lufs, device=device)
-    static_lufs = torch.as_tensor(static_lufs, device=device)
+    def moving_on(dev, i):
+        return _render_moving(
+            speech[i], banks[i], None if weights is None else weights[i], block_off[i],
+            block_seg[i], block, offsets[i], lengths[i], mask[i], speech_lufs[i],
+            sample_rate, dev,
+        )
 
-    if weights is None:
-        mask = (
-            np.ones(s, np.float32) if weight_mask is None
-            else np.asarray(weight_mask, np.float32)
-        )
-        moving = convolve_moving_blocked(
-            speech, banks, None, block_off, block_seg, block,
-            seg_offsets=offsets, seg_lengths=lengths,
-            w_scale=torch.as_tensor(mask, device=device),
-        )
-    else:
-        moving = convolve_moving_blocked(
-            speech, banks, torch.as_tensor(weights, device=device),
-            block_off, block_seg, block,
-        )
-    moving = lufs_norm(moving, sample_rate, speech_lufs)[0]
-    static = convolve_fixed_receiver(static_audio, static_rirs)
-    static = lufs_norm(static, sample_rate, static_lufs)[0]
+    def static_on(dev, i):
+        return _render_static(static_audio[i], static_rirs[i], static_lufs[i], sample_rate, dev)
+
+    if mesh is None:
+        return moving_on(device, slice(None)), static_on(device, slice(None))
+    moving = gather([moving_on(d, i) for d, i in shard_slices(s, mesh)], device)
+    static = gather([static_on(d, i) for d, i in shard_slices(k, mesh)], device)
     return moving, static

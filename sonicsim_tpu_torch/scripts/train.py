@@ -1,4 +1,4 @@
-"""Train a model from a YAML config on one device.
+"""Train a model from a YAML config, data-parallel over every card.
 
   python -m sonicsim_tpu_torch.scripts.train --conf_dir configs/separation/convtasnet.yaml \\
       [--max_epochs N] [--resume] [--device cpu]
@@ -8,9 +8,12 @@ YAML (the repo's, unchanged: its ``sonicsim_tpu.…`` targets build the
 port's classes), instantiate the datamodule, model, loss and metric, fit,
 snapshot the config and export ``<exp>/best_model.pkl`` in the JAX
 package's pack format. ``trainer.precision`` (``f32``/``bf16``) comes from
-the config. The model trains on the card unless ``--device`` names another;
-its initial weights are drawn on the host from ``torch.manual_seed(0)``, as
-the JAX script draws its own from ``PRNGKey(0)``.
+the config. The model trains on the card unless ``--device`` names another,
+and, as the JAX script trains over every device, ``Trainer`` spreads each
+batch over every card of the host that divides it (``parallel.mesh``); on
+the CPU it trains on the one CPU. Its initial weights are drawn on the host
+from ``torch.manual_seed(0)``, as the JAX script draws its own from
+``PRNGKey(0)``.
 """
 
 from __future__ import annotations

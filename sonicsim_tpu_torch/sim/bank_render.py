@@ -1,9 +1,10 @@
 """Batched RIR-bank rendering: all (source, receiver, channel) items at once.
 
 Port of ``sonicsim_tpu/sim/bank_render.py``, in plain PyTorch on one device
-(the card unless the caller asks for the CPU). The reference's replacement
-for the process-pool fan-out of ``render_rir_parallel`` (SonicSim_rir.py:
-724-791), with the same formulation, kept for parity:
+(the card unless the caller asks for the CPU) or a mesh of them. The
+reference's replacement for the process-pool fan-out of
+``render_rir_parallel`` (SonicSim_rir.py:724-791), with the same
+formulation, kept for parity:
 
 * the shoebox image lattice, the 12 diffraction edges and the directional
   gains are arithmetic on the device from the item positions;
@@ -21,9 +22,16 @@ The products run in full float32: this module turns TF32 off around them
 (:func:`_full_float32`), since TF32 keeps about three decimal digits and
 the bank is held to the reference within 5e-5 of its peak.
 
-Not carried over: the reference's padding of the item axis, its packed
-transport of the item tables and its ``lower_only`` hook, which exist for
-XLA and the TPU link; ``mesh=`` raises (ROADMAP A11).
+With ``mesh=`` (a ``parallel.mesh.Mesh``) the item axis is cut into one
+contiguous run per device and each run rendered there, every item with its
+own tail-noise seed; a bank's peak is the maximum of the runs' partial
+maxima (the JAX package's local ``segment_max`` and ``pmax``), so a bank
+may lie across two runs. The banks are gathered on the mesh's first device.
+
+Not carried over: the reference's padding of the item axis (to a multiple
+of its chunk and of the mesh, with copies of item 0), its packed transport
+of the item tables and its ``lower_only`` hook, which exist for XLA and the
+TPU link.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from ..bridge import resolve_device
+from ..parallel.mesh import gather, reduce_max, shard_slices
 from . import prng
 from .channels import ChannelModel
 from .image_source import (
@@ -628,45 +637,42 @@ def _flatten_items(oracle, source_positions, receiver_positions, channel,
 
 def _render_flat_items(oracle, flat, channel, room: _RoomTables,
                        peak_normalize: bool, bank_sizes: list[int],
-                       device) -> torch.Tensor:
+                       device, mesh=None) -> torch.Tensor:
     """Upload the item tables, render, and peak-normalise each bank (the
-    contiguous runs of ``bank_sizes`` items) by its own max |x|."""
-    srcs, recvs, normals, chan_idx, seeds = flat
-    items = {
-        "srcs": torch.tensor(srcs, device=device),
-        "recvs": torch.tensor(recvs, device=device),
-        "normals": torch.tensor(normals, device=device),
-        "chan_idx": torch.tensor(chan_idx, dtype=torch.int64, device=device),
-        "seeds": torch.tensor(seeds, dtype=torch.int64, device=device),
-    }
-    with _full_float32():
-        out = _render_core(
-            items, room,
-            n_bands=oracle.n_bands,
-            channel_type=channel.channel_type,
-            channel_order=channel.channel_order,
-            max_order=oracle.max_order,
-            sample_rate=oracle.sample_rate,
-            diffraction=bool(getattr(oracle.room, "diffraction", True)),
-        )
+    contiguous runs of ``bank_sizes`` items) by its own max |x|: on
+    ``device``, or with ``mesh`` one run of items per device of the mesh,
+    gathered on ``device`` (its first)."""
+    shards = ([(device, slice(None))] if mesh is None
+              else shard_slices(len(flat[0]), mesh))
+    dtypes = (None, None, None, torch.int64, torch.int64)
+    outs = []
+    for dev, part in shards:
+        srcs, recvs, normals, chan_idx, seeds = (
+            torch.tensor(a[part], dtype=dt, device=dev) for a, dt in zip(flat, dtypes))
+        items = {"srcs": srcs, "recvs": recvs, "normals": normals, "chan_idx": chan_idx,
+                 "seeds": seeds}
+        with _full_float32():
+            outs.append(_render_core(
+                items, room,
+                n_bands=oracle.n_bands,
+                channel_type=channel.channel_type,
+                channel_order=channel.channel_order,
+                max_order=oracle.max_order,
+                sample_rate=oracle.sample_rate,
+                diffraction=bool(getattr(oracle.room, "diffraction", True)),
+            ))
     if peak_normalize:
-        item_peak = torch.abs(out).amax(dim=1)
-        peak = torch.stack([x.max() for x in item_peak.split(bank_sizes)])
+        bank_ids = np.repeat(np.arange(len(bank_sizes)), bank_sizes)
+        ids = [torch.as_tensor(bank_ids[part], device=dev) for dev, part in shards]
+        partial = [  # each run's max |x| per bank, 0 where it holds none
+            torch.zeros(len(bank_sizes), device=o.device).scatter_reduce(
+                0, i, torch.abs(o).amax(dim=1), "amax")
+            for o, i in zip(outs, ids)
+        ]
+        peak = reduce_max(partial, device)
         peak = torch.where(peak > 0, peak, 1.0)
-        sizes = torch.tensor(bank_sizes, device=device)
-        out = out / peak.repeat_interleave(sizes)[:, None]
-    return out
-
-
-def _device(oracle, mesh) -> torch.device:
-    """Where a bank renders: the oracle's ``device`` (the card unless it
-    names another). ``mesh=`` is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded bank rendering is not ported yet (ROADMAP A11); call "
-            "without mesh"
-        )
-    return resolve_device(oracle.device)
+        outs = [o / peak.to(o.device)[i][:, None] for o, i in zip(outs, ids)]
+    return outs[0] if mesh is None else gather(outs, device)
 
 
 def render_bank_batched(
@@ -682,9 +688,9 @@ def render_bank_batched(
     """All-pairs bank (S, R, C, L) through the batched multiband renderer:
     the serial loop over ``SyntheticRirOracle.render`` (multiband), with
     the same lattice and the same per-pair tail streams. Runs on the
-    oracle's ``device`` (the card unless it names another); with
-    ``out_device=True`` the bank is returned as a tensor there, else as
-    numpy."""
+    oracle's ``device`` (the card unless it names another), or sharded over
+    ``mesh`` and gathered on its first device; with ``out_device=True`` the
+    bank is returned as a tensor there, else as numpy."""
     return render_rir_banks(oracle, [source_positions], receiver_positions,
                             channel, receiver_rotations, peak_normalize,
                             out_device, mesh)[0]
@@ -702,9 +708,9 @@ def render_rir_banks(
 ) -> list:
     """Several banks (e.g. one per speaker trajectory) in one render, each
     peak-normalised on its own. Returns one (S_k, R, C, L) array per entry
-    of ``source_lists`` (tensors on the oracle's ``device`` with
-    ``out_device=True``)."""
-    device = _device(oracle, mesh)
+    of ``source_lists`` (tensors on the oracle's ``device``, or the first of
+    ``mesh``'s, with ``out_device=True``)."""
+    device = resolve_device(oracle.device) if mesh is None else mesh.primary
     rotations = receiver_rotations or [90.0] * len(receiver_positions)
     room = _bank_params(oracle)
     parts = [
@@ -714,7 +720,7 @@ def render_rir_banks(
     flat = [np.concatenate([p[i] for p in parts]) for i in range(5)]
     sizes = [len(p[0]) for p in parts]
     out = _render_flat_items(oracle, flat, channel, room, peak_normalize,
-                             sizes, device)
+                             sizes, device, mesh)
     n_recv, n_ch = len(receiver_positions), channel.count
     banks = [
         b.reshape(len(srcs), n_recv, n_ch, room.ir_len)

@@ -13,6 +13,7 @@ CPU.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,6 +30,8 @@ from .geometry import (
 from .image_source import ShoeboxRoom
 from .materials import Material
 from .oracle import ACOUSTIC_CONFIG, RirOracle, SyntheticRirOracle, render_rir_bank
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -296,13 +299,11 @@ class Scene:
         """Several banks (one per speaker trajectory), each peak-normalised
         on its own: in one batched render when the oracle is a multiband
         synthetic one, else bank by bank. With ``out_device=True`` the banks
-        are tensors on the scene's device, else numpy. ``mesh=`` is not
-        ported (ROADMAP A11)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded bank rendering is not ported yet (ROADMAP A11); "
-                "call without mesh"
-            )
+        are tensors on the scene's device, else numpy. With ``mesh`` the
+        batched render's items are sharded over it (the multi-device RIR
+        fan-out), and the banks gathered on its first device; another
+        oracle renders bank by bank, unsharded, as in the JAX package, and
+        says so in a warning."""
         recvs = [self._elevate(p, self.sensor_height) for p in receiver_positions]
         if isinstance(self.oracle, SyntheticRirOracle) and self.oracle.n_bands > 0:
             from .bank_render import render_rir_banks
@@ -317,7 +318,11 @@ class Scene:
                 self.channel,
                 receiver_rotations,
                 out_device=out_device,
+                mesh=mesh,
             )
+        if mesh is not None:
+            logger.warning("render_banks(mesh=...): %s renders bank by bank, unsharded",
+                           type(self.oracle).__name__)
         banks = [
             render_rir_bank(
                 self.oracle,

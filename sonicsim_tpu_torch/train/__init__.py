@@ -1,4 +1,4 @@
-"""Training on one device (port of ``sonicsim_tpu.train``): the LR
+"""Training (port of ``sonicsim_tpu.train``), data-parallel over a mesh: the LR
 controllers, the optax-exact train step in float32 and bf16, and the
 ``Trainer`` fit loop."""
 

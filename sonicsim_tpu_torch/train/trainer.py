@@ -1,4 +1,4 @@
-"""Training on one device: the train step and the epoch loop.
+"""Training: the train step and the epoch loop, on one device or a mesh.
 
 Port of ``sonicsim_tpu.train.trainer`` (the reference's
 AudioLightningModule + pl.Trainer, audio_litmodule.py:36-211,
@@ -28,14 +28,28 @@ LR) term by term, not PyTorch's nearest calls:
 
 The model is an ``nn.Module``, and ``Trainer.fit`` trains the weights it
 holds on the device they are on, so both packages can start from the same
-weights through ``bridge``. One device: data parallelism waits for ROADMAP
-A11. The resume point is ``torch.save`` of the model and optimizer state
-in place of orbax; the logs, checkpoints and the ``best_model.pkl`` export
+weights through ``bridge``.
+
+**Data parallelism** (``mesh=``; ``Trainer(n_devices)``) computes the
+function GSPMD computes for the JAX step under a mesh, not DDP's: the
+batch is sharded over the mesh, the replicas of the model
+(``parallel.mesh.replicate``: the primary's parameters, copied where the
+device differs) run at once, a batch-statistics norm reduces over the
+global batch, and the loss is computed once, on the outputs gathered on the
+mesh's first device. One backward then sums every replica's gradient into
+the primary parameters, where the clip, the optimizer, a ``bias_hh`` hook
+and a checkpoint see one model. The mean of per-shard losses would be
+another function for PIT's ``threshold_byloss`` (a masked mean over the
+whole batch).
+
+The resume point is ``torch.save`` of the model and optimizer state in
+place of orbax; the logs, checkpoints and the ``best_model.pkl`` export
 keep the JAX package's formats.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import math
@@ -52,6 +66,7 @@ import torch.nn as nn
 
 from ..infer.precision import bf16_call, cast_state, require_bf16
 from ..models.base import BaseModel, save_model
+from ..parallel.mesh import Mesh, available_devices, data_parallel
 from .schedulers import EarlyStopping, ReduceLROnPlateau
 
 logger = logging.getLogger(__name__)
@@ -136,19 +151,41 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Ten
     return g_norm
 
 
+def _check_mesh(model: nn.Module, mesh: Mesh | None) -> None:
+    if mesh is not None and next(model.parameters()).device != mesh.primary:
+        raise ValueError(f"the model's weights lie on {next(model.parameters()).device}, "
+                         f"the mesh's first device is {mesh.primary}")
+
+
+def _sharded(model: nn.Module, mesh: Mesh, mix: torch.Tensor, state: dict | None = None):
+    """``model(mix)`` over the mesh's replicas, gathered on its first device.
+    The batch must divide over the mesh, as a JAX batch sharding needs."""
+    if len(mix) % mesh.size:
+        raise ValueError(f"a batch of {len(mix)} does not divide over {mesh.size} devices")
+    return data_parallel(model, mix, mesh, state)
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: torch.optim.Optimizer,
-                    precision: str = "f32", clip_norm: float | None = 5.0) -> Callable:
+                    precision: str = "f32", clip_norm: float | None = 5.0,
+                    mesh: Mesh | None = None) -> Callable:
     """``step(mix, targets) -> loss``: one update of ``model``'s weights
     through ``optimizer``, on tensors on the model's device. After a step
     each parameter's ``.grad`` holds the (clipped) gradient the optimizer
-    took."""
+    took. With ``mesh`` (whose first device holds the model) the forward
+    runs data-parallel over it and the loss is the whole batch's."""
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unsupported precision {precision!r}")
     if precision == "bf16":
         require_bf16(model, train=True)
+    _check_mesh(model, mesh)
     params = list(model.parameters())
 
     def forward(mix: torch.Tensor) -> torch.Tensor:
+        if mesh is not None:
+            if precision == "f32":
+                return _sharded(model, mesh, mix)
+            return stack_float32(_sharded(model, mesh, mix.to(torch.bfloat16),
+                                          cast_state(model)))
         if precision == "f32":
             return model(mix)
         return stack_float32(bf16_call(model, cast_state(model), mix))
@@ -173,10 +210,15 @@ def stack_float32(ests) -> torch.Tensor:
     return ests.to(torch.float32)
 
 
-def make_eval_step(model: nn.Module, metric_fn: Callable) -> Callable:
+def make_eval_step(model: nn.Module, metric_fn: Callable, mesh: Mesh | None = None) -> Callable:
+    """``step(mix, targets) -> metric`` without gradients; with ``mesh``,
+    the forward data-parallel over it and the metric the whole batch's."""
+    _check_mesh(model, mesh)
+
     def step(mix: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return metric_fn(model(mix), targets)
+            ests = model(mix) if mesh is None else _sharded(model, mesh, mix)
+            return metric_fn(ests, targets)
 
     return step
 
@@ -189,8 +231,8 @@ def _val_shards(mix, targets, divisor: int):
     exactly. The divisor-multiple prefix passes through untouched; only the
     remainder ``r = B % divisor`` is tiled, to ``lcm(r, divisor)`` items
     where every real item appears the same number of times, so the padding
-    stays below ``divisor**2`` items. On one device the divisor is 1 and the
-    batch passes whole."""
+    stays below ``divisor**2`` items. The divisor is the mesh's size (1 on
+    one device, where the batch passes whole)."""
     b = len(mix)
     k = (b // divisor) * divisor
     if k:
@@ -209,10 +251,22 @@ def _to_device(batch, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(batch), device=device)
 
 
+def _mesh_devices(device: torch.device) -> list:
+    """The devices a model on ``device`` can train over: those of its type
+    (``parallel.mesh.available_devices``), ``device`` first."""
+    devices = available_devices(device.type)
+    if device in devices:
+        i = devices.index(device)
+        devices = devices[i:] + devices[:i]
+    return devices
+
+
 @dataclass
 class Trainer:
     """Epoch-driven fit loop with plateau LR, early stop, top-k checkpoints,
-    on the device that holds ``model``'s weights."""
+    on the device that holds ``model``'s weights and, with ``n_devices``
+    (every device of its type by default), data-parallel over as many of
+    that type as divide the batch."""
 
     model: BaseModel
     loss_fn: Callable
@@ -231,7 +285,7 @@ class Trainer:
     precision: str = "f32"  # 'bf16': bf16 compute with float32 master weights
     wandb_project: str | None = None  # optional W&B mirror of the JSONL log
     history: list = field(default_factory=list)
-    _batch_divisor = 1  # the JAX package's mesh size: one device here
+    _batch_divisor = 1  # the mesh's size, set by ``fit``
 
     def _init_wandb(self):
         """The W&B run mirroring ``metrics.jsonl`` (the JAX ``Trainer``'s),
@@ -323,13 +377,16 @@ class Trainer:
         early-stop counters, top-k table) when present and starts fresh
         otherwise. The JAX package's ``fit`` draws its initial weights from
         ``rng``; here the model's constructor made them (seed it there).
-        With one device no batch is peeked to size a mesh, so epoch 0
-        reads its batches once, in order. TF32 is turned off: the step is
-        float32 (or bf16) as the JAX package computes it."""
-        if self.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={self.n_devices}: data-parallel training is not ported "
-                "to sonicsim_tpu_torch yet (ROADMAP A11); the port trains on one device")
+
+        The mesh is sized as the JAX ``fit`` sizes it: the first batch is
+        peeked (and chained back into epoch 0, so a single-iterator loader
+        keeps it and a factory does not make it twice), and the mesh takes
+        the largest device count that divides it, at most ``n_devices``
+        (all of the model's device type when None; more than there are is
+        clamped, with a warning). Later batches the mesh does not divide are
+        dropped, with a warning; val batches are split by ``_val_shards``.
+        TF32 is turned off: the step is float32 (or bf16) as the JAX package
+        computes it."""
         from ..scripts.common import strict_float32
 
         strict_float32()
@@ -337,13 +394,28 @@ class Trainer:
         (exp_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
         device = next(self.model.parameters()).device
 
+        first_iter = iter(train_batches(0))
+        first = next(first_iter, None)
+        batch_dim = len(first[0]) if first is not None else 1
+        devices = _mesh_devices(device)
+        avail = len(devices)
+        limit = min(self.n_devices, avail) if self.n_devices else avail
+        if self.n_devices and self.n_devices > avail:
+            logger.warning("n_devices=%d exceeds available devices (%d); clamping",
+                           self.n_devices, avail)
+        n_dev = max(d for d in range(1, limit + 1) if batch_dim % d == 0)
+        mesh = Mesh(devices[:n_dev]) if n_dev > 1 else None
+        logger.info("training over %d of %d %s devices (the most that divide the first "
+                    "batch, of %d)", n_dev, avail, device.type, batch_dim)
+        self._batch_divisor = n_dev
+
         wb = self._init_wandb()
         optimizer = make_optimizer(self.model, self.lr, self.weight_decay, self.optimizer_name)
         train_step = make_train_step(self.model, self.loss_fn, optimizer,
-                                     self.precision, self.clip_norm)
+                                     self.precision, self.clip_norm, mesh)
         # The val metric defaults to the training loss (the reference's
         # val_loss).
-        eval_step = make_eval_step(self.model, self.metric_fn or self.loss_fn)
+        eval_step = make_eval_step(self.model, self.metric_fn or self.loss_fn, mesh)
 
         plateau = ReduceLROnPlateau(self.lr, self.lr_factor, self.patience_lr)
         stopper = EarlyStopping(self.patience_stop)
@@ -372,10 +444,25 @@ class Trainer:
                     f.write(json.dumps(rec) + "\n")
                 if wb is not None:
                     wb.log(rec)
+        dropped_train = 0
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.time()
             losses = []
-            for mix, targets in train_batches(epoch):
+            if epoch == 0 and first_iter is not None:
+                batches = (itertools.chain([first], first_iter)
+                           if first is not None else iter(()))
+            else:
+                batches = train_batches(epoch)
+            first_iter = None
+            for mix, targets in batches:
+                if len(mix) % self._batch_divisor:
+                    # drop_last, but never silently
+                    dropped_train += 1
+                    if dropped_train <= 3 or epoch == 0:
+                        logger.warning("dropping ragged train batch of %d (not divisible by "
+                                       "%d devices), epoch %d", len(mix), self._batch_divisor,
+                                       epoch)
+                    continue
                 losses.append(train_step(_to_device(mix, device), _to_device(targets, device)))
                 state.step += 1
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")

@@ -30,6 +30,7 @@ from sonicsim_tpu.sim.channels import ChannelModel as JChannel
 from sonicsim_tpu.sim.image_source import ShoeboxRoom as JRoom
 from sonicsim_tpu.sim.oracle import SyntheticRirOracle as JOracle
 from sonicsim_tpu_torch.bridge import sim_from_fields
+from sonicsim_tpu_torch.parallel import Mesh
 from sonicsim_tpu_torch.sim import bank_render as TB
 from torch_threads import one_intra_op_thread  # noqa: F401
 
@@ -129,15 +130,20 @@ def test_render_rir_banks_several(rendered):
     np.testing.assert_array_equal(got[1], single)
 
 
-def test_bank_deterministic_and_mesh_not_ported():
+def test_bank_deterministic_and_sharded():
+    """Bit-identical from run to run; over a mesh of three CPU devices the
+    same banks (tests/test_torch_mesh_render.py holds the mesh to JAX's)."""
     _, (ours, ch) = _both(True, True)
     a = TB.render_bank_batched(ours, SRCS, RECVS[:1], ch)
     b = TB.render_bank_batched(ours, SRCS, RECVS[:1], ch)
     np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TB.render_bank_batched(ours, SRCS, RECVS, ch, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        TB.render_rir_banks(ours, [SRCS], RECVS, ch, mesh=object())
+    mesh = Mesh(["cpu"] * 3)
+    whole = TB.render_bank_batched(ours, SRCS, RECVS, ch)
+    np.testing.assert_allclose(TB.render_bank_batched(ours, SRCS, RECVS, ch, mesh=mesh),
+                               whole, rtol=0, atol=1e-6)
+    for got, want in zip(TB.render_rir_banks(ours, [SRCS[:2], SRCS[2:]], RECVS, ch, mesh=mesh),
+                         TB.render_rir_banks(ours, [SRCS[:2], SRCS[2:]], RECVS, ch)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_place_lattice_chunks(monkeypatch):

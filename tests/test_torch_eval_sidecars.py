@@ -35,6 +35,7 @@ from sonicsim_tpu.infer import wav_chunk_inference as j_chunked
 from sonicsim_tpu_torch import metrics as TMet
 from sonicsim_tpu_torch.infer import wav_chunk_inference
 from sonicsim_tpu_torch.models import ConvTasNet
+from sonicsim_tpu_torch.parallel import Mesh
 from sonicsim_tpu_torch.scripts import generate_fixed_eval
 from sonicsim_tpu_torch.scripts import test as test_cli
 from sonicsim_tpu_torch.scripts.common import make_forward
@@ -237,11 +238,15 @@ def test_wav_chunk_inference_is_the_jax_packages():
     got = wav_chunk_inference(make_forward(model), mix, device="cpu", **args)
     assert got.shape == ref.shape == (2, mix.size)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
-    # a tensor keeps its own device; the mesh form waits for A11
+    # a tensor keeps its own device; over a mesh of two CPU devices the
+    # module's replicas take three windows each (tests/test_torch_mesh_render.py
+    # holds the mesh to JAX's)
     same = wav_chunk_inference(make_forward(model), torch.from_numpy(mix), **args)
     np.testing.assert_array_equal(same.numpy(), got.numpy())
-    with pytest.raises(NotImplementedError, match="A11"):
-        wav_chunk_inference(make_forward(model), mix, mesh=object(), device="cpu", **args)
+    sharded = wav_chunk_inference(model, mix, mesh=Mesh(["cpu", "cpu"]), device="cpu", **args)
+    np.testing.assert_allclose(sharded.numpy(), got.numpy(), rtol=0, atol=2e-5)
+    with pytest.raises(TypeError, match="nn.Module"):
+        wav_chunk_inference(make_forward(model), mix, mesh=Mesh(["cpu"]), device="cpu", **args)
 
 
 def test_test_cli_scores_mos_columns(served, weights):  # noqa: F811

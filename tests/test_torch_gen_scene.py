@@ -19,6 +19,7 @@ import torch
 from sonicsim_tpu.sim.oracle import save_rir_bank as j_save_rir_bank
 from sonicsim_tpu.sim.scene import Scene as JScene
 from sonicsim_tpu_torch import bridge
+from sonicsim_tpu_torch.parallel import Mesh
 from sonicsim_tpu_torch.sim import CIRCULAR_4CH_ARRAY, Scene
 from torch_threads import one_intra_op_thread  # noqa: F401
 
@@ -83,9 +84,11 @@ def test_synthetic_scene_renders_match_reference(channel):
         scene.generate_data([src, mic], mic, dry_sounds=[dry], use_dry_sound=True)
 
 
-def test_scene_device_and_materials():
+def test_scene_device_and_materials(caplog):
     """The scene's device reaches its oracle; per-wall materials need the
-    multiband renderer, as in the reference; a sharded render raises."""
+    multiband renderer, as in the reference; a sharded render over a mesh of
+    two CPU devices gives the unsharded banks, and a flat oracle's bank by
+    bank render says that it is unsharded."""
     walls = {"floor": "carpet", "walls": "concrete"}
     scene = Scene.synthetic(n_bands=4, wall_materials=walls, device="cpu")
     ref = JScene.synthetic(n_bands=4, wall_materials=walls)
@@ -95,5 +98,14 @@ def test_scene_device_and_materials():
                                       np.asarray(getattr(ref.oracle.room, f.name)))
     with pytest.raises(ValueError, match="multiband"):
         Scene.synthetic(wall_materials=walls, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        scene.render_banks([[np.zeros(3)]], [np.ones(3)], mesh=object())
+    mesh = Mesh(["cpu", "cpu"])
+    srcs = [[np.array([2.0, 0.0, 2.0]), np.array([3.0, 0.0, 5.0])], [np.array([7.0, 0.0, 3.0])]]
+    mic = [np.array([5.0, 0.0, 4.0])]
+    for sc in (scene, Scene.synthetic(device="cpu")):
+        want = sc.render_banks(srcs, mic)
+        with caplog.at_level("WARNING", logger="sonicsim_tpu_torch.sim.scene"):
+            got = sc.render_banks(srcs, mic, mesh=mesh, out_device=True)
+        assert ("unsharded" in caplog.text) == (sc.oracle.n_bands == 0)
+        for g, w in zip(got, want):
+            assert torch.is_tensor(g) and g.device.type == "cpu"
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-6)

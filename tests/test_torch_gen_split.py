@@ -27,6 +27,7 @@ from sonicsim_tpu_torch.dataset import (
     scan_audio_lengths,
 )
 from sonicsim_tpu_torch.ops import convolve_fixed_receiver, integrated_loudness, lufs_norm
+from sonicsim_tpu_torch.parallel import Mesh
 from sonicsim_tpu_torch.scripts import generate_sonicset
 from sonicsim_tpu_torch.sim import Scene
 from sonicsim_tpu_torch.utils import read_wav, write_wav
@@ -186,12 +187,19 @@ def test_artifact_writer_and_partial_marks(tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path, corpus):
+    """An unknown sink raises; a mesh of two CPU devices (the name is older
+    than the port of the mesh) writes the unsharded WAVs within one int16
+    step (tests/test_torch_mesh_render.py holds the mesh to JAX's)."""
     dirs, noise, music = corpus
     scene = _factory("roomA")
     plan = plan_mixture(scene, [scan_audio_lengths(d) for d in dirs], noise, music,
                         np.random.default_rng(1), duration=2.0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        render_mixture(scene, plan, tmp_path / "m", mesh=object())
+    render_mixture(scene, plan, tmp_path / "one", save_trace=False)
+    render_mixture(scene, plan, tmp_path / "m", save_trace=False, mesh=Mesh(["cpu", "cpu"]))
+    for name in TRACKS:
+        a, _ = read_wav(tmp_path / "one" / name)
+        b, _ = read_wav(tmp_path / "m" / name)
+        np.testing.assert_allclose(b, a, rtol=0, atol=1.01 / 32768, err_msg=name)
     with pytest.raises(ValueError, match="sink"):
         render_mixture(scene, plan, tmp_path / "s", sink="ram")
 

@@ -15,6 +15,7 @@ import torch
 from sonicsim_tpu.ops import dynamic_interp_plan, segment_plan
 from sonicsim_tpu.parallel import pipeline as J
 from sonicsim_tpu_torch.bridge import to_torch
+from sonicsim_tpu_torch.parallel import Mesh
 from sonicsim_tpu_torch.parallel import pipeline as T
 from torch_threads import one_intra_op_thread  # noqa: F401
 
@@ -135,14 +136,20 @@ def test_render_mixture_int16_pcm(rng):
         assert torch.equal(a, b)
 
 
-def test_render_mixture_mesh_not_ported(rng):
+def test_render_mixture_mesh(rng):
+    """One source on a mesh of two CPU devices (the second shard empty):
+    the unsharded tracks, on the mesh's first device
+    (tests/test_torch_mesh_render.py holds the mesh to JAX's)."""
     speech, banks, weights, offs, lens, sa, srir, sl, stl = _mixture(rng, n_src=1)
     banks_p, w_p, off_p, len_p, max_seg = T.pad_moving_plans(
         banks, weights, offs, lens
     )
-    with pytest.raises(NotImplementedError, match="A11"):
-        T.render_mixture_sources(speech, banks_p, w_p, off_p, len_p, max_seg,
-                                 sa, srir, sl, stl, SR, mesh=object())
+    args = (speech, banks_p, w_p, off_p, len_p, max_seg, sa, srir, sl, stl, SR)
+    one = T.render_mixture_sources(*args, device="cpu")
+    sharded = T.render_mixture_sources(*args, mesh=Mesh(["cpu", "cpu"]))
+    for a, b in zip(sharded, one):
+        assert a.device.type == "cpu"
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
 
 
 def test_entry_points_default_to_the_card(rng, monkeypatch):

@@ -32,6 +32,7 @@ from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
 from sonicsim_tpu_torch.models import ConvTasNet, from_pretrain
 from sonicsim_tpu_torch.scripts import train as train_cli
 from sonicsim_tpu_torch.train import Trainer
+from sonicsim_tpu_torch.train import trainer as trainer_mod
 from sonicsim_tpu_torch.utils import write_wav
 from torch_threads import one_intra_op_thread  # noqa: F401
 
@@ -163,15 +164,21 @@ def test_nan_val_epoch_never_enters_top_k(tmp_path):
     assert len(top) == 1 and all(np.isfinite(v) for v in top.values())
 
 
-def test_single_iterator_loader_trains_every_batch_once(tmp_path):
+def test_single_iterator_loader_trains_every_batch_once(tmp_path, monkeypatch):
+    """The first batch, peeked to size the mesh, is trained on once: on one
+    device, and over two with the device count patched (as the JAX tests'
+    conftest forces 8 devices)."""
     rng = np.random.default_rng(1)
     mix = rng.standard_normal((4, 800)).astype(np.float32)
     tgt = rng.standard_normal((4, 2, 800)).astype(np.float32)
     stream = iter([(mix, tgt), (mix, tgt)])
     state = _port_trainer(tmp_path, 1).fit(lambda epoch: stream)
     assert state.step == 2
-    with pytest.raises(NotImplementedError, match="A11"):
-        _port_trainer(tmp_path, 1, n_devices=2).fit(lambda epoch: stream)
+    monkeypatch.setattr(trainer_mod, "available_devices",
+                        lambda device_type: [torch.device(device_type)] * 2)
+    stream = iter([(mix, tgt), (mix, tgt)])
+    trainer = _port_trainer(tmp_path / "mesh", 1, n_devices=2)
+    assert trainer.fit(lambda epoch: stream).step == 2 and trainer._batch_divisor == 2
 
 
 def _tiny_config(split, exp_root):
