@@ -180,7 +180,21 @@ Phases, one line each:
     step's largest distance over three roundings: the batch in order,
     reversed, each item twice) · max|g64| of the unsharded float64 step
     (phase 14's rule), ms/step sharded and unsharded. (a)-(c) are a main path: K1's
-    ramp form and K2 launch there.
+    ramp form and K2 launch there;
+21. the checkpoint import and optax's keywords: (a) seeded reference
+    checkpoints (``.pth``, the reference's parameter names) of ConvTasNet,
+    TDANet, DCCRN and FRCRN at their configs' widths through ``python -m
+    sonicsim_tpu_torch.scripts.import_checkpoint`` (seconds per
+    conversion), each pack and its ``.pth`` loaded by ``from_pretrain`` on
+    the card with the same weights bit for bit, and the two forwards of a
+    2 s crop of phase 8's first mixture (cuDNN's deterministic algorithms)
+    within 1e-4 · max|ref|; (b) one case per optax keyword the port once
+    took at its default only (masks as callables on the flax tree, moments
+    in bfloat16) by phase 19 (a)'s rule; (c) the bf16 LSTM and GRU layers
+    (flax's rounded input projection fed through an identity input weight)
+    at the configs' widths, uni- and bidirectional, one and two layers: the
+    card against the CPU within rel-L2 1e-4, and each layer's bf16 and fp32
+    forward times.
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -200,11 +214,13 @@ render, the fused mixture step, the RIR-bank render (with the share of
 its device time in the placement product, ``aten::bmm``), one generated
 60 s mixture with the disk sink and one with the device sink,
 ConvTasNet's forward (``serve-fp32-60s``, ``serve-bf16-B16``) and its
-train step (``train-fp32-B8``, ``train-bf16-B8``), each zoo model's
-10 s forward (``zoo-<name>-10s``), each enhancement model's
-(``enh-<config>-10s``) and each separation config's train step at B=2 x
-4 s (``sep-train-<config>``); ``--only PREFIX`` builds and profiles the
-paths whose name starts with PREFIX alone.
+train step (``train-fp32-B8``, ``train-bf16-B8``; ``train-optim-…`` with
+the port's optax-form Adam), each zoo model's
+10 s forward (``zoo-<name>-10s``, and ``zoo-<name>-10s-bf16`` where the
+port serves it in bf16), each enhancement model's (``enh-<config>-10s``,
+``…-bf16``) and each separation config's train step at B=2 x 4 s
+(``sep-train-<config>``); ``--only PREFIX`` builds and profiles the
+paths whose name starts with PREFIX alone (several, comma-separated).
 ``--port-root`` measures the port found under another checkout, so two
 commits compare in one run on one card.
 """
@@ -502,6 +518,7 @@ ADAPTERS = dict(optim_model="DPTNetModel", models=dict(
                 fit_epochs=2)
 OPT_F64_REL = 1e-9  # of max|Δp64|: F64_REL, the step checks' float64 rule
 OPT_F32_REL = 1e-5  # of max|Δp64|: TRAIN_LOSS_REL's floor for the float32 rule
+MOMENT_DTYPES = ("mu_dtype", "accumulator_dtype", "dtype_momentum")  # optax's, by name
 # Phase 20: the device mesh (ROADMAP A11), two replicas of the card (and
 # ``make_mesh()`` where there are more cards), each sharded call against the
 # unsharded call on the card: (a) the mixture step at the headline's shapes,
@@ -518,6 +535,46 @@ MESH = dict(replicas=2, n_src=HEADLINE["n_src"], iters=3, chunk_s=60.0,
 MESH_ATOL = 1e-6  # tests/test_pipeline_mesh.py:114-118: sharded tracks and banks
 MESH_PCM = 1.01 / 32768  # one int16 step: generated WAVs (test_pipeline_mesh.py:191)
 MESH_CHUNK_REL = 1e-5  # of max|ref|: chunked output against batch_size x replicas
+# Phase 21: (a) the checkpoint-import CLI on seeded reference checkpoints at
+# the configs' widths; (b) optax's keywords beyond the defaults, by phase 19
+# (a)'s rule on its model; (c) the bf16 recurrent layers, the card against
+# the CPU. Budget: 30 s of the call.
+IMPORTS = {"convtasnet": ("ConvTasNet", SERVE["model"]),
+           "tdanet": ("TDANet", ZOO_MODELS["TDANet"]),
+           "dccrn": ENH_MODELS["dccrn"], "frcrn": ENH_MODELS["frcrn"]}
+QUIRK_MODELS = ("TDANet", "DCCRN", "FRCRN")  # built with torch_compat=True from a .pth
+
+
+def kernels_only(tree):
+    """A mask function on a flax tree: the leaves of two or more axes."""
+    return {k: kernels_only(v) if isinstance(v, dict) else np.ndim(v) > 1
+            for k, v in tree.items()}
+
+
+OPTIM_KEYWORDS = (  # (label, optimizer, keywords): each keyword in one case
+    ("adam eps_root nesterov", "adam", dict(eps_root=1e-3, nesterov=True)),
+    ("adam mu_dtype", "adam", dict(mu_dtype="bfloat16")),
+    ("adamw mask", "adamw", dict(mask=kernels_only)),
+    ("sgd accumulator_dtype", "sgd", dict(momentum=0.9, accumulator_dtype="bfloat16")),
+    ("adadelta weight_decay_mask", "adadelta", dict(weight_decay_mask=kernels_only)),
+    ("lion mu_dtype mask", "lion", dict(mu_dtype="bfloat16", mask=kernels_only)),
+    ("lamb mask", "lamb", dict(mask=kernels_only)),
+    ("lars weight_decay_mask trust_ratio_mask", "lars",
+     dict(weight_decay_mask=kernels_only, trust_ratio_mask=kernels_only)),
+    ("adafactor dtype_momentum weight_decay_mask", "adafactor",
+     dict(momentum=0.9, dtype_momentum="bfloat16", weight_decay_rate=0.1,
+          weight_decay_mask=kernels_only)),
+)
+RNN_LAYERS = {  # label: (kind, input, hidden, bidirectional, layers, (B, T))
+    "lstm-fullsubnet-fb": ("LSTM", 257, 512, False, 2, (1, 626)),
+    "lstm-dprnn-intra": ("LSTM", 64, 128, True, 1, (64, 250)),
+    "gru-fullband": ("GRU", 257, 512, False, 2, (1, 626)),
+    "gru-bidirectional": ("GRU", 64, 128, True, 1, (64, 250)),
+}
+IMPORT_FWD = dict(imports=IMPORTS, seed=0, crop_s=2.0, keywords=OPTIM_KEYWORDS,
+                  rnn_layers=RNN_LAYERS, reps=5, warmup=2)
+IMPORT_REL = 1e-4  # of max|ref|: the converted pack against its .pth on the card
+RNN_BF16_REL = 1e-4  # rel-L2: a bf16 recurrent layer on the card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
 REPLACES = {
@@ -3879,14 +3936,20 @@ def phase_variants(device, cfg, folders, root: Path, smi) -> dict:
     return stats
 
 
-def phase_optim_zoo(device, cfg, smi) -> dict:
+def phase_optim_zoo(device, cfg, smi, cases=None) -> dict:
     """Phase 19 (a): each optax name of the JAX factory through the port's
     ``make_optimizer`` over ``cfg["optim_model"]``'s full-width parameters:
     three steps of seeded float64 gradients, clipped by the step's
     ``clip_by_global_norm`` (set to fire on the second), the LR changed
     after the first. The card in float64 against the CPU in float64, the
     card in float32 by the form of phase 10's rule, and the step's time in
-    float32 on the card. Returns each optimizer's readings."""
+    float32 on the card. ``cases`` ((label, name, keywords), default each
+    name with none) is phase 21 (b)'s way in; where a keyword stores a
+    moment in a narrower dtype, the float32 bound is at least one unit in
+    the last place of that dtype (``torch.finfo(dtype).eps``) of max|Δp64|:
+    the card's and the CPU's float32 moments round to neighbouring values
+    at a few elements, each moving that element's update by up to one
+    such unit. Returns each case's readings."""
     import torch
 
     from sonicsim_tpu_torch.models import get
@@ -3906,10 +3969,10 @@ def phase_optim_zoo(device, cfg, smi) -> dict:
     p0 = {n: weights[n].double() for n in shapes}
     cpu = torch.device("cpu")
 
-    def run(opt_name, dev, dtype, timed=False):
+    def run(opt_name, keywords, dev, dtype, timed=False):
         model = get(name)(**args, device=dev).to(dtype)
         model.load_state_dict(weights)
-        opt = make_optimizer(model, cfg["lr"], cfg["weight_decay"], opt_name)
+        opt = make_optimizer(model, cfg["lr"], cfg["weight_decay"], opt_name, **keywords)
         params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         for k, tree in enumerate(grads):
             for n, p in params.items():
@@ -3926,28 +3989,34 @@ def phase_optim_zoo(device, cfg, smi) -> dict:
         return max(float((a[n] - b[n]).abs().max()) for n in a)
 
     stats = {}
-    for opt_name in cfg.get("names", OPTIM_NAMES):
-        c64, _, cls = run(opt_name, cpu, torch.float64)
-        d64, _, _ = run(opt_name, device, torch.float64)
-        c32, _, _ = run(opt_name, cpu, torch.float32)
-        d32, ms, _ = run(opt_name, device, torch.float32, timed=True)
+    if cases is None:
+        cases = [(n, n, {}) for n in cfg.get("names", OPTIM_NAMES)]
+    for label, opt_name, keywords in cases:
+        c64, _, cls = run(opt_name, keywords, cpu, torch.float64)
+        d64, _, _ = run(opt_name, keywords, device, torch.float64)
+        c32, _, _ = run(opt_name, keywords, cpu, torch.float32)
+        d32, ms, _ = run(opt_name, keywords, device, torch.float32, timed=True)
         moved = dist(c64, p0)
         e64, e32, cpu32 = dist(d64, c64) / moved, dist(d32, c64) / moved, dist(c32, c64) / moved
-        bound = max(OPT_F32_REL, ILL_FACTOR * cpu32)
+        stored = max((torch.finfo(getattr(torch, v)).eps for k, v in keywords.items()
+                      if k in MOMENT_DTYPES), default=0.0)
+        bound = max(OPT_F32_REL, ILL_FACTOR * cpu32, stored)
         check(moved > 0 and e64 <= OPT_F64_REL,
-              f"{opt_name}: float64 on the device {e64}·max|Δp64| from the CPU (tol "
+              f"{label}: float64 on the device {e64}·max|Δp64| from the CPU (tol "
               f"{OPT_F64_REL}; max|Δp64| {moved})")
-        check(e32 <= bound, f"{opt_name}: float32 on the device {e32}·max|Δp64| from float64 on "
+        check(e32 <= bound, f"{label}: float32 on the device {e32}·max|Δp64| from float64 on "
               f"the CPU, over {bound} (the CPU's float32 {cpu32})")
-        stats[opt_name] = dict(cls=cls, moved=moved, f64=e64, f32=e32, cpu_f32=cpu32, ms=ms)
-        print(f"optim[{opt_name} ({cls})]: {name} at full width, {args['layer']} layers, "
+        stats[label] = dict(cls=cls, moved=moved, f64=e64, f32=e32, cpu_f32=cpu32, ms=ms)
+        print(f"optim[{label} ({cls})]: {name} at full width, {args['layer']} layers, "
               f"{sum(int(np.prod(s)) for s in shapes.values())} trained parameters, 3 steps "
               f"of seeded gradients (clip {clip:.4g} fires on the second; lr {cfg['lr']} then "
               f"{cfg['lr2']}; weight decay {cfg['weight_decay']}): max|Δp64| {moved:.4g}; "
               f"float64 on the device {e64:.3g}·max|Δp64| from the CPU (tol {OPT_F64_REL}), "
               f"float32 {e32:.3g} (tol {bound:.3g}: max({OPT_F32_REL}, {ILL_FACTOR} x the "
-              f"CPU's float32 {cpu32:.3g})); optimizer step {ms:.4f} ms in float32 (CUDA-event "
-              f"median of {cfg['reps']} after {cfg['warmup']}); {smi}", flush=True)
+              f"CPU's float32 {cpu32:.3g}"
+              + (f", the stored moment's ulp {stored:.3g}" if stored else "")
+              + f")); optimizer step {ms:.4f} ms in float32 (CUDA-event median of "
+              f"{cfg['reps']} after {cfg['warmup']}); {smi}", flush=True)
     return stats
 
 
@@ -4404,12 +4473,141 @@ def phase_mesh(device, cfg, mix_cfg, bank_cfg, gen, folders, root: Path, smi):
     return stats, launches
 
 
+def reference_checkpoint(path: Path, name: str, args: dict, seed: int) -> None:
+    """A reference ``best_model.pth`` of ``name`` at ``args``: seeded weights
+    (:func:`seeded_zoo`; a quirk model built in its reference mode) under
+    the reference's parameter names, the constructor's arguments plus the
+    reference's bookkeeping ``n_src``; a BatchNorm's running variances
+    1 + |drawn|, as a trained one's are positive."""
+    import torch
+
+    quirk = {"torch_compat": True} if name in QUIRK_MODELS else {}
+    model = seeded_zoo(name, dict(args, **quirk), seed)
+    ref_args = {k: v for k, v in model.model_args().items() if k != "torch_compat"}
+    sd = {k: 1.0 + v.abs() if k.endswith("running_var") else v
+          for k, v in model.state_dict().items()}
+    torch.save({"model_name": name, "model_args": dict(ref_args, n_src=2), "state_dict": sd},
+               path)
+
+
+def _rnn_layer_hold(device, label, spec, seed: int, cfg) -> dict:
+    """Phase 21 (c): one bf16 recurrent layer (``zoo_layers.recurrent_layer``
+    at ``spec``'s widths, seeded) on the card and on the CPU, its state cast
+    to bfloat16 and its input bfloat16 (``infer.precision``'s call): rel-L2
+    of the card's output from the CPU's, the distance of the float32-input
+    call (no rounding) from it, and the bf16 and fp32 forward times."""
+    import torch
+
+    from sonicsim_tpu_torch.models.zoo_layers import recurrent_layer
+
+    kind, n_in, hidden, bi, layers, (b, t) = spec
+    torch.manual_seed(seed)
+    layer = recurrent_layer(kind, n_in, hidden, bi, layers).eval()
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((b, t, n_in),
+                                                                     dtype=np.float32))
+
+    def call(mod, inp, dtype):
+        state = {n: q.to(dtype) for n, q in mod.named_parameters()}
+        with torch.inference_mode():
+            return torch.func.functional_call(mod, state, (inp,))
+
+    cpu = call(layer, x.to(torch.bfloat16), torch.bfloat16)
+    card_layer = recurrent_layer(kind, n_in, hidden, bi, layers).to(device).eval()
+    card_layer.load_state_dict(layer.state_dict())
+    xd = x.to(device)
+    card = call(card_layer, xd.to(torch.bfloat16), torch.bfloat16).cpu()
+    unrounded = call(card_layer, xd, torch.bfloat16).cpu()
+    rel = _rel_l2(card, cpu)
+    check(card.dtype == torch.float32 and bool(torch.isfinite(card).all()) and rel <= RNN_BF16_REL,
+          f"rnn[{label}] bf16 on the card vs the CPU: rel-L2 {rel} (tol {RNN_BF16_REL})")
+    rounding = _rel_l2(card, unrounded)
+    check(rounding > 0, f"rnn[{label}]: the bf16 input's projection was not rounded")
+    ms16 = median_ms(lambda: call(card_layer, xd.to(torch.bfloat16), torch.bfloat16), device,
+                     reps=cfg["reps"], warmup=cfg["warmup"])
+    with torch.inference_mode():
+        ms32 = median_ms(lambda: card_layer(xd), device, reps=cfg["reps"], warmup=cfg["warmup"])
+    return dict(rel=rel, rounding=rounding, ms_bf16=ms16, ms_fp32=ms32)
+
+
+def phase_import_keywords(device, cfg, optim_cfg, folders, root: Path, smi) -> dict:
+    """Phase 21: (a) the checkpoint-import CLI, (b) optax's keywords, (c) the
+    bf16 recurrent layers (the module docstring's item 21). Returns the
+    readings."""
+    import torch
+
+    from sonicsim_tpu_torch.models import from_pretrain
+    from sonicsim_tpu_torch.scripts import import_checkpoint
+    from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
+
+    strict_float32()
+    root.mkdir()
+    crop = torch.from_numpy(_mono_mixes(folders[:1])[0][None, :int(cfg["crop_s"] * SR)].copy())
+    stats = {"imports": {}, "keywords": {}, "rnn": {}}
+    for stem, (name, args) in cfg["imports"].items():
+        pth, pkl = root / f"{stem}.pth", root / f"{stem}.pkl"
+        reference_checkpoint(pth, name, args, cfg["seed"])
+        t0 = time.perf_counter()
+        line = import_checkpoint.main(["--in", str(pth), "--out", str(pkl)])
+        convert_s = time.perf_counter() - t0
+        packed, direct = from_pretrain(pkl, device=device), from_pretrain(pth, device=device)
+        check(type(packed).__name__ == name and line == f"imported {name} -> {pkl}",
+              f"import {stem}: {line!r}, built {type(packed).__name__}")
+        check(packed.model_args() == direct.model_args(),
+              f"import {stem}: the pack's model_args {packed.model_args()} are not the .pth's "
+              f"{direct.model_args()}")
+        a, b = packed.state_dict(), direct.state_dict()
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+              f"import {stem}: the pack's weights are not the .pth's")
+        # Deterministic cuDNN algorithms: FRCRN's forward amplifies the
+        # run-to-run spread of the default ones past the gate.
+        cudnn = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            got, ref = (make_forward(m)(crop.to(device)).cpu() for m in (packed, direct))
+        finally:
+            torch.backends.cudnn.deterministic = cudnn
+        err, peak = float((got - ref).abs().max()), float(ref.abs().max())
+        check(bool(torch.isfinite(got).all()) and got.shape == ref.shape
+              and err <= IMPORT_REL * peak,
+              f"import {stem}: the pack's forward vs the .pth's on the card: max abs err {err} "
+              f"(max|ref| {peak})")
+        stats["imports"][stem] = dict(convert_s=convert_s, err=err, max_ref=peak,
+                                      mib=pkl.stat().st_size / 2**20)
+        print(f"import[{stem}: {name}]: seeded reference .pth at the config's width "
+              f"({sum(q.numel() for q in direct.parameters())} parameters"
+              + (", torch_compat" if name in QUIRK_MODELS else "") + f") through python -m "
+              f"sonicsim_tpu_torch.scripts.import_checkpoint (on its default device, the card): "
+              f"{convert_s:.3f} s, a "
+              f"{stats['imports'][stem]['mib']:.1f} MiB pack; the pack and the .pth from "
+              f"from_pretrain on {device}: the same weights bit for bit, and on a B=1 x "
+              f"{cfg['crop_s']:g} s crop of phase 8's first mixture (cuDNN deterministic) max abs "
+              f"err {err:.3g} of max|ref| {peak:.3g} (tol {IMPORT_REL}·max|ref|)"
+              f"; {smi}", flush=True)
+        del packed, direct
+    t0 = time.perf_counter()
+    stats["keywords"] = phase_optim_zoo(device, optim_cfg, smi, cases=cfg["keywords"])
+    t1 = time.perf_counter()
+    for label, spec in cfg["rnn_layers"].items():
+        r = _rnn_layer_hold(device, label, spec, cfg["seed"], cfg)
+        stats["rnn"][label] = r
+        kind, n_in, hidden, bi, layers, (b, t) = spec
+        print(f"rnn[{label}]: {'bidirectional ' if bi else ''}{kind}, {layers} layer(s), "
+              f"{n_in} -> {hidden}, input ({b}, {t}, {n_in}) in bfloat16 on bfloat16 weights "
+              f"(the first layer's input projection rounded as flax's): rel-L2 {r['rel']:.3g} "
+              f"from the CPU (tol {RNN_BF16_REL}), {r['rounding']:.3g} from the float32-input "
+              f"call; {r['ms_bf16']:.4f} ms in bf16, {r['ms_fp32']:.4f} ms in fp32 (CUDA-event "
+              f"median of {cfg['reps']} after {cfg['warmup']}); {smi}", flush=True)
+    print(f"phase 21: (b) {t1 - t0:.1f} s, (c) {time.perf_counter() - t1:.1f} s (host wall)",
+          flush=True)
+    return stats
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
         train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
         enh_train_cfg=ENH_TRAIN, sep_train_cfg=SEP_TRAIN, eval_cfg=EVAL_SIDECARS,
         sidecar_cfg=SIDECAR_MODELS, variants_cfg=VARIANTS, adapters_cfg=ADAPTERS,
-        mesh_cfg=MESH, env_line: str = "") -> None:
+        mesh_cfg=MESH, import_cfg=IMPORT_FWD, env_line: str = "") -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     seconds, mark = {}, [time.perf_counter()]
@@ -4509,13 +4707,19 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         _, counts["mesh"] = phase_mesh(device, mesh_cfg, mix_cfg, bank_cfg, gen,
                                        runs["disk"]["produced"], Path(tmp) / "mesh", smi)
         lap("mesh (20)")
+        kernels.reset_launch_counts()
+        phase_import_keywords(device, import_cfg, adapters_cfg, runs["disk"]["produced"],
+                              Path(tmp) / "import", smi)
+        imports = dict(kernels.LAUNCHES)
+        lap("import, optax keywords, bf16 layers (21)")
     for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
                     ("enhancement training", enh_training),
                     ("separation training", sep_training),
                     ("the evaluation sidecars", eval_sidecars),
                     ("the sidecar models", sidecar_models), ("the variants", variants),
-                    ("the optimizers and the remix fit", adapters)):
+                    ("the optimizers and the remix fit", adapters),
+                    ("the import, the optax keywords and the bf16 layers", imports)):
         check(not any(c.values()), f"{path} launched a kernel: {c}")
     times.update(hold_kernel_cases(device, {"generation": case}, first_seed=len(times)))
     launches = {k: sum(c[k] for c in counts.values()) for k in kernels.LAUNCHES}
@@ -4538,7 +4742,8 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"optimizers and the remix fit (phase 19a-b): {adapters} (no zoo model, optimizer "
           f"or sidecar has a Pallas counterpart); the imported banks' mixture step (phase "
           f"19c) is phase 7's path; the mesh (phase 20) counts its sharded (a)-(c) alone, and "
-          f"its chunked inference and train steps launch neither kernel", flush=True)
+          f"its chunked inference and train steps launch neither kernel; nor does phase 21: "
+          f"{imports}", flush=True)
     print(f"phase seconds (host wall): {seconds}", flush=True)
 
     report = {"kernels": [
@@ -4589,9 +4794,9 @@ def phase_profile(device, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     ``dataset``), ConvTasNet's forward on 60 s in fp32 and on a batch of
     4 s crops in bf16 (where the port has ``models``), its train step in
     fp32 and bf16 (where it has ``train``), and each zoo model's 10 s
-    forward (where it has the zoo), ``reps`` calls after a warm-up
-    (``zoo_cfg["profile_reps"]`` for the zoo); with ``only``, the paths
-    whose name starts with it alone."""
+    forward in fp32 and bf16 (where it has the zoo), ``reps`` calls after a
+    warm-up (``zoo_cfg["profile_reps"]`` for the zoo); with ``only`` (prefixes,
+    comma-separated), the paths whose name starts with one of them alone."""
     tmp = Path(tempfile.mkdtemp())
     try:
         _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, train_cfg,
@@ -4619,7 +4824,9 @@ def _serving_paths(device, cfg, root: Path) -> dict:
 def _training_paths(device, cfg, model_cfg) -> dict:
     """One full-width train step (phase 10's seeded weights, optimizer,
     clip and loss) on B=``cfg["batch"]`` seeded-noise crops of
-    ``cfg["crop_s"]``, in fp32 and in bf16."""
+    ``cfg["crop_s"]``, in fp32 and in bf16; ``train-optim-…`` with
+    ``train.optim.Adam`` (optax's arithmetic, which an ``eps_root`` routes
+    to) in place of ``torch.optim.Adam``, the same function."""
     import torch
 
     from sonicsim_tpu_torch import bridge
@@ -4635,55 +4842,44 @@ def _training_paths(device, cfg, model_cfg) -> dict:
     y = 0.1 * torch.randn((cfg["batch"], 2, n), generator=g, device=device)
     paths = {}
     for precision in ("fp32", "bf16"):
-        model = ConvTasNet(**model_cfg, device=device)
-        model.load_state_dict(weights)
-        step = make_train_step(model, loss_fn, make_optimizer(model.parameters(), cfg["lr"]),
-                               "f32" if precision == "fp32" else "bf16", cfg["clip"])
-        paths[f"train-{precision}-B{cfg['batch']}"] = lambda step=step: step(x, y)
+        for form, keywords in (("", {}), ("optim-", {"eps_root": 0.0})):
+            model = ConvTasNet(**model_cfg, device=device)
+            model.load_state_dict(weights)
+            step = make_train_step(model, loss_fn,
+                                   make_optimizer(model.parameters(), cfg["lr"], **keywords),
+                                   "f32" if precision == "fp32" else "bf16", cfg["clip"])
+            paths[f"train-{form}{precision}-B{cfg['batch']}"] = lambda step=step: step(x, y)
     return paths
 
 
-def _zoo_paths(device, cfg, wanted=lambda name: True) -> dict:
-    """Each zoo model's forward (phase 11's seeded weights) on B=1 x
-    ``cfg["window_s"]`` of seeded noise, in fp32; the models whose path is
-    ``wanted`` alone are built."""
+def _forward_paths(device, cfg, prefix: str, models: dict, wanted=lambda name: True) -> dict:
+    """Each model's forward (``models``: path stem -> (name, args); phase 11
+    and 13's seeded weights) on B=1 x ``cfg["window_s"]`` of seeded noise:
+    ``<prefix>-<stem>-<window>s`` in fp32 and, where the port serves the
+    model in bf16 (``require_bf16``), ``…-bf16`` in bf16; the models with a
+    ``wanted`` path alone are built."""
     import torch
 
+    from sonicsim_tpu_torch.infer.precision import require_bf16
     from sonicsim_tpu_torch.scripts.common import make_forward
 
     g = torch.Generator(device=device).manual_seed(cfg["seed"])
     x = 0.1 * torch.randn((1, int(cfg["window_s"] * SR)), generator=g, device=device)
     paths = {}
-    for name, args in cfg["models"].items():
-        path = f"zoo-{name.lower()}-{cfg['window_s']:g}s"
-        if not wanted(path):
+    for stem, (name, args) in models.items():
+        path = f"{prefix}-{stem}-{cfg['window_s']:g}s"
+        if not (wanted(path) or wanted(path + "-bf16")):
             continue
         model = seeded_zoo(name, args, cfg["seed"])
         model.place(device)
         fwd = make_forward(model)
         paths[path] = lambda fwd=fwd: fwd(x)
-    return paths
-
-
-def _enh_paths(device, cfg, wanted=lambda name: True) -> dict:
-    """Each enhancement model's forward and ``to_waveform`` (phase 13's
-    seeded weights) on B=1 x ``cfg["window_s"]`` of seeded noise, in fp32;
-    the models whose path is ``wanted`` alone are built."""
-    import torch
-
-    from sonicsim_tpu_torch.scripts.common import make_forward
-
-    g = torch.Generator(device=device).manual_seed(cfg["seed"])
-    x = 0.1 * torch.randn((1, int(cfg["window_s"] * SR)), generator=g, device=device)
-    paths = {}
-    for stem, (name, args) in cfg["models"].items():
-        path = f"enh-{stem}-{cfg['window_s']:g}s"
-        if not wanted(path):
+        try:
+            require_bf16(model)
+        except NotImplementedError:
             continue
-        model = seeded_zoo(name, args, cfg["seed"])
-        model.place(device)
-        fwd = make_forward(model)
-        paths[path] = lambda fwd=fwd: fwd(x)
+        fwd16 = make_forward(model, bf16=True)
+        paths[path + "-bf16"] = lambda fwd16=fwd16: fwd16(x)
     return paths
 
 
@@ -4764,8 +4960,10 @@ def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, trai
     paths["bank"] = lambda: render_rir_banks(oracle, ways, mic, channel,
                                              out_device=True)
 
+    only = tuple(only.split(",")) if only else ()
+
     def wanted(prefix: str) -> bool:  # a path named ``prefix…`` can match ``only``
-        return not only or prefix.startswith(only) or only.startswith(prefix)
+        return not only or any(prefix.startswith(o) or o.startswith(prefix) for o in only)
 
     if importlib.util.find_spec("sonicsim_tpu_torch.dataset") and wanted("generation-"):
         paths.update(_generation_paths(device, gen_cfg, tmp))
@@ -4774,14 +4972,15 @@ def _profile_paths(device, head_cfg, mix_cfg, bank_cfg, gen_cfg, serve_cfg, trai
     if importlib.util.find_spec("sonicsim_tpu_torch.train") and wanted("train-"):
         paths.update(_training_paths(device, train_cfg, serve_cfg["model"]))
     if importlib.util.find_spec("sonicsim_tpu_torch.models.tfgridnet") and wanted("zoo-"):
-        paths.update(_zoo_paths(device, zoo_cfg, wanted))
+        paths.update(_forward_paths(device, zoo_cfg, "zoo", {
+            name.lower(): (name, args) for name, args in zoo_cfg["models"].items()}, wanted))
     if importlib.util.find_spec("sonicsim_tpu_torch.models.frcrn") and wanted("enh-"):
-        paths.update(_enh_paths(device, enh_cfg, wanted))
+        paths.update(_forward_paths(device, enh_cfg, "enh", enh_cfg["models"], wanted))
     if importlib.util.find_spec("sonicsim_tpu_torch.models.tfgridnet") and wanted("sep-train-"):
         paths.update(_sep_train_paths(device, sep_train_cfg, wanted))
     report = {"port": sonicsim_tpu_torch.__file__}
     for name, fn in paths.items():
-        if only and not name.startswith(only):
+        if only and not name.startswith(only):  # a tuple: any of the prefixes
             continue
         reps = zoo_cfg["profile_reps"] if name.startswith(("zoo-", "enh-", "sep-")) else n_reps
         fn()
@@ -4838,8 +5037,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the main path instead of the smoke phases")
-    ap.add_argument("--only", default=None, metavar="PREFIX",
-                    help="with --profile, the paths whose name starts with PREFIX alone")
+    ap.add_argument("--only", default=None, metavar="PREFIX[,PREFIX…]",
+                    help="with --profile, the paths whose name starts with a PREFIX alone")
     ap.add_argument("--port-root", default=None,
                     help="import sonicsim_tpu_torch from this checkout")
     ap.add_argument("--trace-dir", default=None,

@@ -16,10 +16,12 @@ dtypes are flax's: the cell makes its zero carry in float32 (its
 float32, and the model runs in float32 after it; an initial state passed
 in sets the carry's dtype. The recurrence runs in float32 (or wider) on
 the weights cast up, and only its output and final state take the
-promoted dtype: cuDNN's bfloat16 RNN is not the JAX cell's function. flax
-computes the input projection of a bfloat16 input in bfloat16; the port
-computes it inside the float32 recurrence and does not round it. The JAX
-package's ``OptimizedLSTMCell`` keeps per-gate denses (gates i, f, g, o)
+promoted dtype: cuDNN's bfloat16 RNN is not the JAX cell's function. The
+input projection is flax's: on a bfloat16 input and bfloat16 weights flax
+rounds ``W_ih·x`` (the GRU's ``W_ih·x + b_ih``) to bfloat16 before the
+float32 gates, so the port computes it, rounds it, and feeds it to the
+float32 recurrence through an identity input weight (:func:`_run_wide`).
+The JAX package's ``OptimizedLSTMCell`` keeps per-gate denses (gates i, f, g, o)
 and one bias per gate, equal to torch's ``bias_ih + bias_hh``; ``bridge``
 carries that bias into ``bias_ih`` and zeros into ``bias_hh``, so weights
 cross flax→torch→flax exactly and torch→flax→torch as the same function.
@@ -258,7 +260,7 @@ class LSTMLayer(nn.LSTM):
         """``nn.LSTM``'s own call: ``(output, (h_n, c_n))`` from the initial
         state ``hx = (h_0, c_0)``, each (directions, B, H), or zeros, in
         the dtypes of the module's docstring."""
-        return _run_wide(self, nn.LSTM.forward, torch._VF.lstm, 2, x, hx)
+        return _run_wide(self, nn.LSTM.forward, torch._VF.lstm, 2, x, hx, False)
 
 
 class GRULayer(nn.GRU):
@@ -301,15 +303,23 @@ class GRULayer(nn.GRU):
     def run(self, x: torch.Tensor, hx=None):
         """``nn.GRU``'s own call, ``(output, h_n)``, in the dtypes of
         :meth:`LSTMLayer.run`."""
-        return _run_wide(self, nn.GRU.forward, torch._VF.gru, 1, x, hx)
+        return _run_wide(self, nn.GRU.forward, torch._VF.gru, 1, x, hx, True)
 
 
-def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx):
+def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx,
+              input_bias: bool):
     """``rnn``'s call with the recurrence and carry in float32 or wider:
     ``own`` (its class's ``forward``) where the input, weights and state
     already share that dtype, else ``op`` (``torch._VF.lstm`` or ``.gru``)
     on them cast up, the output and the state (``n_states`` tensors, a
-    tuple of them for the LSTM) cast back to their promoted dtype."""
+    tuple of them for the LSTM) cast back to their promoted dtype.
+
+    Where the input and the weights promote to a dtype narrower than the
+    recurrence's (a bfloat16 input on bfloat16 weights), the first layer's
+    input projection is rounded to it as flax's input dense rounds it
+    (:func:`_rounded_projection`; with the bias where ``input_bias``, the
+    GRU's). Later layers read the first one's float32 output, as each
+    layer of flax's stack is its own ``nn.RNN``."""
     # By name: ``torch.func.functional_call`` swaps the attributes, not
     # ``_flat_weights``.
     weights = [getattr(rnn, n) for n in rnn._flat_weights_names]
@@ -323,11 +333,42 @@ def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx):
         states = (x.new_zeros(rnn.num_layers * (2 if rnn.bidirectional else 1), x.shape[0],
                               rnn.hidden_size, dtype=run),) * n_states
     wide = tuple(s.to(run) for s in states)
-    y, *h = op(x.to(run), wide if n_states > 1 else wide[0], [w.to(run) for w in weights],
-               rnn.bias, rnn.num_layers, float(rnn.dropout), rnn.training, rnn.bidirectional,
-               rnn.batch_first)
+    x_run, w_run = x.to(run), [w.to(run) for w in weights]
+    narrow = torch.promote_types(x.dtype, weights[0].dtype)
+    if narrow != run:
+        x_run, w_run = _rounded_projection(rnn, x_run, w_run, narrow, input_bias)
+    y, *h = op(x_run, wide if n_states > 1 else wide[0], w_run, rnn.bias, rnn.num_layers,
+               float(rnn.dropout), rnn.training, rnn.bidirectional, rnn.batch_first)
     h = tuple(s.to(out) for s in h)
     return y.to(out), h if n_states > 1 else h[0]
+
+
+def _rounded_projection(rnn: nn.RNNBase, x: torch.Tensor, weights: list, narrow: torch.dtype,
+                        input_bias: bool) -> tuple[torch.Tensor, list]:
+    """The first layer's input projection of ``x`` (B, T, C), computed in
+    ``x``'s dtype and rounded to ``narrow``, as the new input of a first
+    layer whose ``weight_ih`` is an identity (``bias_ih`` zero where
+    ``input_bias`` folds it into the projection): ``(x′, weights′)``. A
+    bidirectional layer's two directions project ``x`` with their own
+    weights, so ``x′`` is ``[x′_forward, x′_reverse]`` on the channels and
+    each direction's identity reads its own half. A rounded value times 1
+    is exact in float32 and in TF32 alike, so the recurrence sees the
+    rounded projection as it is; gradients reach ``weight_ih`` (and
+    ``bias_ih``) through the projection and its casts."""
+    n_dir = 2 if rnn.bidirectional else 1
+    per_dir = len(weights) // (rnn.num_layers * n_dir)
+    gates = weights[0].shape[0]
+    eye = torch.eye(gates * n_dir, dtype=x.dtype, device=x.device)
+    weights, parts = list(weights), []
+    for d in range(n_dir):
+        i = d * per_dir
+        proj = x @ weights[i].t()
+        if input_bias:
+            proj = proj + weights[i + 2]
+            weights[i + 2] = torch.zeros_like(weights[i + 2])
+        parts.append(proj.to(narrow).to(x.dtype))
+        weights[i] = eye[d * gates:(d + 1) * gates]
+    return torch.cat(parts, dim=-1) if n_dir > 1 else parts[0], weights
 
 
 def _keep_rz(n: int, grad: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,12 @@ occupancy grid with world bounds) answers the queries the reference asks of
 habitat-sim's navmesh: random navigable points, point snapping, shortest
 paths, grid points and trajectory sampling. Every draw from the
 ``np.random.Generator`` comes in the reference's order, so equal seeds give
-equal trajectories (tests/test_torch_gen_host.py). The port has no native
-pathfinder: ``find_path`` is the reference's A* in Python, which gives the
-native one's paths on the rectangular grids generation uses.
+equal trajectories (tests/test_torch_gen_host.py). ``find_path`` is the
+JAX package's native pathfinder, the port's own copy in C++
+(``sim/native.py``, built with g++ at first use); ``find_path_plain`` is
+its Python A*, which breaks ties between equal-cost cells in another order
+and so agrees with it on open rectangles only
+(tests/test_torch_geometry_native.py).
 
 Coordinate convention matches habitat: x/z horizontal plane, y up.
 """
@@ -108,15 +111,40 @@ class NavGrid:
         x, z = self.cell_to_world(i, j)
         return np.array([x, self.floor_height, z])
 
-    def find_path(self, start: np.ndarray, end: np.ndarray) -> list[np.ndarray] | None:
-        """A* shortest path (8-connected) + string-pulling simplification;
-        habitat ShortestPath.points parity (list of 3D waypoints)."""
+    def _end_cells(self, start: np.ndarray, end: np.ndarray):
+        """The snapped start and end cells, or None where either is off the
+        navigable cells."""
         s = self.world_to_cell(*self.snap_point(start)[[0, 2]])
         e = self.world_to_cell(*self.snap_point(end)[[0, 2]])
         if not (self.in_bounds(*s) and self.occupancy[s]):
             return None
         if not (self.in_bounds(*e) and self.occupancy[e]):
             return None
+        return s, e
+
+    def find_path(self, start: np.ndarray, end: np.ndarray) -> list[np.ndarray] | None:
+        """A* shortest path (8-connected) + string-pulling simplification;
+        habitat ShortestPath.points parity (list of 3D waypoints), by the
+        C++ pathfinder (``sim/native.py``), which raises where it cannot
+        build."""
+        from . import native
+
+        ends = self._end_cells(start, end)
+        if ends is None:
+            return None
+        cells = native.astar_path(self.occupancy, *ends, simplify=True)
+        if cells is None:
+            return None
+        return [self._cell_point(int(i), int(j)) for i, j in cells]
+
+    def find_path_plain(self, start: np.ndarray, end: np.ndarray) -> list[np.ndarray] | None:
+        """:meth:`find_path` in Python (the JAX package's fallback A*): ties
+        between equal-cost cells break by ``heapq``'s tuple order, not the
+        C++ ``priority_queue``'s."""
+        ends = self._end_cells(start, end)
+        if ends is None:
+            return None
+        s, e = ends
         came, cost = {s: None}, {s: 0.0}
         pq = [(0.0, s)]
         moves = [

@@ -3,13 +3,27 @@
 Port of the optimizer zoo behind ``sonicsim_tpu.train.trainer
 .make_optimizer`` (the reference's look2hear/system/optimizers.py:8-113 on
 optax): sgd, rmsprop, adagrad, adadelta, lamb, lars, radam, adafactor,
-novograd, yogi, adabelief and lion. Each computes optax 0.2.6's arithmetic
-under optax's defaults, term by term, not PyTorch's nearest optimizer
+novograd, yogi, adabelief and lion, and adam and adamw with the keywords
+``torch.optim.Adam`` has no counterpart for. Each computes optax 0.2.6's
+arithmetic term by term, not PyTorch's nearest optimizer
 (``torch.optim.RMSprop`` takes g/(√ν + ε), optax's ``rmsprop`` g/√(ν + ε);
 ``Adagrad`` starts its sum at 0, optax's at 0.1; …). Each takes the optax
-function's keyword names and raises ``TypeError`` on any other, as the
-optax function does. ``lr`` in ``param_groups`` is optax's injected
-``learning_rate`` (``trainer.set_learning_rate``).
+function's keywords and raises ``TypeError`` on any other, as the optax
+function does. ``lr`` in ``param_groups`` is optax's injected
+``learning_rate`` (``trainer.set_learning_rate``); the other numbers are
+injected too, as float32 scalars, so a moment stored in a narrower dtype
+(``mu_dtype``, ``accumulator_dtype``, ``dtype_momentum``) enters the
+arithmetic widened, the step takes the moment as computed, and the state
+keeps it rounded (``optax.tree.cast``).
+
+**Masks** (``mask``, ``weight_decay_mask``, ``trust_ratio_mask``) are
+optax's: a tree of booleans, a prefix of it, or a callable that returns one
+from the parameters' tree. That tree is the JAX package's flax tree of the
+model (:func:`param_tree`: the flax leaves' shapes and the parameters'
+values; a bare parameter list is a dict of its positions), so one mask
+gives the same step in both packages. The mask is evaluated once, on the
+parameters the optimizer is made with (optax evaluates it on each step's
+updates, which have their shapes).
 
 **Leaves.** lamb and lars take a trust ratio per leaf, novograd keeps one
 second moment per leaf, adafactor factors each leaf and scales it by the
@@ -44,11 +58,15 @@ class LeafMap:
     """The tensors an optimizer updates and the leaves its statistics run
     over: ``leaves`` = [(name, flax shape, flat index into the tensors
     joined in order)], ``masks`` = {tensor position: the boolean mask of
-    its elements some leaf holds}, where that is not every element."""
+    its elements some leaf holds}, where that is not every element;
+    ``shapes`` = the whole flax tree with each leaf's shape (the optimizer's
+    leaves, found under ``prefix``, and frozen statistics alike)."""
 
     params: list
     leaves: list
     masks: dict = field(default_factory=dict)
+    shapes: dict = field(default_factory=dict)
+    prefix: str = ""
 
 
 def tensor_leaf_map(params) -> LeafMap:
@@ -58,7 +76,7 @@ def tensor_leaf_map(params) -> LeafMap:
     for i, p in enumerate(params):
         leaves.append((str(i), tuple(p.shape), torch.arange(start, start + p.numel())))
         start += p.numel()
-    return LeafMap(params, leaves)
+    return LeafMap(params, leaves, shapes={n: s for n, s, _ in leaves})
 
 
 def _flat_tree(tree, prefix: str = ""):
@@ -93,6 +111,7 @@ def flax_leaf_map(model: nn.Module) -> LeafMap:
         start += p.numel()
     tree = to_flax(type(model).__name__, marks, model.model_args())
     leaves, held = [], np.zeros(start, dtype=bool)
+    prefix = "params/" if "params" in tree else ""
     for path, leaf in _flat_tree(tree.get("params", tree)):
         leaf = np.asarray(leaf, np.float64)
         if not leaf.any():
@@ -108,7 +127,62 @@ def flax_leaf_map(model: nn.Module) -> LeafMap:
         if not part.all():
             masks[i] = torch.from_numpy(part.reshape(tuple(p.shape)).copy())
         start += p.numel()
-    return LeafMap([p for _, p in named], leaves, masks)
+    return LeafMap([p for _, p in named], leaves, masks, _shapes(tree), prefix)
+
+
+def _shapes(tree: dict) -> dict:
+    return {k: _shapes(v) if isinstance(v, dict) else tuple(np.shape(v)) for k, v in tree.items()}
+
+
+def param_tree(leaf_map: LeafMap) -> dict:
+    """The flax tree a mask is evaluated on: each optimizer leaf holds its
+    parameters' values (numpy, in the flax shape), every other leaf (frozen
+    statistics) zeros of its shape."""
+    flat = _join([p.detach() for p in leaf_map.params]).cpu()
+    values = {leaf_map.prefix + n: flat[i].reshape(s).numpy() for n, s, i in leaf_map.leaves}
+
+    def fill(node: dict, path: str) -> dict:
+        return {k: fill(v, f"{path}{k}/") if isinstance(v, dict)
+                else values.get(path + k, np.zeros(v, np.float32)) for k, v in node.items()}
+
+    return fill(leaf_map.shapes, "")
+
+
+def leaf_selection(leaf_map: LeafMap, mask) -> list | None:
+    """optax's ``mask`` over ``leaf_map``'s leaves: one bool per leaf, or None
+    where it selects every leaf (``None`` or ``True``). ``mask`` is a tree
+    of booleans or a prefix of one (a boolean covers the subtree under
+    it), or a callable returning one from :func:`param_tree`; a list or
+    tuple stands for the dict of its positions."""
+    if mask is None or mask is True:
+        return None
+    if callable(mask):
+        mask = mask(param_tree(leaf_map))
+    out = []
+    for name, _, _ in leaf_map.leaves:
+        node = mask
+        for key in (leaf_map.prefix + name).split("/"):
+            if isinstance(node, (list, tuple)):
+                node = node[int(key)]
+            elif isinstance(node, dict):
+                node = node[key]
+            else:
+                break
+        out.append(bool(node))
+    return out
+
+
+def moment_dtype(dtype) -> torch.dtype | None:
+    """optax's moment dtype keyword (None, a name such as ``"bfloat16"``,
+    a numpy dtype or a ``torch.dtype``) as a ``torch.dtype``, or None: the
+    gradients' own."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"not a dtype: {dtype!r}")
+    return out
 
 
 def _join(tensors) -> torch.Tensor:
@@ -117,27 +191,29 @@ def _join(tensors) -> torch.Tensor:
 
 class OptaxOptimizer(torch.optim.Optimizer):
     """One optax optimizer over a :class:`LeafMap`'s tensors. A subclass
-    names its optax keywords and their defaults (``KEYWORDS``) and those it
-    takes at their default only (``FIXED``: dtypes and masks), and computes
-    :meth:`updates`: the update each tensor's elements are moved by
-    (optax's ``updates``, added to the parameters)."""
+    names its optax keywords and their defaults: the numbers and flags
+    (``KEYWORDS``, kept in ``param_groups``), the masks (``MASKS``, kept as
+    :func:`leaf_selection`'s booleans in ``self.masks``) and the moment
+    dtypes (``DTYPES``, kept as :func:`moment_dtype`'s in ``self.dtypes``),
+    and computes :meth:`updates`: the update each tensor's elements are
+    moved by (optax's ``updates``, added to the parameters)."""
 
     KEYWORDS: dict = {}
-    FIXED: dict = {}
+    MASKS: dict = {}
+    DTYPES: dict = {}
 
     def __init__(self, leaf_map: LeafMap, lr: float, **kwargs):
         name = type(self).__name__.lower()
         for k in kwargs:
-            if k not in self.KEYWORDS and k not in self.FIXED:
+            if k not in self.KEYWORDS and k not in self.MASKS and k not in self.DTYPES:
                 raise TypeError(f"{name}() got an unexpected keyword argument {k!r}")
-        for k, v in kwargs.items():
-            if k in self.FIXED and not _is_default(v, self.FIXED[k]):
-                raise NotImplementedError(f"{name}({k}={v!r}): the port takes {k} at its "
-                                          f"default, {self.FIXED[k]!r}")
         defaults = dict(self.KEYWORDS, **{k: v for k, v in kwargs.items() if k in self.KEYWORDS})
         super().__init__(leaf_map.params, dict(lr=lr, **defaults))
         self.leaf_map = leaf_map
+        self.masks = {k: leaf_selection(leaf_map, kwargs.get(k, d)) for k, d in self.MASKS.items()}
+        self.dtypes = {k: moment_dtype(kwargs.get(k, d)) for k, d in self.DTYPES.items()}
         self._index: dict = {}
+        self._selected: dict = {}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -176,11 +252,27 @@ class OptaxOptimizer(torch.optim.Optimizer):
             start += p.numel()
         return out
 
+    def selected(self, key: str, ps: list) -> list | None:
+        """Mask ``key``'s elements of each tensor of ``ps`` (bool tensors on
+        their device), or None where it selects every leaf."""
+        leaves = self.masks[key]
+        if leaves is None:
+            return None
+        device = ps[0].device
+        if (key, device) not in self._selected:
+            flat = torch.zeros(sum(p.numel() for p in ps), dtype=torch.bool)
+            for on, (_, _, idx) in zip(leaves, self.leaf_map.leaves):
+                flat[idx] = on
+            self._selected[key, device] = [m.to(device) for m in self.split(flat, ps)]
+        return self._selected[key, device]
 
-def _is_default(v, default) -> bool:
-    if default == "float32":
-        return v is None or v in ("float32", torch.float32, np.float32)
-    return v is default or v == default
+    def decayed(self, key: str, us: list, ps: list, weight_decay: float) -> list:
+        """optax's ``add_decayed_weights(weight_decay, mask)``: u + wd·p on
+        the elements mask ``key`` selects, u elsewhere (a new list)."""
+        sel = self.selected(key, ps)
+        if sel is None:
+            return torch._foreach_add(us, ps, alpha=weight_decay)
+        return [torch.where(m, u + weight_decay * p, u) for u, p, m in zip(us, ps, sel)]
 
 
 def _moment(ms, gs, decay: float, order: int = 1):
@@ -192,34 +284,73 @@ def _moment(ms, gs, decay: float, order: int = 1):
         torch._foreach_addcmul_(ms, gs, gs, value=1 - decay)
 
 
-def _state(states, ps, key: str, fill: float = 0.0) -> list:
+def _state(states, ps, key: str, fill: float = 0.0, dtype: torch.dtype | None = None) -> list:
     for s, p in zip(states, ps):
         if key not in s:
-            s[key] = torch.full_like(p, fill, memory_format=torch.preserve_format)
+            s[key] = torch.full_like(p, fill, dtype=dtype, memory_format=torch.preserve_format)
     return [s[key] for s in states]
+
+
+def _stored_moment(states, ps, gs, key: str, decay: float, dtype: torch.dtype | None) -> list:
+    """optax's first-moment ``update_moment`` on a moment stored in
+    ``dtype`` (None: the gradients'): (1 − decay)·g + decay·m on m widened
+    to the gradients' dtype; returns the moment as computed and stores it
+    cast to ``dtype`` (``optax.tree.cast``). Where the moment is rounded,
+    1 − decay is optax's float32 one and each product is rounded apart, so
+    the rounding sees optax's values."""
+    ms = _state(states, ps, key, dtype=dtype)
+    if dtype is None:
+        _moment(ms, gs, decay, 1)
+        return ms
+    new = torch._foreach_add(_scaled(gs, _complement(decay)),
+                             _scaled([m.to(g.dtype) for m, g in zip(ms, gs)], decay))
+    for s, m in zip(states, new):
+        s[key] = m.to(dtype)
+    return new
+
+
+def _complement(decay: float) -> float:
+    """1 − decay as optax computes it on its injected float32 hyperparameter."""
+    return float(np.float32(1) - np.float32(decay))
+
+
+def _mu_hat(mus, gs, b1: float, count: int, nesterov: bool) -> list:
+    """optax's bias-corrected first moment, with Nesterov's look-ahead
+    b1·m/(1 − b1^(t+1)) + (1 − b1)·g/(1 − b1^t)."""
+    if nesterov:
+        return torch._foreach_add(_scaled(mus, b1 / (1 - b1**(count + 1))),
+                                  _scaled(gs, (1 - b1) / (1 - b1**count)))
+    return _scaled(mus, 1 / (1 - b1**count))
 
 
 def _scaled(ts, s: float) -> list:
     return torch._foreach_mul(ts, s)
 
 
-def _trace(states, ps, us, decay: float, nesterov: bool) -> list:
+def _trace(states, ps, us, decay: float, nesterov: bool, dtype: torch.dtype | None = None
+           ) -> list:
     """optax's ``trace``: t ← u + decay·t; the update t, or u + decay·t with
-    Nesterov."""
-    ts = _state(states, ps, "trace")
-    torch._foreach_mul_(ts, decay)
-    torch._foreach_add_(ts, us)
+    Nesterov; t stored in ``dtype`` (None: the updates')."""
+    ts = _state(states, ps, "trace", dtype=dtype)
+    if dtype is None:
+        torch._foreach_mul_(ts, decay)
+        torch._foreach_add_(ts, us)
+    else:
+        ts = torch._foreach_add(us, _scaled([t.to(u.dtype) for t, u in zip(ts, us)], decay))
+        for s, t in zip(states, ts):
+            s["trace"] = t.to(dtype)
     return torch._foreach_add(us, _scaled(ts, decay)) if nesterov else [t.clone() for t in ts]
 
 
 class SGD(OptaxOptimizer):
     KEYWORDS = dict(momentum=None, nesterov=False)
-    FIXED = dict(accumulator_dtype=None)
+    DTYPES = dict(accumulator_dtype=None)
 
     def updates(self, group, ps, gs, states, count):
         us = list(gs)
         if group["momentum"] is not None:
-            us = _trace(states, ps, us, group["momentum"], group["nesterov"])
+            us = _trace(states, ps, us, group["momentum"], group["nesterov"],
+                        self.dtypes["accumulator_dtype"])
         return _scaled(us, -group["lr"])
 
 
@@ -263,11 +394,11 @@ class Adagrad(OptaxOptimizer):
 
 class Adadelta(OptaxOptimizer):
     KEYWORDS = dict(rho=0.9, eps=1e-6, weight_decay=0.0)
-    FIXED = dict(weight_decay_mask=None)
+    MASKS = dict(weight_decay_mask=None)
 
     def updates(self, group, ps, gs, states, count):
         rho, eps = group["rho"], group["eps"]
-        gs = torch._foreach_add(gs, ps, alpha=group["weight_decay"])
+        gs = self.decayed("weight_decay_mask", gs, ps, group["weight_decay"])
         e_g, e_x = _state(states, ps, "e_g"), _state(states, ps, "e_x")
         _moment(e_g, gs, rho, 2)
         num = torch._foreach_sqrt(torch._foreach_add(e_x, eps))
@@ -277,17 +408,41 @@ class Adadelta(OptaxOptimizer):
         return _scaled(us, -group["lr"])
 
 
-def _adam_direction(group, ps, gs, states, count) -> list:
-    """optax's ``scale_by_adam`` (without Nesterov): m̂ / (√(v̂ + ε_root) + ε)."""
+def _adam_direction(group, ps, gs, states, count, mu_dtype=None, nesterov=False) -> list:
+    """optax's ``scale_by_adam``: m̂ / (√(v̂ + ε_root) + ε), the first moment
+    stored in ``mu_dtype``."""
     b1, b2 = group["b1"], group["b2"]
-    mus, nus = _state(states, ps, "mu"), _state(states, ps, "nu")
-    _moment(mus, gs, b1, 1)
+    mus = _stored_moment(states, ps, gs, "mu", b1, mu_dtype)
+    nus = _state(states, ps, "nu")
     _moment(nus, gs, b2, 2)
     den = _scaled(nus, 1 / (1 - b2**count))
     torch._foreach_add_(den, group["eps_root"])
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, group["eps"])
-    return torch._foreach_div(_scaled(mus, 1 / (1 - b1**count)), den)
+    return torch._foreach_div(_mu_hat(mus, gs, b1, count, nesterov), den)
+
+
+class Adam(OptaxOptimizer):
+    """optax's ``adam``, where a keyword ``torch.optim.Adam`` does not
+    compute is set (``trainer.make_optimizer``)."""
+
+    KEYWORDS = dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, nesterov=False)
+    DTYPES = dict(mu_dtype=None)
+
+    def updates(self, group, ps, gs, states, count):
+        us = _adam_direction(group, ps, gs, states, count, self.dtypes["mu_dtype"],
+                             group["nesterov"])
+        if "weight_decay" in group:  # adamw
+            us = self.decayed("mask", us, ps, group["weight_decay"])
+        return _scaled(us, -group["lr"])
+
+
+class AdamW(Adam):
+    """optax's ``adamw``: Adam's direction plus the decayed weights on the
+    leaves ``mask`` selects."""
+
+    KEYWORDS = dict(Adam.KEYWORDS, weight_decay=1e-4)
+    MASKS = dict(mask=None)
 
 
 class RAdam(OptaxOptimizer):
@@ -301,11 +456,7 @@ class RAdam(OptaxOptimizer):
         mus, nus = _state(states, ps, "mu"), _state(states, ps, "nu")
         _moment(mus, gs, b1, 1)
         _moment(nus, gs, b2, 2)
-        if group["nesterov"]:
-            mu_hat = torch._foreach_add(_scaled(mus, b1 / (1 - b1**(count + 1))),
-                                        _scaled(gs, (1 - b1) / (1 - b1**count)))
-        else:
-            mu_hat = _scaled(mus, 1 / (1 - b1**count))
+        mu_hat = _mu_hat(mus, gs, b1, count, group["nesterov"])
         if ro < group["threshold"]:
             return _scaled(mu_hat, -group["lr"])
         r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
@@ -340,11 +491,7 @@ class AdaBelief(OptaxOptimizer):
         _moment(mus, gs, b1, 1)
         _moment(nus, torch._foreach_sub(gs, mus), b2, 2)
         torch._foreach_add_(nus, group["eps_root"])
-        if group["nesterov"]:
-            mu_hat = torch._foreach_add(_scaled(mus, b1 / (1 - b1**(count + 1))),
-                                        _scaled(gs, (1 - b1) / (1 - b1**count)))
-        else:
-            mu_hat = _scaled(mus, 1 / (1 - b1**count))
+        mu_hat = _mu_hat(mus, gs, b1, count, group["nesterov"])
         den = torch._foreach_sqrt(_scaled(nus, 1 / (1 - b2**count)))
         torch._foreach_add_(den, group["eps"])
         return _scaled(torch._foreach_div(mu_hat, den), -group["lr"])
@@ -352,14 +499,15 @@ class AdaBelief(OptaxOptimizer):
 
 class Lion(OptaxOptimizer):
     KEYWORDS = dict(b1=0.9, b2=0.99, weight_decay=1e-3)
-    FIXED = dict(mu_dtype=None, mask=None)
+    MASKS = dict(mask=None)
+    DTYPES = dict(mu_dtype=None)
 
     def updates(self, group, ps, gs, states, count):
-        b1 = group["b1"]
-        mus = _state(states, ps, "mu")
+        b1, dtype = group["b1"], self.dtypes["mu_dtype"]
+        mus = [m.to(g.dtype) for m, g in zip(_state(states, ps, "mu", dtype=dtype), gs)]
         us = torch._foreach_sign(torch._foreach_add(_scaled(gs, 1.0 - b1), _scaled(mus, b1)))
-        _moment(mus, gs, group["b2"], 1)
-        torch._foreach_add_(us, ps, alpha=group["weight_decay"])
+        _stored_moment(states, ps, gs, "mu", group["b2"], dtype)
+        us = self.decayed("mask", us, ps, group["weight_decay"])
         return _scaled(us, -group["lr"])
 
 
@@ -386,11 +534,11 @@ class _Layerwise(OptaxOptimizer):
 
 class Lamb(_Layerwise):
     KEYWORDS = dict(b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0, weight_decay=0.0)
-    FIXED = dict(mask=None)
+    MASKS = dict(mask=None)
 
     def updates(self, group, ps, gs, states, count):
         us = _adam_direction(group, ps, gs, states, count)
-        torch._foreach_add_(us, ps, alpha=group["weight_decay"])
+        us = self.decayed("mask", us, ps, group["weight_decay"])
         flat = self.per_leaf(_join(us), _join(ps),
                              lambda i, u, p: u * _trust_ratio(u, p, 1.0, 0.0))
         return self.split(flat * -group["lr"], ps)
@@ -399,12 +547,13 @@ class Lamb(_Layerwise):
 class Lars(_Layerwise):
     KEYWORDS = dict(weight_decay=0.0, trust_coefficient=0.001, eps=0.0, momentum=0.9,
                     nesterov=False)
-    FIXED = dict(weight_decay_mask=True, trust_ratio_mask=True)
+    MASKS = dict(weight_decay_mask=True, trust_ratio_mask=True)
 
     def updates(self, group, ps, gs, states, count):
-        us = torch._foreach_add(gs, ps, alpha=group["weight_decay"])
-        c, eps = group["trust_coefficient"], group["eps"]
-        flat = self.per_leaf(_join(us), _join(ps), lambda i, u, p: u * _trust_ratio(u, p, c, eps))
+        us = self.decayed("weight_decay_mask", gs, ps, group["weight_decay"])
+        c, eps, on = group["trust_coefficient"], group["eps"], self.masks["trust_ratio_mask"]
+        flat = self.per_leaf(_join(us), _join(ps), lambda i, u, p: u * _trust_ratio(u, p, c, eps)
+                             if on is None or on[i] else u)
         us = self.split(flat * -group["lr"], ps)
         return _trace(states, ps, us, group["momentum"], group["nesterov"])
 
@@ -442,7 +591,8 @@ class Adafactor(_Layerwise):
     KEYWORDS = dict(min_dim_size_to_factor=128, decay_rate=0.8, decay_offset=0,
                     multiply_by_parameter_scale=True, clipping_threshold=1.0, momentum=None,
                     weight_decay_rate=None, eps=1e-30, factored=True)
-    FIXED = dict(dtype_momentum="float32", weight_decay_mask=None)
+    MASKS = dict(weight_decay_mask=None)
+    DTYPES = dict(dtype_momentum="float32")
 
     @staticmethod
     def factored_dims(shape, factored: bool, min_dim: int):
@@ -461,6 +611,7 @@ class Adafactor(_Layerwise):
         t = float(np.float32(count - 1 - group["decay_offset"] + 1))
         rate = float(np.float32(1.0) - np.float32(t) ** np.float32(-group["decay_rate"]))
         eps, lr = group["eps"], group["lr"]
+        dtype, decay = self.dtypes["dtype_momentum"], self.masks["weight_decay_mask"]
 
         def update(i, g, p):
             st = self.state.setdefault(f"leaf{i}", {})
@@ -488,16 +639,18 @@ class Adafactor(_Layerwise):
                 rms = torch.sqrt((p * p).mean())
                 u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
             if group["momentum"] is not None:
-                m = st.get("ema", torch.zeros_like(u))
-                st["ema"] = u = (1 - group["momentum"]) * u + group["momentum"] * m
-            if group["weight_decay_rate"] is not None:
+                m = st.get("ema", torch.zeros_like(u, dtype=dtype)).to(u.dtype)
+                u = _complement(group["momentum"]) * u + group["momentum"] * m
+                st["ema"] = u.to(dtype)
+            if group["weight_decay_rate"] is not None and (decay is None or decay[i]):
                 u = u + group["weight_decay_rate"] * p
             return -u
 
         return self.split(self.per_leaf(_join(gs), _join(ps), update), ps)
 
 
-OPTIMIZERS = {"sgd": SGD, "rmsprop": RMSProp, "adagrad": Adagrad, "adadelta": Adadelta,
-              "lamb": Lamb, "lars": Lars, "radam": RAdam, "adafactor": Adafactor,
-              "novograd": NovoGrad, "yogi": Yogi, "adabelief": AdaBelief, "lion": Lion}
+OPTIMIZERS = {"adam": Adam, "adamw": AdamW, "sgd": SGD, "rmsprop": RMSProp, "adagrad": Adagrad,
+              "adadelta": Adadelta, "lamb": Lamb, "lars": Lars, "radam": RAdam,
+              "adafactor": Adafactor, "novograd": NovoGrad, "yogi": Yogi, "adabelief": AdaBelief,
+              "lion": Lion}
 LAYERWISE = ("lamb", "lars", "novograd", "adafactor")

@@ -13,8 +13,10 @@ LR) term by term, not PyTorch's nearest calls:
 * **Optimizer.** optax ``adam`` is ``torch.optim.Adam(lr, (0.9, 0.999),
   eps=1e-8)``. The JAX factory turns ``adam`` with a weight decay into
   optax ``adamw`` (decoupled decay), which is ``torch.optim.AdamW``;
-  ``Adam(weight_decay=)`` would be L2 regularisation instead. The other
-  twelve names are ``train.optim``'s ports of optax's functions.
+  ``Adam(weight_decay=)`` would be L2 regularisation instead. With a
+  keyword torch's have no counterpart for (``eps_root``, ``mu_dtype``,
+  ``nesterov``, adamw's ``mask``) they are ``train.optim``'s ports of
+  optax's functions, as are the other twelve names.
 * **bf16** casts the state the bridge maps inside the step
   (``infer.precision.cast_state``, a differentiable ``.to``, the cast
   ``bf16_forward`` takes) and runs the model through
@@ -72,14 +74,16 @@ from .schedulers import EarlyStopping, ReduceLROnPlateau
 logger = logging.getLogger(__name__)
 
 # The JAX factory's optimizer names (optax): adam and adamw are torch's Adam
-# and AdamW, the other twelve ``train.optim``'s.
+# and AdamW (``train.optim``'s where a keyword torch's lack is set), the
+# other twelve ``train.optim``'s.
 _OPTAX_NAMES = ("adam", "adamw", "sgd", "rmsprop", "adagrad", "adadelta", "lamb",
                 "lars", "radam", "adafactor", "novograd", "yogi", "adabelief", "lion")
 _OPTAX_ADAMW_DECAY = 1e-4  # optax.adamw's default, where the config sets none
-# optax.adam(w)'s keywords: those torch's Adam(W) computes, and those it
-# takes at their default only.
+# optax.adam(w)'s keywords that torch's Adam(W) computes. With these alone
+# adam is torch's: the same function as ``optim.Adam`` up to rounding, and
+# a shorter step on the card (PERF.md §6, ``chip_smoke.py --profile --only
+# train-``).
 _ADAM_KEYWORDS = ("b1", "b2", "eps")
-_ADAM_FIXED = dict(eps_root=0.0, mu_dtype=None, nesterov=False, mask=None)
 
 
 @dataclass
@@ -99,8 +103,11 @@ def make_optimizer(model, lr: float = 1e-3, weight_decay: float = 0.0, name: str
     weight decay is ``adamw``; ``weight_decay`` reaches the optimizers whose
     optax function takes it (adamw, adadelta, lamb, lars, novograd, lion),
     and where it is 0 they keep optax's default (adamw 1e-4, lion 1e-3, the
-    others 0); ``kwargs`` are the optax function's keywords. Clipping is
-    the train step's (:func:`make_train_step`)."""
+    others 0); ``kwargs`` are the optax function's keywords, masks
+    evaluated on the model's flax tree (``optim.leaf_selection``). Adam(W)
+    is torch's where ``kwargs`` name only ``b1``, ``b2`` and ``eps``, else
+    ``optim.Adam(W)``. Clipping is the train step's
+    (:func:`make_train_step`)."""
     from ..models.base import _FLAX_LAYOUT
     from . import optim
 
@@ -111,13 +118,7 @@ def make_optimizer(model, lr: float = 1e-3, weight_decay: float = 0.0, name: str
         key = "adamw"
     zoo = isinstance(model, nn.Module) and type(model).__name__.lower() in _FLAX_LAYOUT
     params = list(model.parameters() if isinstance(model, nn.Module) else model)
-    if key in ("adam", "adamw"):
-        for k, v in kwargs.items():
-            if k not in _ADAM_KEYWORDS and k not in _ADAM_FIXED:
-                raise TypeError(f"{key}() got an unexpected keyword argument {k!r}")
-            if k in _ADAM_FIXED and v != _ADAM_FIXED[k]:
-                raise NotImplementedError(f"{key}({k}={v!r}): the port takes {k} at its "
-                                          f"default, {_ADAM_FIXED[k]!r}")
+    if key in ("adam", "adamw") and set(kwargs) <= set(_ADAM_KEYWORDS):
         betas = (kwargs.get("b1", 0.9), kwargs.get("b2", 0.999))
         eps = kwargs.get("eps", 1e-8)
         if key == "adam":

@@ -180,13 +180,12 @@ def _grids():
 
 
 @pytest.mark.parametrize("name,make", _grids(), ids=[g[0] for g in _grids()])
-def test_geometry_under_equal_seeds(name, make, monkeypatch):
+def test_geometry_under_equal_seeds(name, make):
     """find_path, sample_trajectory, select_static_points, densify_path,
-    generate_xy_grid_points, snapping and the top-down raster. On the
-    obstacle grid the reference is the JAX package's Python A*: its native
-    A* breaks ties otherwise there (ROADMAP C)."""
-    if name == "obstacles":
-        monkeypatch.setattr(jnative, "available", lambda: False)
+    generate_xy_grid_points, snapping and the top-down raster; on the
+    obstacle grid too, where the JAX package runs its native A* and the
+    port its copy of it."""
+    assert jnative.available()
     tn, jn = make(tgeo), make(jgeo)
     rt, rj = np.random.default_rng(11), np.random.default_rng(11)
     for _ in range(6):
