@@ -131,7 +131,7 @@ Phases, one line each:
     mixture beside PESQ's and STOI's. It launches neither kernel;
 17. the sidecar models at their published widths, seeded weights written
     in each checkpoint's own format (no published weights are in the
-    repository): Whisper medium.en (769 M parameters, an HF directory)
+    repository): Whisper medium.en at 6 of its 24 + 24 layers (an HF directory)
     through ``make_whisper_asr`` on one 30 s window of phase 8's first
     mixture, greedy and beam 5 with the temperature fallback (ms per
     window and per decoded token, peak memory), its log-mel, encoder
@@ -194,7 +194,26 @@ Phases, one line each:
     (flax's rounded input projection fed through an identity input weight)
     at the configs' widths, uni- and bidirectional, one and two layers: the
     card against the CPU within rel-L2 1e-4, and each layer's bf16 and fp32
-    forward times.
+    forward times;
+22. flax's bf16 LSTM cell (``ops.lstm_cell``, ``csrc/bf16_lstm.cu``): (a)
+    the kernel against its plain version on the card, on the arguments
+    skim.yaml's bf16 forward of B=1 x 10 s of phase 8's first mixture gives
+    it (642 rows, 250 steps, 128 units, two directions) and from injected
+    carries, within rel-L2 1e-3, with the share of bit-equal outputs; the
+    kernel's and the plain version's CUDA-event medians of 20, and cuDNN's
+    bf16 LSTM over the same layer beside them (another function); (b) that
+    bf16 forward is the kernel's main path: its launches (one per SegLSTM
+    whose carry is bfloat16) and none in the float32 forward; its output
+    against the CPU's within the bf16 gate; (c) the DPTNet and SkiM bf16
+    forwards of 10 s, timed. The zoo (phase 11) launches the kernel in
+    SkiM's bf16 serving; no other phase does.
+
+Phases 14, 15 and 18 run right after phase 10. Each of their step checks
+runs its two sides on the card there and hands its three CPU sides (the
+same steps at the same thread counts) to one spawned process at a lower
+priority, while the card goes on with the next configs and phases; each
+config's line is printed, and its check held, once the readings are in,
+after phase 22 at the latest.
 
 Phase 6 also prints, for the source of the bank's largest error against
 the CPU, where the two sides' renders part op by op, the image delays
@@ -228,13 +247,16 @@ commits compare in one run on one card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import logging
 import os
 import pickle
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -420,7 +442,9 @@ ENH_TRAIN = dict(losses=ENH_LOSSES, seed=0, lr=1e-3, clip=5.0, batch=2, crop_s=4
 # ``enh_step_check`` on B=2 x 0.5 s for every config at half its depth
 # (``SEP_CHECK_DEPTH``, the repeated blocks; seeded alike): at full depth
 # the CPU's sides of the ten checks took about 490 s of the call, which
-# then ran within 45 s of its 1,200 s with the bf16 steps.
+# then ran within 45 s of its 1,200 s with the bf16 steps. Even at half
+# depth they took a quarter of the call on the card's 8-core host, run in
+# turn: they run in the background now (``StepChecks``).
 SEP_OPTIMIZERS = {  # config: (model, lr, weight decay), in porting order
     "sudormrf": ("SuDORMRF", 1e-3, 0.0),
     "afrcnn": ("AFRCNN", 1e-3, 0.0),
@@ -461,12 +485,16 @@ ONNX_REL = 1e-4  # the graphs on the card vs on the CPU, of max|ref| (TF32 off)
 # weights, each written in its checkpoint's own format: Whisper medium.en
 # (an HF directory), speechbrain's spkrec-ecapa-voxceleb (embedding_model
 # .ckpt) and the JAX package's PyanNet defaults (a pyannote lightning
-# checkpoint).
+# checkpoint). Whisper runs 6 of its 24 + 24 layers: its decoding is
+# host-bound, about 20 ms a token at full depth, and seeded weights decode
+# to the length limit (greedy, beam 5 with the fallback, and the test CLI:
+# over a minute of the call at full depth).
 WHISPER_MEDIUM_EN = dict(vocab_size=51864, n_mels=80, d_model=1024, encoder_layers=24,
                          decoder_layers=24, heads=16, ffn=4096, max_source_positions=1500,
                          max_target_positions=448)
 SIDECAR_MODELS = dict(
-    seed=0, whisper=WHISPER_MEDIUM_EN, tf_positions=32,
+    seed=0, whisper=dict(WHISPER_MEDIUM_EN, encoder_layers=6, decoder_layers=6),
+    tf_positions=32,
     ecapa=dict(n_feats=80, channels=1024, res2net_scale=8, se_channels=128,
                attention_channels=128, lin_neurons=192),
     pyannet=dict(n_classes=1, lstm_hidden=128, lstm_layers=2, ff_layers=2),
@@ -575,8 +603,20 @@ IMPORT_FWD = dict(imports=IMPORTS, seed=0, crop_s=2.0, keywords=OPTIM_KEYWORDS,
                   rnn_layers=RNN_LAYERS, reps=5, warmup=2)
 IMPORT_REL = 1e-4  # of max|ref|: the converted pack against its .pth on the card
 RNN_BF16_REL = 1e-4  # rel-L2: a bf16 recurrent layer on the card against the CPU
+# Phase 22: flax's bf16 LSTM cell as a kernel (``ops.lstm_cell``): (a) the
+# kernel against its plain version on the card, on the arguments skim.yaml's
+# bf16 forward of B=1 x 10 s gives it and from injected carries, and the
+# times (the kernel and the plain version CUDA-event medians of ``reps``,
+# cuDNN's bf16 LSTM over the same layer beside them: another function); (b)
+# that forward's launches (the kernel's main path), its float32 forward's
+# (none), and its output against the CPU's; (c)
+# the DPTNet and SkiM bf16 forwards' times. Budget: 30 s of the call.
+BF16_CELL = dict(seed=0, window_s=10.0, reps=20, warmup=3, model_reps=3)
+CELL_REL = 1e-3  # rel-L2: the kernel against its plain version on the card
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
+CELL_SOURCE = "sonicsim_tpu_torch/csrc/bf16_lstm.cu"
 REPLACES = {
     "select_segments": "sonicsim_tpu/ops/pallas_kernels.py:140",
     "select_segments_ramp": "sonicsim_tpu/ops/pallas_kernels.py:140",
@@ -673,13 +713,19 @@ def phase_env():
 
 
 def phase_build() -> None:
-    from sonicsim_tpu_torch.ops import kernels
+    """Every kernel source built at once, one ``nvcc`` each, and bound."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sonicsim_tpu_torch.ops import kernels, lstm_cell
 
     t0 = time.perf_counter()
-    path = kernels.build(verbose=True)
+    sources = (kernels.SOURCE, lstm_cell.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(lambda s: kernels.build(verbose=True, source=s), sources))
     kernels._library()
+    lstm_cell._library()
     dt = time.perf_counter() - t0
-    print(f"build: {path.name} in {dt:.3f} s", flush=True)
+    print(f"build: {', '.join(p.name for p in paths)} in {dt:.3f} s", flush=True)
 
 
 def headline_plan(cfg):
@@ -1864,7 +1910,9 @@ def serve_bf16(device, name, cpu, model, crop, got32, x10, cfg) -> dict:
           f"{name} bf16 vs float32 on the card: rel-L2 {rel} (gate {BF16_REL_L2}), dtype "
           f"{got.dtype}")
     short = crop[:, :int(cfg["schedule_s"] * SR)]
-    card, host = bf16_dtypes(model, short.to(device)), bf16_dtypes(cpu, short)
+    card = bf16_dtypes(model, short.to(device))
+    with cpu_reference():
+        host = bf16_dtypes(cpu, short)
     differ = sorted(n for n in set(card) | set(host) if card.get(n) != host.get(n))
     check(not differ, f"{name} bf16 dtypes on the card vs the CPU differ at {differ[:5]}: "
           f"{[(card.get(n), host.get(n)) for n in differ[:5]]}")
@@ -2324,7 +2372,7 @@ def phase_zoo(device, cfg, folders, root: Path, smi) -> dict:
         crop_s = cfg["crop_s"]
         crop = torch.from_numpy(mono[0][None, :int(crop_s * SR)].copy())
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        with torch.inference_mode(), cpu_reference():
             ref = cpu(crop)
         cpu_s = time.perf_counter() - t0
         got = fwd(crop.to(device)).cpu()
@@ -2511,7 +2559,8 @@ def phase_enhancement(device, cfg, folders, root: Path, smi) -> dict:
         n_params = sum(p.numel() for p in model.parameters())
         fwd = make_forward(model)
         t0 = time.perf_counter()
-        ref = make_forward(cpu)(crop)
+        with cpu_reference():
+            ref = make_forward(cpu)(crop)
         cpu_s = time.perf_counter() - t0
         got = fwd(crop.to(device)).cpu()
         err, peak = float((got - ref).abs().max()), float(ref.abs().max())
@@ -2733,54 +2782,42 @@ def _kink_tape(model, tape: list, flips: dict | None):
     return Choices()
 
 
-def enh_step_check(fresh, xb, yb, device) -> dict:
-    """One float32 train step from the same weights on ``device`` and on the
-    CPU, and the float64 step on the CPU and on ``device`` (``fresh(dev)``
-    builds the model and its step there): the loss's relative distance,
-    the clipped gradients' largest distance (and where), each side's
-    distance from the CPU's float64 as a share of max|g64|, and the bound
-    the device's float32 gradients are held to. Every side after the
-    device's float32 one replays its branch at each kinked activation and
-    the loss's choice of minimum (``_kink_tape``); an element sent apart
-    must lie within ``KINK_REL`` · max|x| of 0, a minimum within
-    ``KINK_REL`` · max|x| of the row's own.
+def _step_side(fresh, dev, dtype, tape: list, flips: dict | None, xb, yb) -> tuple:
+    """One side of :func:`enh_step_check`: ``fresh(dev)``'s model in
+    ``dtype``, one step on ``(xb, yb)`` with the kinked branches recorded
+    into ``tape`` (``flips`` None) or replayed from it; returns the loss,
+    the gradients as float64 on the CPU and the step's seconds."""
+    model, step = fresh(dev)
+    model.to(dtype)
+    choices = _kink_tape(model, tape, flips)
+    t0 = time.perf_counter()
+    with choices:
+        loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
+    elapsed = time.perf_counter() - t0
+    return loss, {n: p.grad.double().cpu() for n, p in model.named_parameters()
+                  if p.grad is not None}, elapsed
 
-    The float64 step on the device must lie within ``F64_REL`` · max|g64|
-    of the CPU's (``device_f64_err``): at float64 the comparison has power
-    at any conditioning, and tells a device that computes another function
-    from one that rounds worse. The CPU's float32 distance ``cpu_vs_f64``
-    is the larger distance from float64 of two CPU summation orders (its
-    default thread count and two threads); the float32 bound is
-    ``max(TRAIN_GRAD_REL, ILL_FACTOR · cpu_vs_f64) · max|g|``, the
-    triangle inequality's bound for a device that rounds no worse than the
-    CPU, never below phase 10's ``TRAIN_GRAD_REL``."""
+
+def _cpu_sides(fresh, tape: list, xb, yb, threads: int) -> tuple[dict, dict]:
+    """The CPU's sides of :func:`enh_step_check`, each replaying ``tape``:
+    float32 at ``threads`` and at two threads, float64 at ``threads``; and
+    the flips, with the three sides' seconds (``s``)."""
     import torch
 
-    cpu = torch.device("cpu")
-    threads = torch.get_num_threads()
-    tape: list = []
-    flips = dict(n=0, rel=0.0)
-    sides = {}
-    plan = [("device", device, torch.float32, threads),
-            ("cpu", cpu, torch.float32, threads),
-            ("cpu2", cpu, torch.float32, 2),
-            ("f64", cpu, torch.float64, threads),
-            ("device_f64", device, torch.float64, threads)]
-    for side, dev, dtype, n in plan:
+    sides, flips = {}, dict(n=0, rel=0.0, s=time.perf_counter())
+    for side, dtype, n in (("cpu", torch.float32, threads), ("cpu2", torch.float32, 2),
+                           ("f64", torch.float64, threads)):
         torch.set_num_threads(n)
         try:
-            model, step = fresh(dev)
-            model.to(dtype)
-            choices = _kink_tape(model, tape, None if side == "device" else flips)
-            t0 = time.perf_counter()
-            with choices:
-                loss = float(step(xb.to(dev, dtype), yb.to(dev, dtype)))
-            elapsed = time.perf_counter() - t0
+            sides[side] = _step_side(fresh, torch.device("cpu"), dtype, tape, flips, xb, yb)
         finally:
             torch.set_num_threads(threads)
-        sides[side] = (loss, {n_: p.grad.double().cpu() for n_, p in model.named_parameters()
-                              if p.grad is not None}, elapsed)
-        del model, step
+    flips["s"] = time.perf_counter() - flips["s"]
+    return sides, flips
+
+
+def _step_check_readings(sides: dict, flips: dict, kinks: int, cpu_sides_s: float) -> dict:
+    """:func:`enh_step_check`'s readings from its five sides."""
     (l_dev, g_dev, _), (l_cpu, g_cpu, cpu_s) = sides["device"], sides["cpu"]
     g64 = sides["f64"][1]
     g_max = max(float(g.abs().max()) for g in g_cpu.values())
@@ -2801,8 +2838,132 @@ def enh_step_check(fresh, xb, yb, device) -> dict:
                 bound=(ILL_FACTOR * cpu_vs_f64 if ill else TRAIN_GRAD_REL) * g_max, ill=ill,
                 device_f64_err=f64_err / top64, device_f64_worst=f64_worst,
                 device_f64_s=sides["device_f64"][2],
-                kinks=len(tape), flips=flips["n"], flip_rel=flips["rel"], cpu_s=cpu_s,
-                params=sum(g.numel() for g in g_cpu.values()))
+                kinks=kinks, flips=flips["n"], flip_rel=flips["rel"], cpu_s=cpu_s,
+                cpu_sides_s=cpu_sides_s, params=sum(g.numel() for g in g_cpu.values()))
+
+
+def _merge_flips(a: dict, b: dict) -> dict:
+    return dict(n=a["n"] + b["n"], rel=max(a["rel"], b["rel"]))
+
+
+def _cpu_check_job(job: bytes) -> dict:
+    """A background process's part of :func:`enh_step_check`: ``job`` (a
+    pickle of the card's sides, the tape, the batch and ``fresh``) → the
+    readings."""
+    j = pickle.loads(job)
+    cpu_sides, flips = _cpu_sides(j["fresh"], j["tape"], j["xb"], j["yb"], j["threads"])
+    return _step_check_readings({**j["sides"], **cpu_sides},
+                                _merge_flips(j["flips"], flips), len(j["tape"]), flips["s"])
+
+
+def enh_step_check(fresh, xb, yb, device, pool=None):
+    """One float32 train step from the same weights on ``device`` and on the
+    CPU, and the float64 step on the CPU and on ``device`` (``fresh(dev)``
+    builds the model and its step there): the loss's relative distance,
+    the clipped gradients' largest distance (and where), each side's
+    distance from the CPU's float64 as a share of max|g64|, and the bound
+    the device's float32 gradients are held to. Every side after the
+    device's float32 one replays its branch at each kinked activation and
+    the loss's choice of minimum (``_kink_tape``); an element sent apart
+    must lie within ``KINK_REL`` · max|x| of 0, a minimum within
+    ``KINK_REL`` · max|x| of the row's own.
+
+    The float64 step on the device must lie within ``F64_REL`` · max|g64|
+    of the CPU's (``device_f64_err``): at float64 the comparison has power
+    at any conditioning, and tells a device that computes another function
+    from one that rounds worse. The CPU's float32 distance ``cpu_vs_f64``
+    is the larger distance from float64 of two CPU summation orders (its
+    default thread count and two threads); the float32 bound is
+    ``max(TRAIN_GRAD_REL, ILL_FACTOR · cpu_vs_f64) · max|g|``, the
+    triangle inequality's bound for a device that rounds no worse than the
+    CPU, never below phase 10's ``TRAIN_GRAD_REL``.
+
+    With ``pool`` (a ``multiprocessing`` pool; ``fresh`` must then pickle)
+    the device's two sides run here and the CPU's three in the pool, at
+    the thread counts they take here: the call returns the pending
+    readings, whose ``get()`` gives them."""
+    import torch
+
+    threads = torch.get_num_threads()
+    tape: list = []
+    flips = dict(n=0, rel=0.0)
+    sides = {"device": _step_side(fresh, device, torch.float32, tape, None, xb, yb),
+             "device_f64": _step_side(fresh, device, torch.float64, tape, flips, xb, yb)}
+    if pool is not None:
+        job = dict(fresh=fresh, tape=tape, xb=xb, yb=yb, threads=threads, sides=sides,
+                   flips=flips)
+        return pool.apply_async(_cpu_check_job, (pickle.dumps(job),))
+    cpu_sides, cpu_flips = _cpu_sides(fresh, tape, xb, yb, threads)
+    return _step_check_readings({**sides, **cpu_sides}, _merge_flips(flips, cpu_flips),
+                                len(tape), cpu_flips["s"])
+
+
+class StepChecks:
+    """Phases 14, 15 and 18's step checks (:func:`enh_step_check`). With
+    ``background`` the CPU's sides of each run in one spawned process while
+    the card goes on with the next configs and phases: ``check`` hands
+    ``then`` its readings at ``settle``. Without, ``check`` runs whole and
+    calls ``then`` at once. ``close`` stops the process."""
+
+    def __init__(self, background: bool = False):
+        import multiprocessing
+
+        # The process yields the host's cores to this one (whose phases
+        # are timed) when both want them.
+        self.pool = (multiprocessing.get_context("spawn").Pool(1, os.nice, (10,))
+                     if background else None)
+        self.pid = self.pool.apply(os.getpid) if background else None
+        self.waiting: list = []
+
+    def check(self, fresh, xb, yb, device, then) -> None:
+        got = enh_step_check(fresh, xb, yb, device, self.pool)
+        if self.pool is None:
+            then(got)
+        else:
+            self.waiting.append((got, then))
+
+    def settle(self) -> None:
+        while self.waiting:
+            got, then = self.waiting.pop(0)
+            then(got.get())
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The process stopped meanwhile (SIGSTOP, then SIGCONT)."""
+        if self.pid is None:
+            yield
+            return
+        os.kill(self.pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            os.kill(self.pid, signal.SIGCONT)
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+
+    def __enter__(self):
+        global _ACTIVE_CHECKS
+        _ACTIVE_CHECKS = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _ACTIVE_CHECKS
+        _ACTIVE_CHECKS = None
+        self.close()
+
+
+_ACTIVE_CHECKS: StepChecks | None = None
+
+
+def cpu_reference():
+    """The context for a CPU reference the card's output is held to in the
+    phases (a forward on the CPU): the step checks' background process, if
+    one runs, is stopped meanwhile. Beside it those references ran up to
+    2.5× slower, on a host of 8 cores."""
+    return _ACTIVE_CHECKS.paused() if _ACTIVE_CHECKS else contextlib.nullcontext()
 
 
 def _loudest_window(mix, tgt, batch: int, n: int):
@@ -2818,7 +2979,7 @@ def _loudest_window(mix, tgt, batch: int, n: int):
     return tuple(torch.from_numpy(a[:batch, ..., start:start + n].copy()) for a in (mix, tgt))
 
 
-def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
+def phase_enh_training(device, cfg, models, folders, root: Path, smi, checks=None) -> dict:
     """Phase 14: each enhancement config's model trained in float32 with
     its config's loss, Adam and clip, from phase 13's seeded weights: the
     step's time and peak extra memory at the configs' batch and duration on
@@ -2831,11 +2992,10 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
     import torch
 
     from sonicsim_tpu_torch.dataset import MovingDataModule
-    from sonicsim_tpu_torch.models import from_pretrain, get, serialize
+    from sonicsim_tpu_torch.models import from_pretrain, serialize
     from sonicsim_tpu_torch.scripts import generate_fixed_eval
     from sonicsim_tpu_torch.scripts.common import strict_float32
     from sonicsim_tpu_torch.scripts.train import train_from_config
-    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
 
     strict_float32()
     root.mkdir()
@@ -2852,30 +3012,9 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
     xc, yc = _loudest_window(mix, tgt, cfg["check_batch"], int(cfg["check_s"] * SR))
     audio_s = cfg["batch"] * cfg["crop_s"]
     stats = {}
-    for stem, (name, args) in models.items():
-        loss_node, metric_node = cfg["losses"][stem]
-        loss_fn, metric_fn = _instantiate_loss(loss_node), _instantiate_loss(metric_node)
-        weights = seeded_zoo(name, args, cfg["seed"]).state_dict()
+    checks = checks or StepChecks()
 
-        def fresh(dev, name=name, args=args, weights=weights, loss_fn=loss_fn, precision="f32"):
-            model = get(name)(**args, device=dev)
-            model.load_state_dict(weights)
-            opt = make_optimizer(model.parameters(), cfg["lr"])
-            return model, make_train_step(model, loss_fn, opt, precision, clip_norm=cfg["clip"])
-
-        model, step = fresh(device)
-        # The first steps on the batch: phase 10's float32 side of the bf16 rule.
-        f32_trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
-        check(np.isfinite(f32_trace).all(), f"{stem} step: loss not finite {f32_trace}")
-        ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
-                       warmup=cfg["warmup"])
-        mib = _peak_mib(device, lambda step=step: step(x, y))
-        with torch.no_grad():
-            metric = float(metric_fn(model(x), y))
-        check(np.isfinite(metric), f"{stem}: metric {metric}")
-        del model, step
-        b16 = train_bf16(device, stem, fresh, x, y, f32_trace, cfg)
-        chk = enh_step_check(fresh, xc, yc, device)
+    def report(chk, stem, name, loss_node, metric_node, ms, mib, metric, b16):
         _step_check_ok(chk, stem)
         stats[stem] = dict(model=name, params=chk["params"], ms=ms,
                            audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, metric=metric,
@@ -2889,6 +3028,28 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
               f"step on B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU "
               f"({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; "
               f"{train_bf16_line(b16, cfg, audio_s)}; {smi}", flush=True)
+
+    for stem, (name, args) in models.items():
+        loss_node, metric_node = cfg["losses"][stem]
+        metric_fn = _instantiate_loss(metric_node)
+        weights = seeded_zoo(name, args, cfg["seed"]).state_dict()
+        fresh = functools.partial(_enh_fresh, name, args, weights, loss_node, cfg["lr"],
+                                  cfg["clip"], False)
+        model, step = fresh(device)
+        # The first steps on the batch: phase 10's float32 side of the bf16 rule.
+        f32_trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
+        check(np.isfinite(f32_trace).all(), f"{stem} step: loss not finite {f32_trace}")
+        ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
+                       warmup=cfg["warmup"])
+        mib = _peak_mib(device, lambda step=step: step(x, y))
+        with torch.no_grad():
+            metric = float(metric_fn(model(x), y))
+        check(np.isfinite(metric), f"{stem}: metric {metric}")
+        del model, step
+        b16 = train_bf16(device, stem, fresh, x, y, f32_trace, cfg)
+        checks.check(fresh, xc, yc, device, functools.partial(
+            report, stem=stem, name=name, loss_node=loss_node, metric_node=metric_node, ms=ms,
+            mib=mib, metric=metric, b16=b16))
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -2950,10 +3111,8 @@ def phase_enh_training(device, cfg, models, folders, root: Path, smi) -> dict:
     return stats
 
 
-def sep_train_fresh(stem: str, weights: dict, cfg=SEP_TRAIN):
-    """``fresh(dev, dtype=float32)`` for ``enh_step_check``: config
-    ``stem``'s model at ``cfg``'s widths with ``weights`` on ``dev``, and
-    its train step (the config's optimizer and clip, PIT neg-SNR)."""
+def _sep_fresh(stem: str, weights: dict, cfg: dict, dev, dtype=None, precision="f32"):
+    """:func:`sep_train_fresh`'s ``fresh``."""
     import torch
 
     from sonicsim_tpu_torch.losses import PairwiseNegSDR, PITLossWrapper
@@ -2962,14 +3121,34 @@ def sep_train_fresh(stem: str, weights: dict, cfg=SEP_TRAIN):
 
     name, lr, wd = cfg["configs"][stem]
     loss_fn = PITLossWrapper(PairwiseNegSDR("snr"), pit_from="pw_mtx", threshold_byloss=False)
+    model = get(name)(**cfg["models"][name], device=dev).to(dtype or torch.float32)
+    model.load_state_dict(weights)
+    opt = make_optimizer(model.parameters(), lr, wd)
+    return model, make_train_step(model, loss_fn, opt, precision, clip_norm=cfg["clip"])
 
-    def fresh(dev, dtype=torch.float32, precision="f32"):
-        model = get(name)(**cfg["models"][name], device=dev).to(dtype)
-        model.load_state_dict(weights)
-        opt = make_optimizer(model.parameters(), lr, wd)
-        return model, make_train_step(model, loss_fn, opt, precision, clip_norm=cfg["clip"])
 
-    return fresh
+def sep_train_fresh(stem: str, weights: dict, cfg=SEP_TRAIN):
+    """``fresh(dev, dtype=float32)`` for ``enh_step_check``: config
+    ``stem``'s model at ``cfg``'s widths with ``weights`` on ``dev``, and
+    its train step (the config's optimizer and clip, PIT neg-SNR); it
+    pickles, for a background process."""
+    return functools.partial(_sep_fresh, stem, weights, cfg)
+
+
+def _enh_fresh(name: str, args: dict, weights: dict, loss_node, lr: float, clip: float,
+               by_module: bool, dev, precision="f32"):
+    """Phases 14 and 18's ``fresh``: model ``name(**args)`` on ``dev`` with
+    ``weights``, and its train step with the loss ``loss_node``, Adam at
+    ``lr`` over the model (``by_module``, phase 18) or its parameter list
+    (phase 14), and ``clip``. Bound by ``functools.partial``, it pickles."""
+    from sonicsim_tpu_torch.models import get
+    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
+
+    model = get(name)(**args, device=dev)
+    model.load_state_dict(weights)
+    opt = make_optimizer(model if by_module else model.parameters(), lr)
+    return model, make_train_step(model, _instantiate_loss(loss_node), opt, precision,
+                                  clip_norm=clip)
 
 
 def _step_check_line(chk: dict) -> str:
@@ -3011,7 +3190,7 @@ def _step_check_ok(chk: dict, what: str) -> None:
           f"{KINK_REL}): {step_check_failures(chk)}")
 
 
-def phase_sep_training(device, cfg, folders, smi) -> dict:
+def phase_sep_training(device, cfg, folders, smi, checks=None) -> dict:
     """Phase 15: each separation config's model trained in float32 with its
     config's optimizer, clip and PIT neg-SNR, from phase 11's seeded
     weights: the step's time and peak extra memory at the configs' batch
@@ -3035,6 +3214,32 @@ def phase_sep_training(device, cfg, folders, smi) -> dict:
     x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
     audio_s = cfg["batch"] * cfg["crop_s"]
     stats = {}
+    checks = checks or StepChecks()
+
+    def report(chk, stem, name, lr, wd, n_params, ms, mib, b16, half, marks):
+        _step_check_ok(chk, stem)
+        if len(marks) < 4:  # the whole check, run here
+            marks.append(time.perf_counter())
+        seconds = marks[-1] - marks[0]
+        split_s = "/".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+        depth, check_s = SEP_CHECK_DEPTH[name], cfg["check_s"]
+        stats[stem] = dict(model=name, params=n_params, ms=ms,
+                           audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, check_s=check_s,
+                           seconds=seconds, bf16=b16, check_params=chk["params"],
+                           **{k: v for k, v in chk.items() if k not in ("params", "ill")})
+        print(f"sep-train[{stem}: {name}]: {n_params} trained parameters, seeded, PIT "
+              f"neg-SNR, {'AdamW' if wd else 'Adam'} lr {lr:g}"
+              f"{f' weight decay {wd:g}' if wd else ''}, optax clip {cfg['clip']}, fp32, "
+              f"B={cfg['batch']} x {cfg['crop_s']:g} s from phase 8's split: {ms:.4f} ms/step = "
+              f"{audio_s / (ms / 1e3):.1f} audio-s/s (CUDA-event median of {cfg['reps']} after "
+              f"{cfg['warmup']}), peak extra memory {mib if mib is None else round(mib, 1)} MiB; "
+              f"{train_bf16_line(b16, cfg, audio_s)}; one step at half depth ({depth} "
+              f"{half[depth]}, {chk['params']} trained parameters) on B={cfg['check_batch']} x "
+              f"{check_s:g} s vs the CPU ({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; "
+              f"{seconds:.1f} s for the config here (seeded weights / timing and bf16 / the "
+              f"check {split_s}; the check's CPU sides {chk['cpu_sides_s']:.1f} s"
+              f"{', in the background' if checks.pool else ''}); {smi}", flush=True)
+
     for stem, (name, lr, wd) in cfg["configs"].items():
         marks = [time.perf_counter()]
         weights = seeded_zoo(name, cfg["models"][name], cfg["seed"]).state_dict()
@@ -3052,29 +3257,14 @@ def phase_sep_training(device, cfg, folders, smi) -> dict:
         b16 = train_bf16(device, stem, fresh, x, y, f32_trace, cfg)
         marks.append(time.perf_counter())
         check_s, half = cfg["check_s"], check_depth(name, cfg["models"][name])
-        depth = SEP_CHECK_DEPTH[name]
         xc, yc = _loudest_window(mix, tgt, cfg["check_batch"], int(check_s * SR))
-        chk = enh_step_check(sep_train_fresh(stem, seeded_zoo(name, half, cfg["seed"]).state_dict(),
-                                             dict(cfg, models={name: half})), xc, yc, device)
-        _step_check_ok(chk, stem)
-        marks.append(time.perf_counter())
-        seconds = marks[-1] - marks[0]
-        split_s = "/".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
-        stats[stem] = dict(model=name, params=n_params, ms=ms,
-                           audio_s_per_s=audio_s / (ms / 1e3), peak_mib=mib, check_s=check_s,
-                           seconds=seconds, bf16=b16, check_params=chk["params"],
-                           **{k: v for k, v in chk.items() if k not in ("params", "ill")})
-        print(f"sep-train[{stem}: {name}]: {n_params} trained parameters, seeded, PIT "
-              f"neg-SNR, {'AdamW' if wd else 'Adam'} lr {lr:g}"
-              f"{f' weight decay {wd:g}' if wd else ''}, optax clip {cfg['clip']}, fp32, "
-              f"B={cfg['batch']} x {cfg['crop_s']:g} s from phase 8's split: {ms:.4f} ms/step = "
-              f"{audio_s / (ms / 1e3):.1f} audio-s/s (CUDA-event median of {cfg['reps']} after "
-              f"{cfg['warmup']}), peak extra memory {mib if mib is None else round(mib, 1)} MiB; "
-              f"{train_bf16_line(b16, cfg, audio_s)}; one step at half depth ({depth} "
-              f"{half[depth]}, {chk['params']} trained parameters) on B={cfg['check_batch']} x "
-              f"{check_s:g} s vs the CPU ({chk['cpu_s']:.2f} s there), {_step_check_line(chk)}; "
-              f"{seconds:.1f} s for the config (seeded weights / timing and bf16 / check "
-              f"{split_s}); {smi}", flush=True)
+        checks.check(sep_train_fresh(stem, seeded_zoo(name, half, cfg["seed"]).state_dict(),
+                                     dict(cfg, models={name: half})), xc, yc, device,
+                     functools.partial(report, stem=stem, name=name, lr=lr, wd=wd,
+                                       n_params=n_params, ms=ms, mib=mib, b16=b16, half=half,
+                                       marks=marks))
+        if len(marks) < 4:  # the check's card sides, its CPU sides in the background
+            marks.append(time.perf_counter())
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return stats
@@ -3710,7 +3900,8 @@ def phase_sidecar_models(device, cfg, folders, root: Path, pack: Path, smi) -> d
                             **{k: {a: b for a, b in v.items() if a != "text"}
                                for k, v in runs.items()})
     print(f"sidecar[Whisper]: medium.en widths (d_model {model.cfg.d_model}, "
-          f"{model.cfg.encoder_layers} + {model.cfg.decoder_layers} layers, "
+          f"{model.cfg.encoder_layers} + {model.cfg.decoder_layers} of its "
+          f"{WHISPER_MEDIUM_EN['encoder_layers']} + {WHISPER_MEDIUM_EN['decoder_layers']} layers, "
           f"{model.cfg.heads} heads, vocab {model.cfg.vocab_size}), {n_params} parameters, "
           f"seeded, written as an HF directory in {write_s:.1f} s and loaded by "
           f"make_whisper_asr in {load_s:.1f} s ({resident if resident is None else round(resident)}"
@@ -3832,7 +4023,7 @@ def phase_sidecar_models(device, cfg, folders, root: Path, pack: Path, smi) -> d
     return stats
 
 
-def phase_variants(device, cfg, folders, root: Path, smi) -> dict:
+def phase_variants(device, cfg, folders, root: Path, smi, checks=None) -> dict:
     """Phase 18: each model variant no config takes (``cfg["flags"]``) at its
     config's full width with seeded weights through the bridge and a pack on
     the card: the fp32 forward and ``to_waveform`` against the port on the
@@ -3845,9 +4036,8 @@ def phase_variants(device, cfg, folders, root: Path, smi) -> dict:
 
     from sonicsim_tpu_torch.dataset import MovingDataModule
     from sonicsim_tpu_torch.infer.precision import variant_name
-    from sonicsim_tpu_torch.models import from_pretrain, get, save_model
+    from sonicsim_tpu_torch.models import from_pretrain, save_model
     from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
-    from sonicsim_tpu_torch.train import make_optimizer, make_train_step
 
     strict_float32()
     root.mkdir()
@@ -3863,52 +4053,10 @@ def phase_variants(device, cfg, folders, root: Path, smi) -> dict:
     xc, yc = _loudest_window(mix, tgt, cfg["check_batch"], int(cfg["check_s"] * SR))
     audio_s = cfg["batch"] * cfg["train_s"]
     stats = {}
-    for stem, (config, flag) in cfg["flags"].items():
-        name, base = cfg["models"][config]
-        args = dict(base, **flag)
-        t0 = time.perf_counter()
-        cpu = seeded_zoo(name, args, cfg["seed"])
-        label = variant_name(cpu)
-        pack = root / f"{stem}.pkl"
-        save_model(cpu, pack)
-        model = from_pretrain(pack, device=device)
-        check(variant_name(model) == label and label != name,
-              f"{stem}: from_pretrain built {variant_name(model)}, not the variant {label}")
-        build_s = time.perf_counter() - t0
-        fwd = make_forward(model)
-        t0 = time.perf_counter()
-        ref = make_forward(cpu)(crop)
-        cpu_s = time.perf_counter() - t0
-        got = fwd(crop.to(device)).cpu()
-        err, peak = float((got - ref).abs().max()), float(ref.abs().max())
-        check(tuple(got.shape) == (1, 1, crop.shape[-1]) and bool(torch.isfinite(got).all()),
-              f"{stem}: output {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
-        check(err <= ZOO_REL * peak,
-              f"{stem} on the device vs the CPU: max abs err {err} (max|ref| {peak})")
-        ms = median_ms(lambda fwd=fwd: fwd(x10), device, reps=cfg["reps"], warmup=cfg["warmup"])
-        mib = _peak_mib(device, lambda fwd=fwd: fwd(x10))
-        b16 = serve_bf16(device, label, cpu, model, crop, got, x10, cfg)
-        del fwd, model
+    checks = checks or StepChecks()
 
-        loss_node, _ = cfg["losses"][config]
-        loss_fn = _instantiate_loss(loss_node)
-        weights = cpu.state_dict()
-
-        def fresh(dev, name=name, args=args, weights=weights, loss_fn=loss_fn, precision="f32"):
-            m = get(name)(**args, device=dev)
-            m.load_state_dict(weights)
-            return m, make_train_step(m, loss_fn, make_optimizer(m, cfg["lr"]), precision,
-                                      clip_norm=cfg["clip"])
-
-        m, step = fresh(device)
-        f32_trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
-        check(np.isfinite(f32_trace).all(), f"{stem} step: loss not finite {f32_trace}")
-        step_ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
-                            warmup=cfg["warmup"])
-        step_mib = _peak_mib(device, lambda step=step: step(x, y))
-        del m, step
-        b16t = train_bf16(device, label, fresh, x, y, f32_trace, cfg)
-        chk = enh_step_check(fresh, xc, yc, device)
+    def report(chk, stem, label, pack, build_s, cpu_s, err, peak, ms, mib, b16, loss_node,
+               step_ms, step_mib, b16t):
         _step_check_ok(chk, stem)
         stats[stem] = dict(model=label, params=chk["params"], err=err, max_ref=peak, ms=ms,
                            audio_s_per_s=cfg["window_s"] / (ms / 1e3), peak_mib=mib, bf16=b16,
@@ -3930,6 +4078,50 @@ def phase_variants(device, cfg, folders, root: Path, smi) -> dict:
               f"B={cfg['check_batch']} x {cfg['check_s']:g} s vs the CPU ({chk['cpu_s']:.2f} s "
               f"there), {_step_check_line(chk)}; {train_bf16_line(b16t, cfg, audio_s)}; {smi}",
               flush=True)
+
+    for stem, (config, flag) in cfg["flags"].items():
+        name, base = cfg["models"][config]
+        args = dict(base, **flag)
+        t0 = time.perf_counter()
+        cpu = seeded_zoo(name, args, cfg["seed"])
+        label = variant_name(cpu)
+        pack = root / f"{stem}.pkl"
+        save_model(cpu, pack)
+        model = from_pretrain(pack, device=device)
+        check(variant_name(model) == label and label != name,
+              f"{stem}: from_pretrain built {variant_name(model)}, not the variant {label}")
+        build_s = time.perf_counter() - t0
+        fwd = make_forward(model)
+        t0 = time.perf_counter()
+        with cpu_reference():
+            ref = make_forward(cpu)(crop)
+        cpu_s = time.perf_counter() - t0
+        got = fwd(crop.to(device)).cpu()
+        err, peak = float((got - ref).abs().max()), float(ref.abs().max())
+        check(tuple(got.shape) == (1, 1, crop.shape[-1]) and bool(torch.isfinite(got).all()),
+              f"{stem}: output {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        check(err <= ZOO_REL * peak,
+              f"{stem} on the device vs the CPU: max abs err {err} (max|ref| {peak})")
+        ms = median_ms(lambda fwd=fwd: fwd(x10), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        mib = _peak_mib(device, lambda fwd=fwd: fwd(x10))
+        b16 = serve_bf16(device, label, cpu, model, crop, got, x10, cfg)
+        del fwd, model
+
+        loss_node, _ = cfg["losses"][config]
+        fresh = functools.partial(_enh_fresh, name, args, cpu.state_dict(), loss_node,
+                                  cfg["lr"], cfg["clip"], True)
+        m, step = fresh(device)
+        f32_trace = [float(step(x, y)) for _ in range(cfg["bf16_steps"])]
+        check(np.isfinite(f32_trace).all(), f"{stem} step: loss not finite {f32_trace}")
+        step_ms = median_ms(lambda step=step: step(x, y), device, reps=cfg["reps"],
+                            warmup=cfg["warmup"])
+        step_mib = _peak_mib(device, lambda step=step: step(x, y))
+        del m, step
+        b16t = train_bf16(device, label, fresh, x, y, f32_trace, cfg)
+        checks.check(fresh, xc, yc, device, functools.partial(
+            report, stem=stem, label=label, pack=pack, build_s=build_s, cpu_s=cpu_s, err=err,
+            peak=peak, ms=ms, mib=mib, b16=b16, loss_node=loss_node, step_ms=step_ms,
+            step_mib=step_mib, b16t=b16t))
         del cpu
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -4602,13 +4794,138 @@ def phase_import_keywords(device, cfg, optim_cfg, folders, root: Path, smi) -> d
     return stats
 
 
+def _cell_bound(xp, w_hh, bias, h0) -> tuple:
+    """Bytes (each input read once, each output written once), operations
+    (the products h·W_hhᵀ) and the bound in ms of one ``bf16_lstm_scan``."""
+    n, k, width = xp.shape
+    dirs, gates, hidden = w_hh.shape
+    nbytes = 2 * (xp.numel() + w_hh.numel() + bias.numel() + 2 * h0.numel()  # inputs
+                  + n * k * dirs * hidden + 2 * h0.numel())  # outputs
+    flops = 2 * n * k * dirs * gates * hidden
+    return nbytes, flops, 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOPS)
+
+
+def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
+    """Phase 22 (the module docstring's item 22). Returns the kernel's
+    readings, ``launches`` the count of (b)'s bf16 forward alone."""
+    import copy
+
+    import torch
+
+    from sonicsim_tpu_torch.models import zoo_layers
+    from sonicsim_tpu_torch.ops import lstm_cell
+    from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
+
+    strict_float32()
+    mono = _mono_mixes(folders)[0]
+    x10 = torch.from_numpy(mono[None, :int(cfg["window_s"] * SR)].copy()).to(device)
+    cpu = seeded_zoo("SkiMNet", zoo_models["SkiMNet"], cfg["seed"])
+    model = copy.deepcopy(cpu).to(device)
+    fwd32, fwd16 = make_forward(model), make_forward(model, bf16=True)
+    # (b) the main path: one bf16 forward, its launches counted from a reset
+    # just before it, and the kernel's arguments kept for (a).
+    seen, scan = [], zoo_layers.bf16_lstm_scan
+
+    def record(*args):
+        seen.append(args)
+        return scan(*args)
+
+    lstm_cell.reset_launch_counts()
+    fwd32(x10)
+    sync(device)
+    f32_launches = lstm_cell.LAUNCHES["bf16_lstm_scan"]
+    zoo_layers.bf16_lstm_scan = record
+    lstm_cell.reset_launch_counts()
+    try:
+        out10 = fwd16(x10)
+        sync(device)
+    finally:
+        zoo_layers.bf16_lstm_scan = scan
+    launches = lstm_cell.LAUNCHES["bf16_lstm_scan"]
+    check(launches == len(seen) >= 1 if device.type == "cuda" else not launches,
+          f"bf16_lstm_scan: {launches} launches in SkiM's bf16 forward ({len(seen)} calls)")
+    check(f32_launches == 0, f"bf16_lstm_scan: {f32_launches} launches in SkiM's fp32 forward")
+    check(bool(torch.isfinite(out10).all()) and tuple(out10.shape) == (1, 2, x10.shape[-1]),
+          f"SkiM bf16 10 s: output {tuple(out10.shape)}")
+    got, ref = out10.cpu(), make_forward(cpu, bf16=True)(x10.cpu())
+    rel_cpu = _rel_l2(got, ref)
+    check(bool(torch.isfinite(got).all()) and rel_cpu <= BF16_REL_L2,
+          f"SkiM bf16 on the card vs the CPU: rel-L2 {rel_cpu} (gate {BF16_REL_L2})")
+    # (a) the kernel against its plain version on (b)'s arguments, and from
+    # injected carries.
+    xp, w_hh, bias, h0, c0, reverse = seen[0]
+    g = torch.Generator(device=device).manual_seed(cfg["seed"])
+    injected = (torch.tanh(torch.randn(h0.shape, generator=g, device=device)).bfloat16(),
+                torch.randn(c0.shape, generator=g, device=device).bfloat16())
+    holds = {}
+    for label, (hh, cc) in (("zero carry", (h0, c0)), ("injected carry", injected)):
+        args = (xp, w_hh, bias, hh, cc, reverse)
+        with torch.inference_mode():
+            kern = scan(*args)
+            sync(device)
+            plain = lstm_cell.bf16_lstm_scan_ref(*args)
+        rels = [_rel_l2(a.double(), b.double()) for a, b in zip(kern, plain)]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(kern, plain))
+        equal = float((kern[0] == plain[0]).float().mean())
+        check(all(bool(torch.isfinite(a.float()).all()) for a in kern) and max(rels) <= CELL_REL,
+              f"bf16_lstm_scan vs its plain version, {label}: rel-L2 {rels} (tol {CELL_REL})")
+        holds[label] = dict(rels=rels, err=err, equal=equal)
+    args = (xp, w_hh, bias, h0, c0, reverse)
+    with torch.inference_mode():
+        ms = median_ms(lambda: scan(*args), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        plain_ms = median_ms(lambda: lstm_cell.bf16_lstm_scan_ref(*args), device,
+                             reps=cfg["reps"], warmup=1)
+        layer = copy.deepcopy(model.separation.skim.seg_lstms[0].lstm).bfloat16()
+        layer.flatten_parameters()
+        x_layer = torch.randn(xp.shape[0], xp.shape[1], layer.input_size, device=device,
+                              generator=g).bfloat16()
+        cudnn_ms = median_ms(lambda: torch.nn.LSTM.forward(layer, x_layer, (h0, c0)), device,
+                             reps=cfg["reps"], warmup=cfg["warmup"])
+    nbytes, flops, bound_ms = _cell_bound(xp, w_hh, bias, h0)
+    # (c) the bf16 10 s forwards' times.
+    times = {"SkiMNet": median_ms(lambda: fwd16(x10), device, reps=cfg["model_reps"], warmup=1)}
+    del model, fwd32, fwd16, cpu
+    dpt = seeded_zoo("DPTNetModel", zoo_models["DPTNetModel"], cfg["seed"]).to(device)
+    dpt16 = make_forward(dpt, bf16=True)
+    times["DPTNetModel"] = median_ms(lambda: dpt16(x10), device, reps=cfg["model_reps"],
+                                     warmup=1)
+    del dpt, dpt16
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    n, k, _ = xp.shape
+    for label, h in holds.items():
+        print(f"bf16-cell[(a) {label}]: bf16_lstm_scan on skim.yaml's first SegLSTM at B=1 x "
+              f"{cfg['window_s']:g} s (N={n} rows, K={k} steps, H={w_hh.shape[2]}, "
+              f"{w_hh.shape[0]} directions) against its plain version on {device}: rel-L2 "
+              f"outputs {h['rels'][0]:.3g}, h {h['rels'][1]:.3g}, c {h['rels'][2]:.3g} (tol "
+              f"{CELL_REL}), max abs err {h['err']:.3g}, outputs bit-equal {h['equal']:.6f}",
+              flush=True)
+    print(f"bf16-cell[(a) times]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA-event "
+          f"medians of {cfg['reps']}); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {flops / 1e9:.1f} GFLOP at "
+          f"{BF16_PEAK_FLOPS / 1e12:g} TFLOP/s; a {k}-step dependence chain); cuDNN's bf16 "
+          f"LSTM over the same layer (another function: float32 cell) {cudnn_ms:.4f} ms; {smi}",
+          flush=True)
+    print(f"bf16-cell[(b)]: SkiM (skim.yaml) B=1 x {cfg['window_s']:g} s: {launches} launch(es) "
+          f"in its bf16 forward, {f32_launches} in its fp32 forward; its bf16 output on the "
+          f"card vs the CPU's: rel-L2 {rel_cpu:.4g} (gate {BF16_REL_L2}, phases 11 and 13's "
+          f"bf16 gate); {smi}",
+          flush=True)
+    print(f"bf16-cell[(c)]: B=1 x {cfg['window_s']:g} s bf16 forwards: SkiM "
+          f"{times['SkiMNet']:.4f} ms, DPTNet {times['DPTNetModel']:.4f} ms (CUDA-event "
+          f"medians of {cfg['model_reps']}); {smi}", flush=True)
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
+                flops=flops, cudnn_ms=cudnn_ms, err=max(h["err"] for h in holds.values()),
+                holds=holds, rel_cpu=rel_cpu, times=times)
+
+
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         bank_mix_cfg=BANK_MIXTURE, gen_cfg=GENERATION, serve_cfg=SERVE,
         train_cfg=TRAIN, trace_dir=None, zoo_cfg=ZOO, stream_cfg=STREAMING, enh_cfg=ENH,
         enh_train_cfg=ENH_TRAIN, sep_train_cfg=SEP_TRAIN, eval_cfg=EVAL_SIDECARS,
         sidecar_cfg=SIDECAR_MODELS, variants_cfg=VARIANTS, adapters_cfg=ADAPTERS,
-        mesh_cfg=MESH, import_cfg=IMPORT_FWD, env_line: str = "") -> None:
-    from sonicsim_tpu_torch.ops import kernels
+        mesh_cfg=MESH, import_cfg=IMPORT_FWD, cell_cfg=BF16_CELL, env_line: str = "") -> None:
+    from sonicsim_tpu_torch.ops import kernels, lstm_cell
 
     seconds, mark = {}, [time.perf_counter()]
 
@@ -4618,6 +4935,13 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         mark[0] = now
         print(f"phase {name}: {seconds[name]} s (host wall)", flush=True)
 
+    def reset() -> None:  # every kernel's count
+        kernels.reset_launch_counts()
+        lstm_cell.reset_launch_counts()
+
+    def read() -> dict:
+        return {**kernels.LAUNCHES, **lstm_cell.LAUNCHES}
+
     head = headline_plan(head_cfg)
     mix = mixture_inputs(mix_cfg)
     times = phase_kernels(device, head, mix, bank_cfg, bank_mix_cfg)
@@ -4626,93 +4950,105 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
     # The main paths: each one's launches counted from a reset just before
     # it to the read just after.
     counts = {}
-    kernels.reset_launch_counts()
+    reset()
     phase_headline(device, head, head_cfg)
-    counts["headline"] = dict(kernels.LAUNCHES)
+    counts["headline"] = read()
     lap("headline (4)")
-    kernels.reset_launch_counts()
+    reset()
     phase_mixture(device, mix, mix_cfg)
-    counts["mixture"] = dict(kernels.LAUNCHES)
+    counts["mixture"] = read()
     lap("mixture (5)")
     # Phase 1's line again next to phase 6's (ROADMAP C9): the output's head
     # may be cut from a long run's log.
     print(env_line, flush=True)
     banks, ways, static = phase_bank(device, bank_cfg, trace_dir)
     lap("bank (6)")
-    kernels.reset_launch_counts()
+    reset()
     phase_bank_mixture(device, banks, ways, static, bank_mix_cfg)
-    counts["bank->mixture"] = dict(kernels.LAUNCHES)
+    counts["bank->mixture"] = read()
     lap("bank->mixture (7)")
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, StepChecks(background=True) as checks:
         gen = prepare_generation(device, gen_cfg, Path(tmp))
-        kernels.reset_launch_counts()
+        reset()
         runs = generation_runs(device, gen_cfg, gen)
-        counts["generation"] = dict(kernels.LAUNCHES)
+        counts["generation"] = read()
         case = check_generation(device, gen_cfg, gen, runs, smi)
         lap("generation (8)")
-        kernels.reset_launch_counts()
+        reset()
         phase_serving(device, serve_cfg, runs["disk"]["produced"], Path(tmp) / "serve", smi)
-        serving = dict(kernels.LAUNCHES)
+        serving = read()
         lap("serving (9)")
-        kernels.reset_launch_counts()
+        reset()
         phase_training(device, train_cfg, serve_cfg["model"], runs["disk"]["produced"],
                        Path(tmp) / "train", smi)
-        training = dict(kernels.LAUNCHES)
+        training = read()
         lap("training (10)")
-        kernels.reset_launch_counts()
-        phase_zoo(device, zoo_cfg, runs["disk"]["produced"], Path(tmp) / "zoo", smi)
-        zoo = dict(kernels.LAUNCHES)
-        lap("zoo (11)")
-        kernels.reset_launch_counts()
-        phase_streaming(device, stream_cfg, runs["disk"]["produced"], Path(tmp) / "stream", smi)
-        streaming = dict(kernels.LAUNCHES)
-        lap("streaming (12)")
-        kernels.reset_launch_counts()
-        phase_enhancement(device, enh_cfg, runs["disk"]["produced"], Path(tmp) / "enh", smi)
-        enhancement = dict(kernels.LAUNCHES)
-        lap("enhancement (13)")
-        kernels.reset_launch_counts()
+        # The step checks first (14, 15, 18): their CPU sides run in the
+        # background while the card goes on with phases 11-13 and 16-22.
+        reset()
         phase_enh_training(device, enh_train_cfg, enh_cfg["models"], runs["disk"]["produced"],
-                           Path(tmp) / "enh_train", smi)
-        enh_training = dict(kernels.LAUNCHES)
+                           Path(tmp) / "enh_train", smi, checks)
+        enh_training = read()
         lap("enhancement training (14)")
-        kernels.reset_launch_counts()
-        phase_sep_training(device, sep_train_cfg, runs["disk"]["produced"], smi)
-        sep_training = dict(kernels.LAUNCHES)
+        reset()
+        phase_sep_training(device, sep_train_cfg, runs["disk"]["produced"], smi, checks)
+        sep_training = read()
         lap("separation training (15)")
-        kernels.reset_launch_counts()
+        reset()
+        phase_variants(device, variants_cfg, runs["disk"]["produced"], Path(tmp) / "variants",
+                       smi, checks)
+        variants = read()
+        lap("variants (18)")
+        reset()
+        phase_zoo(device, zoo_cfg, runs["disk"]["produced"], Path(tmp) / "zoo", smi)
+        zoo = read()
+        lap("zoo (11)")
+        reset()
+        phase_streaming(device, stream_cfg, runs["disk"]["produced"], Path(tmp) / "stream", smi)
+        streaming = read()
+        lap("streaming (12)")
+        reset()
+        phase_enhancement(device, enh_cfg, runs["disk"]["produced"], Path(tmp) / "enh", smi)
+        enhancement = read()
+        lap("enhancement (13)")
+        reset()
         phase_eval_sidecars(device, eval_cfg, runs["disk"]["produced"], Path(tmp) / "eval", smi)
-        eval_sidecars = dict(kernels.LAUNCHES)
+        eval_sidecars = read()
         lap("evaluation sidecars (16)")
-        kernels.reset_launch_counts()
+        reset()
         phase_sidecar_models(device, sidecar_cfg, runs["disk"]["produced"],
                              Path(tmp) / "sidecars", Path(tmp) / "serve" / "convtasnet.pkl", smi)
-        sidecar_models = dict(kernels.LAUNCHES)
+        sidecar_models = read()
         lap("sidecar models (17)")
-        kernels.reset_launch_counts()
-        phase_variants(device, variants_cfg, runs["disk"]["produced"], Path(tmp) / "variants",
-                       smi)
-        variants = dict(kernels.LAUNCHES)
-        lap("variants (18)")
-        kernels.reset_launch_counts()
+        reset()
         phase_optim_zoo(device, adapters_cfg, smi)
         phase_remix_fit(device, adapters_cfg, runs["disk"]["produced"], Path(tmp) / "remix",
                         smi)
-        adapters = dict(kernels.LAUNCHES)
+        adapters = read()
         lap("optimizers, remix fit (19a-b)")
-        kernels.reset_launch_counts()
+        reset()
         phase_bank_import(device, banks, ways, static, bank_mix_cfg, Path(tmp) / "bank_import")
-        counts["bank import->mixture"] = dict(kernels.LAUNCHES)
+        counts["bank import->mixture"] = read()
         lap("bank import (19c)")
         _, counts["mesh"] = phase_mesh(device, mesh_cfg, mix_cfg, bank_cfg, gen,
                                        runs["disk"]["produced"], Path(tmp) / "mesh", smi)
         lap("mesh (20)")
-        kernels.reset_launch_counts()
+        reset()
         phase_import_keywords(device, import_cfg, adapters_cfg, runs["disk"]["produced"],
                               Path(tmp) / "import", smi)
-        imports = dict(kernels.LAUNCHES)
+        imports = read()
         lap("import, optax keywords, bf16 layers (21)")
-    for path, c in (("serving", serving), ("training", training), ("the zoo", zoo),
+        cell = phase_bf16_cell(device, cell_cfg, zoo_cfg["models"], runs["disk"]["produced"],
+                               smi)
+        lap("bf16 LSTM cell (22)")
+        checks.settle()
+        lap("the rest of phases 14, 15 and 18's step checks (CPU sides)")
+    # The zoo serves SkiM in bf16: flax's bf16 cell, the one kernel a model runs.
+    check(not any(v for k, v in zoo.items() if k in kernels.LAUNCHES),
+          f"the zoo launched a render kernel: {zoo}")
+    if device.type == "cuda":
+        check(zoo["bf16_lstm_scan"] > 0, f"bf16_lstm_scan: no launch in the zoo: {zoo}")
+    for path, c in (("serving", serving), ("training", training),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
                     ("enhancement training", enh_training),
                     ("separation training", sep_training),
@@ -4732,9 +5068,11 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
                   f"crossfade_combine: no launch in {path}")
     print(f"launches on the main paths: {counts} (the select form is off "
           f"the main paths; the bank render has no kernel of its own; "
-          f"generation takes the fused form alone); serving (phase 9) launches "
-          f"neither kernel: {serving}, nor does training (phase 10): {training}, nor "
-          f"the zoo (phase 11): {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
+          f"generation takes the fused form alone); bf16_lstm_scan in SkiM's bf16 forward "
+          f"(phase 22 (b)): {cell['launches']}, and in the zoo (phase 11, SkiM's bf16 "
+          f"serving) {zoo['bf16_lstm_scan']}; serving (phase 9) launches "
+          f"no kernel: {serving}, nor does training (phase 10): {training}, nor "
+          f"the zoo (phase 11) a render kernel: {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
           f"enhancement zoo (phase 13): {enhancement}, nor enhancement training (phase 14): "
           f"{enh_training}, nor separation training (phase 15): {sep_training}, nor the "
           f"evaluation sidecars (phase 16): {eval_sidecars}, nor the sidecar models (phase "
@@ -4762,7 +5100,22 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
             "library_ms": None,  # no single PyTorch call computes it
         }
         for name in ("select_segments", "select_segments_ramp", "crossfade_combine")
-    ]}
+    ] + [{
+        "name": "bf16_lstm_scan",
+        "route": "cuda",
+        "source": CELL_SOURCE,
+        "replaces": "none: flax's bf16 OptimizedLSTMCell scan, sonicsim_tpu/models/skim.py:52",
+        "launches": cell["launches"],
+        "max_abs_err": cell["err"],
+        "ms": cell["ms"],
+        "plain_ms": cell["plain_ms"],
+        "bytes": cell["bytes"],
+        "bound_ms": cell["bound_ms"],
+        "bound_by": "bytes" if cell["bytes"] / HBM_BYTES_PER_S
+                    >= cell["flops"] / BF16_PEAK_FLOPS else "operations",
+        "library_ms": None,  # cuDNN's bf16 LSTM computes another function
+        "cudnn_bf16_lstm_ms": cell["cudnn_ms"],
+    }]}
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
 

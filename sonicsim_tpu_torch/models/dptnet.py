@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from .base import BaseModel, register_model
 from .layers import (Conv1d, Conv2d, ConvTranspose1d, Linear, MultiheadAttention, PReLU,
-                     float32_or_wider, get_activation, promote)
+                     float32_or_wider, fused_norm, get_activation, promote)
 from .zoo_layers import F32_EPS, LSTMLayer
 
 
@@ -41,7 +41,13 @@ class DPGlobLN(nn.Module):
         self.gamma = nn.Parameter(torch.ones(1, dim, 1))
         self.beta = nn.Parameter(torch.zeros(1, dim, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, unrounded: torch.Tensor | None = None) -> torch.Tensor:
+        """``unrounded``, where given, is the float32 value a narrower ``x``
+        was rounded from: normalised with ``x``'s statistics
+        (``layers.fused_norm``)."""
+        if unrounded is not None:
+            return fused_norm(x, unrounded, (1, 2), self.gamma.view(-1), self.beta.view(-1),
+                              F32_EPS)
         # flax's GroupNorm: statistics in float32, the promoted dtype out.
         out = promote(x, self.gamma, self.beta)[0].dtype
         x = x.to(float32_or_wider(out))
@@ -67,7 +73,14 @@ class ImprovedTransformerLayer(nn.Module):
         self.norm_ff = DPGlobLN(input_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.norm_attn(self.self_attn(x, x, x, need_weights=False)[0] + x)
+        attn = self.self_attn(x, x, x, need_weights=False)[0]
+        out = attn + x
+        if float32_or_wider(out.dtype) != out.dtype:
+            # XLA's fusion of the JAX layer (bfloat16): gLN's statistics
+            # read the rounded residual, its normalisation the float32 sum.
+            out = self.norm_attn(out, unrounded=attn.float() + x.float())
+        else:
+            out = self.norm_attn(out)
         h = self.feed_forward["2"](self.activation(self.rnn(out)))
         return self.norm_ff(h + out)
 

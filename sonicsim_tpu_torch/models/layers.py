@@ -52,8 +52,25 @@ def float32_or_wider(dtype: torch.dtype) -> torch.dtype:
 
 
 class Linear(nn.Linear):
+    """flax's ``Dense`` in the promoted dtype. Below float32 the product is
+    rounded before the bias is added, as XLA computes flax's ``dot_general``
+    and then ``y + bias``, each rounded; ``F.linear`` with the bias would
+    round once."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
-        return F.linear(*promote(x, self.weight, self.bias))
+        x, w, b = promote(x, self.weight, self.bias)
+        if b is None or float32_or_wider(x.dtype) == x.dtype:
+            return F.linear(x, w, b)
+        return F.linear(x, w) + b
+
+    def unrounded(self, x: torch.Tensor) -> torch.Tensor | None:
+        """The float32 value :meth:`forward` rounds below float32 (the
+        rounded product plus the bias, the product taken again), or None
+        where it rounds nothing."""
+        x, w, b = promote(x, self.weight, self.bias)
+        if b is None or float32_or_wider(x.dtype) == x.dtype:
+            return None
+        return F.linear(x, w).float() + b.float()
 
 
 class Conv1d(nn.Conv1d):
@@ -87,12 +104,19 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 class MultiheadAttention(nn.MultiheadAttention):
     """torch's attention (``batch_first``, packed in-projection, no mask)
     in the dtype of the query promoted with the weights (flax's
-    ``MultiHeadDotProductAttention``)."""
+    ``MultiHeadDotProductAttention``). Below float32 it is computed as XLA
+    computes flax's (:func:`flax_attention`), with no dropout, as the JAX
+    models call it."""
 
     def forward(self, query, key, value, need_weights: bool = False):  # type: ignore[override]
         weights = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
                    self.out_proj.bias)
         dtype = promote(query, *weights)[0].dtype
+        if float32_or_wider(dtype) != dtype:
+            q, k, v = (t.to(dtype) for t in (query, key, value))
+            w_in, b_in, w_out, b_out = (None if t is None else t.to(dtype) for t in weights)
+            out, attn = flax_attention(q, k, v, self.num_heads, w_in, b_in, w_out, b_out)
+            return out, attn.mean(dim=1) if need_weights else None
         if all(t is None or t.dtype == dtype for t in (query, key, value) + weights):
             return super().forward(query, key, value, need_weights=need_weights)
         q, k, v = (t.to(dtype).transpose(0, 1) for t in (query, key, value))
@@ -101,6 +125,39 @@ class MultiheadAttention(nn.MultiheadAttention):
             q, k, v, self.embed_dim, self.num_heads, w_in, b_in, None, None, False, 0.0,
             w_out, b_out, training=self.training, need_weights=need_weights)
         return out.transpose(0, 1), attn
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
+    """flax's ``Dense``/``DenseGeneral``: the product, then the bias, each
+    rounded to ``x``'s dtype."""
+    y = F.linear(x, w)
+    return y if b is None else y + b
+
+
+def flax_attention(query, key, value, heads: int, w_in, b_in, w_out, b_out) -> tuple:
+    """flax's ``MultiHeadDotProductAttention`` on (B, L, E) operands of one
+    narrow dtype, with torch's packed weights (``in_proj`` [q; k; v],
+    ``out_proj``): ``(out (B, L, E), weights (B, heads, L, S))``. Each op
+    is rounded to that dtype where the compiled JAX forward rounds it
+    (flax/linen/attention.py: the denses' product and bias, ``q / √d``,
+    ``q·kᵀ``, ``w·v``). jax.nn.softmax's HLO rounds ``x − max``; its
+    ``exp`` reaches the float32 sum unrounded (XLA drops the round trip
+    ``jnp.sum``'s upcast would make) and the quotient rounded, over the
+    rounded sum."""
+    e = query.shape[-1]
+    depth = e // heads
+    wq, wk, wv = w_in.chunk(3)
+    bq, bk, bv = (None,) * 3 if b_in is None else b_in.chunk(3)
+    q = _dense(query, wq, bq).unflatten(-1, (heads, depth))
+    k = _dense(key, wk, bk).unflatten(-1, (heads, depth))
+    v = _dense(value, wv, bv).unflatten(-1, (heads, depth))
+    q = q / torch.tensor(depth, dtype=torch.float32).sqrt().to(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    unnormalised = torch.exp((logits - logits.amax(dim=-1, keepdim=True)).float())
+    total = unnormalised.sum(dim=-1, keepdim=True).to(logits.dtype)
+    weights = unnormalised.to(logits.dtype) / total
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v).flatten(-2)
+    return _dense(out, w_out, b_out), weights
 
 
 class LayerNorm(nn.LayerNorm):
@@ -112,6 +169,24 @@ class LayerNorm(nn.LayerNorm):
         s = float32_or_wider(out)
         w, b = (None if p is None else p.to(s) for p in (self.weight, self.bias))
         return F.layer_norm(x.to(s), self.normalized_shape, w, b, self.eps).to(out)
+
+
+def fused_norm(x: torch.Tensor, unrounded: torch.Tensor, dims, weight, bias,
+               eps: float) -> torch.Tensor:
+    """flax's ``GroupNorm``/``LayerNorm`` (statistics over ``dims``, the
+    affine on the last axis) of a ``x`` narrower than float32, as XLA
+    computes it where it fuses the op that made ``x`` into the
+    normalisation: the statistics of ``x`` as rounded, the normalisation of
+    ``unrounded``, that op's float32 result. Output in ``x``'s dtype."""
+    xs = x.float()
+    mean = xs.mean(dim=dims, keepdim=True)
+    var = (xs - mean).square().mean(dim=dims, keepdim=True)
+    y = (unrounded.float() - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float) -> torch.Tensor:

@@ -32,7 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import Conv1d, ConvTranspose1d, Linear, PReLU, get_activation, group_norm, promote
+from .layers import (Conv1d, ConvTranspose1d, Linear, PReLU, float32_or_wider, fused_norm,
+                     get_activation, group_norm, promote)
 from .zoo_layers import F32_EPS, LSTMLayer, overlap_add_sequence, segment_sequence
 
 
@@ -47,8 +48,14 @@ class SkiMNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(1, dim, 1))
         self.beta = nn.Parameter(torch.zeros(1, dim, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, unrounded: torch.Tensor | None = None) -> torch.Tensor:
+        """``unrounded``, where given, is the float32 value a narrower ``x``
+        was rounded from: normalised with ``x``'s statistics
+        (``layers.fused_norm``)."""
         g, b = self.gamma.reshape(-1), self.beta.reshape(-1)
+        if unrounded is not None:
+            dims = -1 if self.causal else tuple(range(1, x.dim()))
+            return fused_norm(x, unrounded, dims, g, b, 1e-5 if self.causal else F32_EPS)
         if self.causal:  # the JAX cLN, in the promoted dtype
             x, g, b = promote(x, g, b)
             return F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
@@ -75,15 +82,30 @@ class SegLSTM(nn.Module):
         self.proj = Linear(hidden_size * (2 if bidirectional else 1), input_size)
         self.norm = SkiMNorm(input_size, causal)
 
-    def forward(self, x: torch.Tensor, hc=None):
+    def forward(self, x: torch.Tensor, hc=None, wide: torch.Tensor | None = None,
+                wide_out: list | None = None):
         """(N, K, D) and ``(h, c)`` (or None: zeros) → (N, K, D), final
-        ``(h, c)``."""
+        ``(h, c)``.
+
+        Below float32 this follows XLA's compiled JAX SegLSTM, which fuses
+        across the block: the norm's statistics read the rounded projection
+        and its normalisation the float32 sum of the rounded product and
+        the bias; a residual that promotes ``x`` to float32 reads ``wide``,
+        the float32 value ``x`` was rounded from (the previous block's sum,
+        fused in), where the caller gives it. Where the output is rounded,
+        the float32 sum it was rounded from is appended to ``wide_out``."""
         if hc is None:  # zeros in the input's dtype, as the JAX SegLSTM makes them
             lstm = self.lstm
             zeros = x.new_zeros(2 if lstm.bidirectional else 1, x.shape[0], lstm.hidden_size)
             hc = (zeros, zeros)
         out, hc = self.lstm.run(x, hc)
-        return x + self.norm(self.proj(out)), hc
+        n = self.norm(self.proj(out), self.proj.unrounded(out))
+        if wide is not None and torch.promote_types(x.dtype, n.dtype) != x.dtype:
+            return wide.to(n.dtype) + n, hc
+        out = x + n
+        if wide_out is not None and float32_or_wider(out.dtype) != out.dtype:
+            wide_out.append(x.float() + n.float())
+        return out, hc
 
 
 class MemNet(nn.Module):
@@ -217,9 +239,11 @@ class SkiMNet(BaseModel):
             chunks = F.pad(enc, (0, 0, 0, (-t_enc) % k)).reshape(bsz, -1, k, self.input_dim)
         b, s, _, d = chunks.shape
         sk = self.separation.skim
-        out, hc = chunks.reshape(b * s, k, d), None
+        out, hc, wide = chunks.reshape(b * s, k, d), None, None
         for i, seg in enumerate(sk.seg_lstms):
-            out, hc = seg(out, hc)
+            sums = []
+            out, hc = seg(out, hc, wide, sums)
+            wide = sums[0] if sums else None
             if i < len(sk.mem_lstms):
                 hc = sk.mem_lstms[i](hc, s)
         out = out.reshape(b, s, k, d)

@@ -42,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.lstm_cell import bf16_lstm_scan
 from .layers import Conv1d, Linear, PReLU, group_norm, float32_or_wider
 
 F32_EPS = 1.1920929e-7  # torch.finfo(torch.float32).eps: GroupNorm1's epsilon
@@ -243,7 +244,13 @@ class LSTMLayer(nn.LSTM):
     alone. With both trainable, Adam would move the sum twice as far and the
     global-norm clip would count its gradient twice; frozen, the train step
     is optax's. A reference checkpoint's ``bias_hh`` still loads and adds
-    in."""
+    in.
+
+    The recurrence and carry are float32 (or wider), as flax's with its
+    float32 carry, unless the input, the weights and the initial state are
+    all bfloat16: then flax's bfloat16 cell (:func:`_run_wide`), outputs
+    and final state bfloat16, in inference only (the kernel has no backward
+    yet)."""
 
     def __init__(self, input_size: int, hidden: int, bidirectional: bool = False,
                  num_layers: int = 1):
@@ -276,7 +283,7 @@ class GRULayer(nn.GRU):
     global-norm clip see flax's biases alone, as for the LSTM's frozen
     ``bias_hh``. A reference checkpoint's nonzero thirds still load and add
     in. The carry and the recurrence are float32 (or wider), as
-    :class:`LSTMLayer`'s."""
+    :class:`LSTMLayer`'s; a bfloat16 carry raises (no JAX caller)."""
 
     def __init__(self, input_size: int, hidden: int, bidirectional: bool = False,
                  num_layers: int = 1):
@@ -319,7 +326,14 @@ def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx,
     input projection is rounded to it as flax's input dense rounds it
     (:func:`_rounded_projection`; with the bias where ``input_bias``, the
     GRU's). Later layers read the first one's float32 output, as each
-    layer of flax's stack is its own ``nn.RNN``."""
+    layer of flax's stack is its own ``nn.RNN``.
+
+    Where the carry too is bfloat16 (the input, the weights and the state
+    promote to it), flax's cell computes in bfloat16: :func:`_bf16_cell`,
+    the kernel of ``ops.lstm_cell``. The kernel has no backward yet, so
+    while autograd records (grad enabled and an operand that requires it)
+    such a call keeps the float32 recurrence above, on the CPU and on the
+    card alike."""
     # By name: ``torch.func.functional_call`` swaps the attributes, not
     # ``_flat_weights``.
     weights = [getattr(rnn, n) for n in rnn._flat_weights_names]
@@ -329,6 +343,9 @@ def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx,
     run = float32_or_wider(out)
     if x.dtype == weights[0].dtype == run and all(s.dtype == run for s in states):
         return own(rnn, x, hx)
+    if out == torch.bfloat16 and not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *weights, *states))):
+        return _bf16_cell(rnn, x, weights, states)
     if not states:
         states = (x.new_zeros(rnn.num_layers * (2 if rnn.bidirectional else 1), x.shape[0],
                               rnn.hidden_size, dtype=run),) * n_states
@@ -341,6 +358,36 @@ def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx,
                float(rnn.dropout), rnn.training, rnn.bidirectional, rnn.batch_first)
     h = tuple(s.to(out) for s in h)
     return y.to(out), h if n_states > 1 else h[0]
+
+
+def _bf16_cell(rnn: nn.RNNBase, x: torch.Tensor, weights: list, states: tuple):
+    """``rnn``'s call where the input, the weights and the carry are all
+    bfloat16: flax's cell computed in bfloat16, each op rounded
+    (``ops.lstm_cell``), on the rounded input projection; outputs and
+    final state bfloat16. Only a one-layer LSTM has a JAX caller (the SkiM
+    ``SegLSTM`` whose zero carry takes its input's dtype)."""
+    name = type(rnn).__name__
+    if not isinstance(rnn, nn.LSTM):
+        raise NotImplementedError(f"{name}: a bfloat16 carry (flax's GRU cell in bfloat16) "
+                                  f"has no JAX caller and is not ported")
+    if rnn.num_layers != 1:
+        raise NotImplementedError(f"{name}: a bfloat16 carry through {rnn.num_layers} layers "
+                                  f"has no JAX caller and is not ported")
+    n_dir = 2 if rnn.bidirectional else 1
+    per_dir = len(weights) // n_dir
+    xf = x.float()
+    xp, w_hh, bias = [], [], []
+    for d in range(n_dir):
+        w = weights[d * per_dir:(d + 1) * per_dir]
+        xp.append((xf @ w[0].float().t()).to(torch.bfloat16))
+        w_hh.append(w[1].to(torch.bfloat16))
+        # flax's one bias per gate: bias_ih + bias_hh in float32, rounded once.
+        bias.append((w[2].float() + w[3].float()).to(torch.bfloat16) if rnn.bias
+                    else x.new_zeros(w[1].shape[0], dtype=torch.bfloat16))
+    h0, c0 = (s.to(torch.bfloat16) for s in states)
+    y, h, c = bf16_lstm_scan(torch.cat(xp, dim=-1), torch.stack(w_hh), torch.stack(bias), h0,
+                             c0, [d == 1 for d in range(n_dir)])
+    return y, (h, c)
 
 
 def _rounded_projection(rnn: nn.RNNBase, x: torch.Tensor, weights: list, narrow: torch.dtype,

@@ -133,19 +133,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/segment_select.cu`` (once per source and flags) and
-    return the shared library's path."""
+def build(verbose: bool = False, source: Path = SOURCE) -> Path:
+    """Compile ``source`` (``csrc/segment_select.cu`` by default; once per
+    source and flags) and return the shared library's path."""
     key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    out = BUILD_DIR / f"libsegment_select_{key}.so"
+    out = BUILD_DIR / f"lib{source.stem}_{key}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
+           "-o", str(tmp), str(source)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
