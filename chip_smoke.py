@@ -205,8 +205,17 @@ Phases, one line each:
     bf16 forward is the kernel's main path: its launches (one per SegLSTM
     whose carry is bfloat16) and none in the float32 forward; its output
     against the CPU's within the bf16 gate; (c) the DPTNet and SkiM bf16
-    forwards of 10 s, timed. The zoo (phase 11) launches the kernel in
-    SkiM's bf16 serving; no other phase does.
+    forwards of 10 s, timed; (d) the training forward, the backward and the
+    running sum against their plain versions on the arguments SkiM's bf16
+    train step at B=2 x 4 s gives them (the scans within rel-L2 1e-3, the
+    running sum bit-equal), each timed beside its plain version and the
+    autograd of cuDNN's bf16 LSTM over the same layer (another function);
+    (e) that step is their main path: one launch of each per bf16-carry
+    SegLSTM and step, no inference scan, none in the float32 step; its
+    gradients against the port's CPU step on a 0.5 s window within rel-L2
+    0.05; its ms/step, bf16 and fp32. The zoo (phase 11) launches the
+    inference kernel in SkiM's bf16 serving and separation training (phase
+    15) the training kernels in SkiM's bf16 steps; no other phase does.
 
 Phases 14, 15 and 18 run right after phase 10. Each of their step checks
 runs its two sides on the card there and hands its three CPU sides (the
@@ -606,13 +615,21 @@ RNN_BF16_REL = 1e-4  # rel-L2: a bf16 recurrent layer on the card against the CP
 # Phase 22: flax's bf16 LSTM cell as a kernel (``ops.lstm_cell``): (a) the
 # kernel against its plain version on the card, on the arguments skim.yaml's
 # bf16 forward of B=1 x 10 s gives it and from injected carries, and the
-# times (the kernel and the plain version CUDA-event medians of ``reps``,
-# cuDNN's bf16 LSTM over the same layer beside them: another function); (b)
-# that forward's launches (the kernel's main path), its float32 forward's
-# (none), and its output against the CPU's; (c)
-# the DPTNet and SkiM bf16 forwards' times. Budget: 30 s of the call.
-BF16_CELL = dict(seed=0, window_s=10.0, reps=20, warmup=3, model_reps=3)
+# times (the kernel over ``reps`` launches in a row, the plain version a
+# CUDA-event median of ``reps``, cuDNN's bf16 LSTM over the same layer beside
+# them: another function); (b) that forward's launches (the kernel's main
+# path), its float32 forward's (none), and its output against the CPU's; (c)
+# the DPTNet and SkiM bf16 forwards' times; (d) the training kernels against
+# their plain versions on the arguments SkiM's bf16 train step at B=2 x
+# ``train_s`` gives them, timed; (e) that step's launches, its gradients
+# against the CPU's on a ``check_s`` window, and its ms/step. Budget: 60 s.
+BF16_CELL = dict(seed=0, window_s=10.0, reps=20, warmup=3, model_reps=3, train_s=4.0,
+                 step_reps=5, check_s=0.5, plain_reps=5)
 CELL_REL = 1e-3  # rel-L2: the kernel against its plain version on the card
+# rel-L2: the backward kernel against its plain version, 3x its readings: its
+# dh0 is one dot over 512 terms rounded (tests/test_torch_bf16_cell_cuda.py)
+CELL_BACKWARD_REL = 5e-3
+CELL_STEP_REL = 0.05  # rel-L2: SkiM's bf16 step gradients, card vs CPU (the bf16 gate)
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
@@ -662,6 +679,34 @@ def median_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def burst_ms(fn, device, reps: int = 20, warmup: int = 3, runs: int = 3) -> float:
+    """A kernel's time in ms: CUDA events around ``reps`` calls of ``fn()``
+    in a row, over ``reps`` (the card never waits for the host between
+    them), the median of ``runs``; the host clock elsewhere."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    times = []
+    for _ in range(runs):
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / reps)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / reps)
     return statistics.median(times)
 
 
@@ -4812,7 +4857,6 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
 
     import torch
 
-    from sonicsim_tpu_torch.models import zoo_layers
     from sonicsim_tpu_torch.ops import lstm_cell
     from sonicsim_tpu_torch.scripts.common import make_forward, strict_float32
 
@@ -4824,23 +4868,23 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
     fwd32, fwd16 = make_forward(model), make_forward(model, bf16=True)
     # (b) the main path: one bf16 forward, its launches counted from a reset
     # just before it, and the kernel's arguments kept for (a).
-    seen, scan = [], zoo_layers.bf16_lstm_scan
+    seen, scan = [], lstm_cell.bf16_lstm_scan
 
-    def record(*args):
+    def record(*args, **kwargs):
         seen.append(args)
-        return scan(*args)
+        return scan(*args, **kwargs)
 
     lstm_cell.reset_launch_counts()
     fwd32(x10)
     sync(device)
     f32_launches = lstm_cell.LAUNCHES["bf16_lstm_scan"]
-    zoo_layers.bf16_lstm_scan = record
+    lstm_cell.bf16_lstm_scan = record
     lstm_cell.reset_launch_counts()
     try:
         out10 = fwd16(x10)
         sync(device)
     finally:
-        zoo_layers.bf16_lstm_scan = scan
+        lstm_cell.bf16_lstm_scan = scan
     launches = lstm_cell.LAUNCHES["bf16_lstm_scan"]
     check(launches == len(seen) >= 1 if device.type == "cuda" else not launches,
           f"bf16_lstm_scan: {launches} launches in SkiM's bf16 forward ({len(seen)} calls)")
@@ -4872,7 +4916,8 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
         holds[label] = dict(rels=rels, err=err, equal=equal)
     args = (xp, w_hh, bias, h0, c0, reverse)
     with torch.inference_mode():
-        ms = median_ms(lambda: scan(*args), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        ms = burst_ms(lambda: scan(*args), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        call_ms = median_ms(lambda: scan(*args), device, reps=cfg["reps"], warmup=1)
         plain_ms = median_ms(lambda: lstm_cell.bf16_lstm_scan_ref(*args), device,
                              reps=cfg["reps"], warmup=1)
         layer = copy.deepcopy(model.separation.skim.seg_lstms[0].lstm).bfloat16()
@@ -4884,6 +4929,7 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
     nbytes, flops, bound_ms = _cell_bound(xp, w_hh, bias, h0)
     # (c) the bf16 10 s forwards' times.
     times = {"SkiMNet": median_ms(lambda: fwd16(x10), device, reps=cfg["model_reps"], warmup=1)}
+    weights = cpu.state_dict()  # (d) and (e) train from the same seeded weights
     del model, fwd32, fwd16, cpu
     dpt = seeded_zoo("DPTNetModel", zoo_models["DPTNetModel"], cfg["seed"]).to(device)
     dpt16 = make_forward(dpt, bf16=True)
@@ -4900,8 +4946,10 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
               f"outputs {h['rels'][0]:.3g}, h {h['rels'][1]:.3g}, c {h['rels'][2]:.3g} (tol "
               f"{CELL_REL}), max abs err {h['err']:.3g}, outputs bit-equal {h['equal']:.6f}",
               flush=True)
-    print(f"bf16-cell[(a) times]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA-event "
-          f"medians of {cfg['reps']}); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+    print(f"bf16-cell[(a) times]: kernel {ms:.4f} ms (CUDA events around {cfg['reps']} "
+          f"launches in a row, median of 3 runs; {call_ms:.4f} ms a call with the wrapper, "
+          f"CUDA-event median of {cfg['reps']}, the earlier measure), plain {plain_ms:.4f} ms "
+          f"(CUDA-event median of {cfg['reps']}); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
           f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {flops / 1e9:.1f} GFLOP at "
           f"{BF16_PEAK_FLOPS / 1e12:g} TFLOP/s; a {k}-step dependence chain); cuDNN's bf16 "
           f"LSTM over the same layer (another function: float32 cell) {cudnn_ms:.4f} ms; {smi}",
@@ -4914,9 +4962,211 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
     print(f"bf16-cell[(c)]: B=1 x {cfg['window_s']:g} s bf16 forwards: SkiM "
           f"{times['SkiMNet']:.4f} ms, DPTNet {times['DPTNetModel']:.4f} ms (CUDA-event "
           f"medians of {cfg['model_reps']}); {smi}", flush=True)
+    train = _bf16_cell_training(device, cfg, zoo_models["SkiMNet"], weights, folders, smi)
     return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
                 flops=flops, cudnn_ms=cudnn_ms, err=max(h["err"] for h in holds.values()),
-                holds=holds, rel_cpu=rel_cpu, times=times)
+                holds=holds, rel_cpu=rel_cpu, times=times, train=train)
+
+
+def _bytes_bound(nbytes: int, flops: int) -> tuple:
+    """The bound in ms and what sets it, for bf16 tensor-core products."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOPS
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _hold_kernel(kern, plain, device) -> dict:
+    """A kernel's outputs ``kern`` against its plain version's ``plain``:
+    rel-L2 of each, max abs error, the share of the first output's elements
+    that are bit-equal."""
+    import torch
+
+    check(all(bool(torch.isfinite(a.float()).all()) and a.shape == b.shape and a.dtype == b.dtype
+              for a, b in zip(kern, plain)), "a kernel's output is not finite or misshapen")
+    return dict(rels=[_rel_l2(a.double(), b.double()) for a, b in zip(kern, plain)],
+                err=max(float((a.float() - b.float()).abs().max()) for a, b in zip(kern, plain)),
+                equal=float((kern[0] == plain[0]).float().mean()))
+
+
+def _bf16_cell_training(device, cfg, args, weights, folders, smi) -> dict:
+    """Phase 22 (d) and (e): SkiM's bf16 train step (skim.yaml, its config's
+    optimizer and clip, PIT neg-SNR) at B=2 x ``train_s`` of phase 8's split.
+    (e) one step with every launch counted from a reset just before it: the
+    training forward, the backward and the running sum once per bf16-carry
+    SegLSTM, the inference forward never; none in the float32 step; the
+    card's bf16 gradients against the port's CPU step on a ``check_s``
+    window; ms/step, bf16 and fp32. (d) each kernel on the arguments that
+    step gave it against its plain version, and the times (the kernel's
+    over ``reps`` launches in a row, the plain version's a median of
+    ``plain_reps``), with the autograd of cuDNN's bf16 LSTM over the same
+    layer beside them (another function). ``args`` and ``weights``: SkiM's
+    (skim.yaml) and (a)'s seeded state."""
+    import torch
+
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.ops import lstm_cell
+
+    marks = [time.perf_counter()]
+    split = folders[0].parent.parent
+    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                          duration=cfg["train_s"], num_samples=2, batch_size=2,
+                          seed=cfg["seed"])
+    mix, tgt = next(iter(dm.train_batches(0)))
+    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
+    fresh = sep_train_fresh("skim", weights, dict(SEP_TRAIN, models={"SkiMNet": args}))
+    n_cells = 1 if args.get("mem_type", "hc") != "id" else args["layer"]
+    train_names = ("bf16_lstm_scan_train", "bf16_lstm_scan_backward", "bf16_running_sum")
+    # (e) the step, its arguments recorded for (d).
+    seen = {}
+    originals = {n: getattr(lstm_cell, n) for n in ("bf16_lstm_scan", "bf16_lstm_scan_backward",
+                                                    "bf16_running_sum")}
+
+    def recorder(name):
+        def call(*a, **kw):
+            seen.setdefault(name + ("_train" if kw.get("keep") else ""), (a, kw))
+            return originals[name](*a, **kw)
+        return call
+
+    model, step = fresh(device, precision="bf16")
+    marks.append(time.perf_counter())
+    for n in originals:
+        setattr(lstm_cell, n, recorder(n))
+    lstm_cell.reset_launch_counts()
+    try:
+        loss = float(step(x, y))
+        sync(device)
+    finally:
+        for n, f in originals.items():
+            setattr(lstm_cell, n, f)
+    launches = dict(lstm_cell.LAUNCHES)
+    want = {"bf16_lstm_scan": 0, **{n: n_cells for n in train_names}}
+    check(launches == want if device.type == "cuda" else not any(launches.values()),
+          f"SkiM's bf16 train step launched {launches}, expected {want}")
+    check(np.isfinite(loss), f"SkiM bf16 step: loss {loss}")
+    ms16 = median_ms(lambda: step(x, y), device, reps=cfg["step_reps"], warmup=1)
+    del model, step
+    model32, step32 = fresh(device)
+    lstm_cell.reset_launch_counts()
+    step32(x, y)
+    sync(device)
+    f32_launches = dict(lstm_cell.LAUNCHES)
+    check(not any(f32_launches.values()), f"SkiM's fp32 train step launched {f32_launches}")
+    ms32 = median_ms(lambda: step32(x, y), device, reps=cfg["step_reps"], warmup=1)
+    del step32
+    # (e) the card's bf16 gradients against the CPU's, one step from the same weights.
+    marks.append(time.perf_counter())
+    xc, yc = _loudest_window(mix, tgt, 2, int(cfg["check_s"] * SR))
+    grads = {}
+    for dev in (device, torch.device("cpu")):
+        m, st = fresh(dev, precision="bf16")
+        with cpu_reference() if dev.type == "cpu" else contextlib.nullcontext():
+            st(xc.to(dev), yc.to(dev))
+        grads[dev.type] = {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()
+                           if p.grad is not None}
+        del m, st
+    names = sorted(grads["cpu"])
+    cell = [n for n in names if ".seg_lstms.0.lstm." in n]
+    cat = {k: torch.cat([g[n].reshape(-1) for n in names]) for k, g in grads.items()}
+    rel_all = _rel_l2(cat[device.type], cat["cpu"])
+    rel_cell = _rel_l2(*(torch.cat([grads[k][n].reshape(-1) for n in cell])
+                         for k in (device.type, "cpu")))
+    worst = max(_rel_l2(grads[device.type][n], grads["cpu"][n]) for n in names)
+    check(rel_all <= CELL_STEP_REL and rel_cell <= CELL_STEP_REL,
+          f"SkiM bf16 step gradients card vs CPU: rel-L2 {rel_all} (the first SegLSTM's LSTM "
+          f"{rel_cell}; tol {CELL_STEP_REL})")
+    # (d) each kernel on the step's arguments against its plain version, and the times.
+    marks.append(time.perf_counter())
+    (xp, w_hh, bias, h0, c0, reverse), _ = seen["bf16_lstm_scan_train"]
+    fwd_args = (xp, w_hh, bias, h0, c0, reverse)
+    bwd_args, _ = seen["bf16_lstm_scan_backward"]
+    sum_args, _ = seen["bf16_running_sum"]
+    reps, warmup = cfg["reps"], cfg["warmup"]
+    with torch.inference_mode():
+        kern = {"bf16_lstm_scan_train": lstm_cell.bf16_lstm_scan(*fwd_args, keep=True),
+                "bf16_lstm_scan_backward": lstm_cell.bf16_lstm_scan_backward(*bwd_args),
+                "bf16_running_sum": lstm_cell.bf16_running_sum(*sum_args)}
+        sync(device)
+        plain_fn = {
+            "bf16_lstm_scan_train": lambda: lstm_cell.bf16_lstm_scan_ref(*fwd_args, keep=True),
+            "bf16_lstm_scan_backward": lambda: lstm_cell.bf16_lstm_scan_backward_ref(*bwd_args),
+            "bf16_running_sum": lambda: lstm_cell.bf16_running_sum_ref(*sum_args)}
+        kern_fn = {
+            "bf16_lstm_scan_train": lambda: lstm_cell.bf16_lstm_scan(*fwd_args, keep=True),
+            "bf16_lstm_scan_backward": lambda: lstm_cell.bf16_lstm_scan_backward(*bwd_args),
+            "bf16_running_sum": lambda: lstm_cell.bf16_running_sum(*sum_args)}
+        holds = {n: _hold_kernel(kern[n], plain_fn[n](), device) for n in train_names}
+        check(max(holds["bf16_lstm_scan_train"]["rels"]) <= CELL_REL
+              and max(holds["bf16_lstm_scan_backward"]["rels"]) <= CELL_BACKWARD_REL,
+              f"the training scans vs their plain versions: {holds}")
+        check(max(holds["bf16_running_sum"]["rels"]) == 0.0,
+              f"bf16_running_sum vs its plain version (the same arithmetic): "
+              f"{holds['bf16_running_sum']}")
+        times = {n: (burst_ms(kern_fn[n], device, reps=reps, warmup=warmup),
+                     median_ms(plain_fn[n], device, reps=cfg["plain_reps"], warmup=1))
+                 for n in train_names}
+    layer = model32.separation.skim.seg_lstms[0].lstm.bfloat16().train()
+    layer.flatten_parameters()
+    g = torch.Generator(device=device).manual_seed(cfg["seed"])
+    x_layer = torch.randn(xp.shape[0], xp.shape[1], layer.input_size, device=device,
+                          generator=g).bfloat16().requires_grad_()
+    dy_layer = torch.randn(xp.shape[0], xp.shape[1], 2 * w_hh.shape[2], device=device,
+                           generator=g).bfloat16()
+
+    def cudnn_step():
+        out = torch.nn.LSTM.forward(layer, x_layer, (h0, c0))[0]
+        torch.autograd.grad(out, [x_layer, *(p for p in layer.parameters() if p.requires_grad)],
+                            dy_layer)
+
+    cudnn_ms = median_ms(cudnn_step, device, reps=reps, warmup=warmup)
+    del layer, model32
+    marks.append(time.perf_counter())
+    walls = "/".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+    n, k, _ = xp.shape
+    dirs, gates, hidden = w_hh.shape
+    products, dz = sum_args[0], sum_args[1]
+    sizes = {  # bytes moved (each input read once, each output written once), operations
+        "bf16_lstm_scan_train": (2 * (2 * xp.numel() + w_hh.numel() + bias.numel()
+                                      + 4 * h0.numel() + 2 * n * k * dirs * hidden),
+                                 2 * n * k * dirs * gates * hidden),
+        "bf16_lstm_scan_backward": (2 * (2 * xp.numel() + 2 * n * k * dirs * hidden
+                                         + w_hh.numel() + 5 * h0.numel()),
+                                    2 * n * k * dirs * gates * hidden),
+        "bf16_running_sum": (4 * products.numel() + 2 * dz.numel()
+                             + 2 * (products.numel() // k + dirs * gates), 0),
+    }
+    out = {}
+    tols = {"bf16_lstm_scan_train": CELL_REL, "bf16_lstm_scan_backward": CELL_BACKWARD_REL,
+            "bf16_running_sum": 0.0}
+    for name in train_names:
+        nbytes, flops = sizes[name]
+        bound_ms, bound_by = _bytes_bound(nbytes, flops)
+        h = holds[name]
+        out[name] = dict(launches=launches[name], ms=times[name][0], plain_ms=times[name][1],
+                         bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+                         err=h["err"], rels=h["rels"], equal=h["equal"], cudnn_ms=cudnn_ms)
+        print(f"bf16-cell[(d) {name}]: on SkiM's bf16 train step at B=2 x {cfg['train_s']:g} s "
+              f"(N={n} rows, K={k} steps, H={hidden}, {dirs} directions) against its plain "
+              f"version on {device}: rel-L2 {[float(f'{r:.3g}') for r in h['rels']]} (tol "
+              f"{tols[name]}), max abs err {h['err']:.3g}, "
+              f"first output bit-equal {h['equal']:.6f}; kernel {times[name][0]:.4f} ms, plain "
+              f"{times[name][1]:.4f} ms (the kernel: CUDA events around {reps} launches in a row, "
+              f"median of 3 runs; the plain version: median of {cfg['plain_reps']}); bound "
+              f"{bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:g} TB/s, "
+              f"{flops / 1e9:.1f} GFLOP at {BF16_PEAK_FLOPS / 1e12:g} TFLOP/s); {smi}", flush=True)
+    print(f"bf16-cell[(d) yardstick]: the autograd of cuDNN's bf16 LSTM over the same layer "
+          f"(another function: float32 cell), forward and backward, {cudnn_ms:.4f} ms; {smi}",
+          flush=True)
+    print(f"bf16-cell[(e)]: SkiM (skim.yaml) bf16 train step, B=2 x {cfg['train_s']:g} s, "
+          f"{n_cells} bf16-carry SegLSTM(s): launches {launches} in one step (the kernels' main "
+          f"path), {f32_launches} in the fp32 step; {ms16:.4f} ms/step bf16, {ms32:.4f} fp32 "
+          f"(CUDA-event medians of {cfg['step_reps']}); "
+          f"its bf16 gradients on the card vs the port's CPU step on B=2 x {cfg['check_s']:g} "
+          f"s: rel-L2 {rel_all:.4g} all leaves, {rel_cell:.4g} the first SegLSTM's LSTM, "
+          f"worst leaf {worst:.4g} (tol {CELL_STEP_REL} on the first two); host wall of "
+          f"(d)-(e) {walls} s (batch / steps / CPU check / kernels against their plain "
+          f"versions); {smi}", flush=True)
+    return dict(kernels=out, ms16=ms16, ms32=ms32, rel_all=rel_all, rel_cell=rel_cell,
+                worst=worst, cudnn_ms=cudnn_ms)
 
 
 def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
@@ -5048,10 +5298,18 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"the zoo launched a render kernel: {zoo}")
     if device.type == "cuda":
         check(zoo["bf16_lstm_scan"] > 0, f"bf16_lstm_scan: no launch in the zoo: {zoo}")
+    # Separation training trains SkiM in bf16 (phase 15): the cell's training
+    # kernels, no render kernel.
+    check(not any(v for k, v in sep_training.items() if k in kernels.LAUNCHES)
+          and not sep_training["bf16_lstm_scan"],
+          f"separation training launched a render kernel or the inference scan: {sep_training}")
+    if device.type == "cuda":
+        check(all(sep_training[k] > 0 for k in ("bf16_lstm_scan_train", "bf16_lstm_scan_backward",
+                                                "bf16_running_sum")),
+              f"SkiM's bf16 train step (phase 15) did not run the cell's kernels: {sep_training}")
     for path, c in (("serving", serving), ("training", training),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
                     ("enhancement training", enh_training),
-                    ("separation training", sep_training),
                     ("the evaluation sidecars", eval_sidecars),
                     ("the sidecar models", sidecar_models), ("the variants", variants),
                     ("the optimizers and the remix fit", adapters),
@@ -5070,11 +5328,15 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"the main paths; the bank render has no kernel of its own; "
           f"generation takes the fused form alone); bf16_lstm_scan in SkiM's bf16 forward "
           f"(phase 22 (b)): {cell['launches']}, and in the zoo (phase 11, SkiM's bf16 "
-          f"serving) {zoo['bf16_lstm_scan']}; serving (phase 9) launches "
+          f"serving) {zoo['bf16_lstm_scan']}; the training forward, backward and running sum "
+          f"in SkiM's bf16 train step (phase 22 (e)): "
+          f"{ {k: v['launches'] for k, v in cell['train']['kernels'].items()} }, and in "
+          f"separation training (phase 15, SkiM's bf16 steps) "
+          f"{ {k: v for k, v in sep_training.items() if k.startswith('bf16')} }; serving (phase 9) launches "
           f"no kernel: {serving}, nor does training (phase 10): {training}, nor "
           f"the zoo (phase 11) a render kernel: {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
           f"enhancement zoo (phase 13): {enhancement}, nor enhancement training (phase 14): "
-          f"{enh_training}, nor separation training (phase 15): {sep_training}, nor the "
+          f"{enh_training}, nor separation training (phase 15) a render kernel, nor the "
           f"evaluation sidecars (phase 16): {eval_sidecars}, nor the sidecar models (phase "
           f"17): {sidecar_models}, nor the variants (phase 18): {variants}, nor the "
           f"optimizers and the remix fit (phase 19a-b): {adapters} (no zoo model, optimizer "
@@ -5115,7 +5377,22 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
                     >= cell["flops"] / BF16_PEAK_FLOPS else "operations",
         "library_ms": None,  # cuDNN's bf16 LSTM computes another function
         "cudnn_bf16_lstm_ms": cell["cudnn_ms"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": CELL_SOURCE,
+        "replaces": "none: the VJP of flax's bf16 OptimizedLSTMCell scan that XLA computes "
+                    "(jax.grad of make_train_step's bf16 loss), sonicsim_tpu/models/skim.py:52",
+        "launches": k["launches"],
+        "max_abs_err": k["err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bytes": k["bytes"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,  # cuDNN's bf16 LSTM autograd computes another function
+        "cudnn_bf16_lstm_autograd_ms": k["cudnn_ms"],
+    } for name, k in cell["train"]["kernels"].items()]}
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
 
@@ -5239,8 +5516,8 @@ def _forward_paths(device, cfg, prefix: str, models: dict, wanted=lambda name: T
 def _sep_train_paths(device, cfg, wanted=lambda name: True) -> dict:
     """Each separation config's train step (phase 15's seeded weights,
     optimizer, clip and loss) on B=``cfg["batch"]`` seeded-noise crops of
-    ``cfg["crop_s"]``, in fp32; the configs whose path is ``wanted`` alone
-    are built."""
+    ``cfg["crop_s"]``, in fp32 and (``-bf16``, where the config takes it)
+    bf16; the configs whose path is ``wanted`` alone are built."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(cfg["seed"])
@@ -5253,8 +5530,14 @@ def _sep_train_paths(device, cfg, wanted=lambda name: True) -> dict:
         if not wanted(path):
             continue
         weights = seeded_zoo(name, cfg["models"][name], cfg["seed"]).state_dict()
-        _, step = sep_train_fresh(stem, weights, cfg)(device)
+        fresh = sep_train_fresh(stem, weights, cfg)
+        _, step = fresh(device)
         paths[path] = lambda step=step: step(x, y)
+        try:
+            _, step16 = fresh(device, precision="bf16")
+        except NotImplementedError:
+            continue
+        paths[path + "-bf16"] = lambda step16=step16: step16(x, y)
     return paths
 
 

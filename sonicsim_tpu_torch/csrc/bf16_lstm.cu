@@ -1,14 +1,14 @@
-// flax's bfloat16 LSTM cell scanned over a sequence, hand-written for Hopper
-// (sm_90a). Plain C interface, loaded with ctypes by
-// sonicsim_tpu_torch/ops/lstm_cell.py, whose bf16_lstm_scan_ref is the same
-// function in plain PyTorch.
+// flax's bfloat16 LSTM cell scanned over a sequence, forward and backward,
+// hand-written for Hopper (sm_90a). Plain C interface, loaded with ctypes by
+// sonicsim_tpu_torch/ops/lstm_cell.py, whose *_ref functions are the same
+// functions in plain PyTorch.
 //
-// Replaces no TPU kernel. The JAX package leaves this scan to XLA: flax's
-// OptimizedLSTMCell under nn.RNN, where the carry, the kernels and the input
-// are all bfloat16 (the JAX SegLSTM makes its zero carry in the input's
-// dtype, sonicsim_tpu/models/skim.py:52-66). XLA then computes every op of
-// the cell in float32 and rounds its result to bfloat16. With rnd() that
-// rounding and z each gate's pre-activation (gates i, f, g, o):
+// Replaces no TPU kernel. The JAX package leaves this scan and its VJP to
+// XLA: flax's OptimizedLSTMCell under nn.RNN, where the carry, the kernels
+// and the input are all bfloat16 (the JAX SegLSTM makes its zero carry in
+// the input's dtype, sonicsim_tpu/models/skim.py:52-66). XLA then computes
+// every op of the cell in float32 and rounds its result to bfloat16. With
+// rnd() that rounding and z each gate's pre-activation (gates i, f, g, o):
 //
 //   dh   = rnd(rnd(h . W_hh^T) + b)          the dot in float32 over bf16 values
 //   z    = rnd(dh + xp)                      xp = rnd(x . W_ih^T), given
@@ -17,28 +17,45 @@
 //   c'   = rnd(rnd(f * c) + rnd(i * g))
 //   h'   = rnd(o * rnd(tanh(c')))
 //
-// No library call computes this function: cuDNN's bfloat16 RNN keeps its
-// gates and cell in float32 and rounds once.
+// and the VJP (bf16_lstm_scan_backward_ref says it op by op) walks the steps
+// back with the cotangents of h and c in registers. No library call computes
+// either: cuDNN's bfloat16 RNN keeps its gates and cell in float32.
 //
-// Design. One CTA per (tile of 16 rows, direction): the rows' recurrences
-// are independent, so the tiles run in parallel and each walks its K steps
-// alone (backward for a reversed direction). The step's product h . W_hh^T
-// is one m16 x n(4H) x k(H) tile on the tensor cores (mma.sync m16n8k16,
-// bf16 in, float32 out, each k tile's sum added in float32). Warp w owns
-// hidden units [16w, 16w + 16) of all four gates: 8 n-tiles whose B
-// fragments (its slice of W_hh, 128 registers at H = 128) stay in registers
-// for the whole scan, and whose
-// accumulators hold the i, f, g and o of the same (row, unit) in the same
-// thread, so the rounded elementwise chain runs in registers and c never
-// leaves them. h' goes to shared memory (double-buffered, one barrier per
-// step) as the next step's A operand.
+// Four kernels:
+//  * bf16_lstm_scan_kernel<H, false>: the forward;
+//  * bf16_lstm_scan_kernel<H, true>: the forward that also writes each
+//    step's rounded pre-activations z and cells c', which the backward reads
+//    (it recomputes the gates from z, with the same arithmetic, so exactly);
+//  * bf16_lstm_scan_backward_kernel<H>: the reverse scan, one product
+//    dh_prev = rnd(dz . W_hh) a step;
+//  * bf16_running_sum_kernel: the weight and bias gradients accumulated in
+//    bfloat16 over the steps in the JAX transpose loop's order.
 //
-// Bound. Each input read once and each output written once: at SkiM's
-// shapes (642 rows, 250 steps, H = 128, two directions) the projection's
-// 329 MB and the output's 82 MB, 0.123 ms at 3.35 TB/s; the dots' 42 GFLOP
-// are 0.043 ms at the dense bf16 peak. The 250-step dependence chain, one
-// barrier and one product per step, bounds it first: at one CTA per SM only
-// 82 of 132 SMs hold a tile.
+// Design of the scans. One CTA per (tile of 16 rows, direction), H / 8
+// warps: the rows' recurrences are independent, so the tiles run in
+// parallel and each walks its K steps alone. A step's product is one
+// m16 x n x k tile on the tensor cores (mma.sync m16n8k16, bf16 in, float32
+// out); each k tile's product is summed from zero on the tensor cores and
+// the k tiles' sums added in float32 here, since the tensor cores' own
+// float32 accumulation rounds less exactly than an add and a rounded gate
+// that flips carries through the recurrence. Warp w owns hidden units
+// [8w, 8w + 8) of all four gates, so the i, f, g and o of one (row, unit)
+// meet in one thread, which keeps c (and in the backward dc) in registers;
+// its slice of W_hh (64 registers at H = 128) stays in registers for the
+// whole scan. The step's new h (dz in the backward) goes to shared memory,
+// double-buffered, as the next step's A operand: one barrier a step.
+//
+// What bounds a step at SkiM's shapes (a 250-step dependence chain; the
+// bytes are 0.12 ms, the products 0.04 ms) is the rounded gate chain: three
+// expf, three IEEE divisions and two tanhf for each (row, unit) and step.
+// Each gate takes a bfloat16 input, so the CTA first tabulates sigma and
+// tanh over the bfloat16 inputs whose magnitude lies in [2^-16, 2^8) with
+// those same functions (24 KB of shared memory); a step then reads five
+// entries per (row, unit) and computes directly only outside that window,
+// bit for bit the same values. A step's inputs (the forward's projection
+// tile, the backward's z, c and dy tiles) come through a ring of four
+// cp.async stages in shared memory, three steps ahead, off the chain; its
+// outputs (y, dz) leave from shared memory in 16-byte stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +63,11 @@
 
 namespace {
 
-constexpr int kRows = 16;  // rows of a tile: the m of mma.m16n8k16
+constexpr int kRows = 16;     // rows of a tile: the m of mma.m16n8k16
+constexpr int kStages = 4;    // the forward's projection ring
+constexpr int kExpLo = 111;   // the gate tables: bf16 exponents [111, 135),
+constexpr int kExps = 24;     // |z| in [2^-16, 2^8)
+constexpr int kTable = 2 * kExps * 128;  // sign x exponent x mantissa
 
 __device__ __forceinline__ float rnd(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -55,6 +76,38 @@ __device__ __forceinline__ float rnd(float x) {
 // flax's sigmoid as XLA expands it in bfloat16: each op rounded.
 __device__ __forceinline__ float sigmoid_rounded(float z) {
   return rnd(1.0f / rnd(rnd(expf(-z)) + 1.0f));
+}
+
+__device__ __forceinline__ float tanh_rounded(float z) { return rnd(tanhf(z)); }
+
+// The bfloat16 bits of a bfloat16-exact float, and back.
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v) >> 16; }
+__device__ __forceinline__ float from_bits(uint32_t b) { return __uint_as_float(b << 16); }
+
+// The bfloat16-exact input at table entry i.
+__device__ __forceinline__ float table_input(int i) {
+  const uint32_t sign = uint32_t(i) / (kExps * 128);
+  const uint32_t exp = (uint32_t(i) >> 7) % kExps + kExpLo;
+  return from_bits((sign << 15) | (exp << 7) | (uint32_t(i) & 0x7fu));
+}
+
+// A table's entry for a bfloat16-exact z, and whether z lies outside the
+// window (then the entry read is entry 0 and the caller computes the
+// function itself). Branch-free, so the loads of a step's lookups can all be
+// in flight at once.
+__device__ __forceinline__ float lookup(const uint16_t* table, float z, bool& outside) {
+  const uint32_t b = bits(z);
+  const uint32_t e = ((b >> 7) & 0xffu) - kExpLo;
+  outside = e >= uint32_t(kExps);
+  return from_bits(table[outside ? 0u : ((((b >> 15) * kExps + e) << 7) | (b & 0x7fu))]);
+}
+
+__device__ void fill_tables(uint16_t* sig, uint16_t* tnh, int threads) {
+  for (int i = threadIdx.x; i < kTable; i += threads) {
+    const float z = table_input(i);
+    sig[i] = uint16_t(bits(sigmoid_rounded(z)));
+    tnh[i] = uint16_t(bits(tanh_rounded(z)));
+  }
 }
 
 __device__ __forceinline__ float2 unpack2(uint32_t v) {
@@ -80,200 +133,669 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// A fragment of rows [0, 16), columns [k0, k0 + 16) of a row-major tile
+// with row stride ld (elements).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* tile, int ld,
+                                       int k0, int gq, int tq) {
+  const int k = k0 + 2 * tq;
+  a[0] = *reinterpret_cast<const uint32_t*>(tile + gq * ld + k);
+  a[1] = *reinterpret_cast<const uint32_t*>(tile + (gq + 8) * ld + k);
+  a[2] = *reinterpret_cast<const uint32_t*>(tile + gq * ld + k + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(tile + (gq + 8) * ld + k + 8);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // xp (N, K, D*4H), y (N, K, D*H), w_hh (D, 4H, H), bias (D, 4H),
-// h0/c0/hn/cn (D, N, H): bfloat16 bits, contiguous. Bit d of reverse_mask
-// walks direction d from step K-1 down to 0.
+// h0/c0/hn/cn (D, N, H), with TRAIN z_out (N, K, D*4H) and c_out (N, K, D*H):
+// bfloat16 bits, contiguous. Bit d of reverse_mask walks direction d from
+// step K-1 down to 0.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, q = lane % 4): A (16 x 16,
 // row-major) a0 = (g, 2q..2q+1), a1 = (g+8, 2q..), a2 = (g, 2q+8..),
 // a3 = (g+8, 2q+8..); B (16 x 8) b0 = (k 2q..2q+1, n g), b1 = (k 2q+8.., n g);
 // the accumulator d0, d1 = (g, 2q..2q+1), d2, d3 = (g+8, 2q..2q+1).
-template <int H>
-__global__ void __launch_bounds__(2 * H, 1)
+template <int H, bool TRAIN>
+__global__ void __launch_bounds__(4 * H, 1)
 bf16_lstm_scan_kernel(const uint16_t* __restrict__ xp,
                       const uint16_t* __restrict__ w_hh,
                       const uint16_t* __restrict__ bias,
                       const uint16_t* __restrict__ h0,
                       const uint16_t* __restrict__ c0,
                       uint16_t* __restrict__ y, uint16_t* __restrict__ hn,
-                      uint16_t* __restrict__ cn, int n, int k_len, int dirs,
+                      uint16_t* __restrict__ cn, uint16_t* __restrict__ z_out,
+                      uint16_t* __restrict__ c_out, int n, int k_len, int dirs,
                       unsigned reverse_mask) {
-  constexpr int KT = H / 16;  // k tiles of the product; also the warps
+  constexpr int KT = H / 16;      // k tiles of the product
   constexpr int G = 4 * H;
-  constexpr int LD = H + 8;  // row stride in shared memory: conflict-free
-  __shared__ __align__(16) uint16_t sh[2][kRows][LD];
-  __shared__ float sb[G];
+  constexpr int THREADS = 4 * H;  // H / 8 warps
+  constexpr int LD = H + 8;       // h row stride in shared memory: conflict-free
+  constexpr int XLD = G + 8;      // projection row stride in the ring
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem);  // [kStages][kRows][XLD]
+  uint16_t* sh = ring + kStages * kRows * XLD;         // [2][kRows][LD]
+  uint16_t* sig = sh + 2 * kRows * LD;                 // [kTable]
+  uint16_t* tnh = sig + kTable;                        // [kTable]
+  float* sb = reinterpret_cast<float*>(tnh + kTable);  // [G]
 
   const int d = blockIdx.y;
   const int r0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int u0 = warp * 16;
+  const int u = warp * 8 + 2 * tq;  // the thread's units u, u + 1
   const bool rev = (reverse_mask >> d) & 1u;
   const int64_t xs = int64_t(dirs) * G, ys = int64_t(dirs) * H;
 
-  // This warp's B fragments: n-tile t is gate t / 2, units u0 + 8 (t % 2) +
-  // [0, 8); B[k][col] = W_hh[col][k], so each pair is adjacent in W_hh.
-  uint32_t bw[8][KT][2];
-  const uint16_t* wd = w_hh + int64_t(d) * G * H;
+  // A step's projection tile is 16 rows x G / 8 16-byte chunks, two a
+  // thread: rows xrow and xrow + 8, chunk xc8. Their addresses, but for the
+  // step's offset, are fixed for the scan.
+  const int xrow = threadIdx.x / (G / 8), xc8 = threadIdx.x % (G / 8);
+  const uint16_t* xsrc[2];
+  int xbytes[2];
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int col = (t >> 1) * H + u0 + 8 * (t & 1) + gq;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      bw[t][kt][0] = load2(wd + int64_t(col) * H + kt * 16 + 2 * tq);
-      bw[t][kt][1] = load2(wd + int64_t(col) * H + kt * 16 + 8 + 2 * tq);
-    }
+  for (int j = 0; j < 2; ++j) {
+    const int row = r0 + xrow + 8 * j;
+    xsrc[j] = xp + int64_t(min(row, n - 1)) * k_len * xs + int64_t(d) * G + xc8 * 8;
+    xbytes[j] = row < n ? 16 : 0;  // zeros for rows past n
   }
-  for (int i = threadIdx.x; i < G; i += blockDim.x) {
-    sb[i] = __bfloat162float(
-        __ushort_as_bfloat16(bias[int64_t(d) * G + i]));
+  // Step `step`'s projection tile into ring slot step % kStages.
+  auto issue = [&](int step) {
+    const int64_t at = int64_t(rev ? k_len - 1 - step : step) * xs;
+    uint16_t* slot = ring + (step % kStages) * kRows * XLD + xrow * XLD + xc8 * 8;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) cp_async16(slot + 8 * j * XLD, xsrc[j] + at, xbytes[j]);
+  };
+  // A step's h is 16 rows x H / 8 chunks: one for each of the first 2H
+  // threads, written to y from shared memory.
+  const int yrow = threadIdx.x / (H / 8), yc8 = threadIdx.x % (H / 8);
+  const bool ystore = threadIdx.x < 2 * H && r0 + yrow < n;
+  uint16_t* ydst = y + int64_t(r0 + yrow) * k_len * ys + int64_t(d) * H + yc8 * 8;
+  auto store_h = [&](const uint16_t* tile, int t) {
+    if (ystore) {
+      *reinterpret_cast<uint4*>(ydst + int64_t(t) * ys) =
+          *reinterpret_cast<const uint4*>(tile + yrow * LD + yc8 * 8);
+    }
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < k_len) issue(s);
+    cp_async_commit();
   }
 
-  // The thread's (row, unit) pairs: rows gq + 8 hr, units u0 + 8 s + 2 tq
-  // + e. Its c stays here; h goes to shared memory.
-  float c[2][2][2];
-  uint32_t hlast[2][2];
+  // This warp's B fragments: n-tile q is gate q, units 8 warp + [0, 8);
+  // B[k][col] = W_hh[col][k], so each pair is adjacent in W_hh.
+  uint32_t bw[4][KT][2];
+  const uint16_t* wd = w_hh + int64_t(d) * G * H;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int col = q * H + warp * 8 + gq;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      bw[q][kt][0] = load2(wd + int64_t(col) * H + kt * 16 + 2 * tq);
+      bw[q][kt][1] = load2(wd + int64_t(col) * H + kt * 16 + 8 + 2 * tq);
+    }
+  }
+  fill_tables(sig, tnh, THREADS);
+  for (int i = threadIdx.x; i < G; i += THREADS) {
+    sb[i] = __bfloat162float(__ushort_as_bfloat16(bias[int64_t(d) * G + i]));
+  }
+
+  // The thread's (row, unit) pairs: rows gq + 8 hr, units u + e. Its c
+  // stays here; h goes to shared memory.
+  float c[2][2];
+  uint32_t hlast[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r0 + gq + 8 * hr;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int u = u0 + 8 * s + 2 * tq;
-      uint32_t hv = 0, cv = 0;
-      if (row < n) {
-        const int64_t at = (int64_t(d) * n + row) * H + u;
-        hv = load2(h0 + at);
-        cv = load2(c0 + at);
-      }
-      const float2 cf = unpack2(cv);
-      c[hr][s][0] = cf.x;
-      c[hr][s][1] = cf.y;
-      hlast[hr][s] = hv;
-      *reinterpret_cast<uint32_t*>(&sh[0][gq + 8 * hr][u]) = hv;
+    uint32_t hv = 0, cv = 0;
+    if (row < n) {
+      const int64_t at = (int64_t(d) * n + row) * H + u;
+      hv = load2(h0 + at);
+      cv = load2(c0 + at);
     }
+    const float2 cf = unpack2(cv);
+    c[hr][0] = cf.x;
+    c[hr][1] = cf.y;
+    hlast[hr] = hv;
+    *reinterpret_cast<uint32_t*>(sh + (gq + 8 * hr) * LD + u) = hv;
   }
+  cp_async_wait<kStages - 2>();  // step 0's tile
   __syncthreads();
 
   int buf = 0;
   for (int step = 0; step < k_len; ++step) {
     const int t = rev ? k_len - 1 - step : step;
-    // The step's projections, issued before the product to hide their
-    // latency: [hr][s][gate], two units a word.
-    uint32_t xv[2][2][4];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = r0 + gq + 8 * hr;
-      const uint16_t* xr = xp + (int64_t(row) * k_len + t) * xs + int64_t(d) * G;
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          xv[hr][s][q] = row < n ? load2(xr + q * H + u0 + 8 * s + 2 * tq) : 0u;
-        }
-      }
-    }
+    // Three steps ahead; the slot was last read in step - 1, before its
+    // barrier.
+    if (step + kStages - 1 < k_len) issue(step + kStages - 1);
+    cp_async_commit();
+    const uint16_t* hb = sh + buf * kRows * LD;
+    if (step > 0) store_h(hb, rev ? t + 1 : t - 1);  // the previous step's h
 
-    float acc[8][4];
+    float acc[4][4];
 #pragma unroll
-    for (int t8 = 0; t8 < 8; ++t8) {
-      acc[t8][0] = acc[t8][1] = acc[t8][2] = acc[t8][3] = 0.0f;
-    }
+    for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
       uint32_t a[4];
-      const int k = kt * 16 + 2 * tq;
-      a[0] = *reinterpret_cast<const uint32_t*>(&sh[buf][gq][k]);
-      a[1] = *reinterpret_cast<const uint32_t*>(&sh[buf][gq + 8][k]);
-      a[2] = *reinterpret_cast<const uint32_t*>(&sh[buf][gq][k + 8]);
-      a[3] = *reinterpret_cast<const uint32_t*>(&sh[buf][gq + 8][k + 8]);
-      // Each k tile's products summed on the tensor cores from zero, the
-      // tiles' sums added in float32 here: the tensor cores' own float32
-      // accumulation rounds less exactly than an add, and a rounded gate
-      // that flips carries through the recurrence.
+      load_a(a, hb, LD, kt * 16, gq, tq);
 #pragma unroll
-      for (int t8 = 0; t8 < 8; ++t8) {
+      for (int q = 0; q < 4; ++q) {
         float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16(part, a, bw[t8][kt][0], bw[t8][kt][1]);
+        mma_bf16(part, a, bw[q][kt][0], bw[q][kt][1]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[t8][j] += part[j];
+        for (int j = 0; j < 4; ++j) acc[q][j] += part[j];
       }
     }
 
+    const uint16_t* slot = ring + (step % kStages) * kRows * XLD;
+    uint16_t* hnext = sh + (buf ^ 1) * kRows * LD;
+    // One row at a time (registers): its cells' pre-activations [e][gate],
+    // then every gate's lookup at once, the rare input outside the tables'
+    // window computed after.
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = r0 + gq + 8 * hr;
+      const int lr = gq + 8 * hr, row = r0 + lr;
+      float z[2][4], gv[2][4];
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int u = u0 + 8 * s + 2 * tq;
-        float hnew[2];
+      for (int q = 0; q < 4; ++q) {
+        const float2 xf =
+            unpack2(*reinterpret_cast<const uint32_t*>(slot + lr * XLD + q * H + u));
+        z[0][q] = rnd(rnd(rnd(acc[q][2 * hr]) + sb[q * H + u]) + xf.x);
+        z[1][q] = rnd(rnd(rnd(acc[q][2 * hr + 1]) + sb[q * H + u + 1]) + xf.y);
+      }
+      bool outside = false;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float z[4];
+      for (int e = 0; e < 2; ++e) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float2 xf = unpack2(xv[hr][s][q]);
-            const float dh = rnd(rnd(acc[2 * q + s][2 * hr + e]) + sb[q * H + u + e]);
-            z[q] = rnd(dh + (e ? xf.y : xf.x));
-          }
-          const float ig = sigmoid_rounded(z[0]);
-          const float fg = sigmoid_rounded(z[1]);
-          const float gg = rnd(tanhf(z[2]));
-          const float og = sigmoid_rounded(z[3]);
-          const float cnew = rnd(rnd(fg * c[hr][s][e]) + rnd(ig * gg));
-          c[hr][s][e] = cnew;
-          hnew[e] = rnd(og * rnd(tanhf(cnew)));
-        }
-        const uint32_t hv = pack2(hnew[0], hnew[1]);
-        hlast[hr][s] = hv;
-        *reinterpret_cast<uint32_t*>(&sh[buf ^ 1][gq + 8 * hr][u]) = hv;
-        if (row < n) {
-          *reinterpret_cast<uint32_t*>(y + (int64_t(row) * k_len + t) * ys +
-                                       int64_t(d) * H + u) = hv;
+        for (int q = 0; q < 4; ++q) {
+          bool o;
+          gv[e][q] = lookup(q == 2 ? tnh : sig, z[e][q], o);
+          outside |= o;
         }
       }
+      if (outside) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            bool o;
+            lookup(sig, z[e][q], o);
+            if (o) gv[e][q] = q == 2 ? tanh_rounded(z[e][q]) : sigmoid_rounded(z[e][q]);
+          }
+        }
+      }
+      float cnew[2], tc[2];
+      outside = false;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        cnew[e] = rnd(rnd(gv[e][1] * c[hr][e]) + rnd(gv[e][0] * gv[e][2]));
+        bool o;
+        tc[e] = lookup(tnh, cnew[e], o);
+        outside |= o;
+      }
+      if (outside) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bool o;
+          lookup(tnh, cnew[e], o);
+          if (o) tc[e] = tanh_rounded(cnew[e]);
+        }
+      }
+      c[hr][0] = cnew[0];
+      c[hr][1] = cnew[1];
+      const uint32_t hv = pack2(rnd(gv[0][3] * tc[0]), rnd(gv[1][3] * tc[1]));
+      hlast[hr] = hv;
+      *reinterpret_cast<uint32_t*>(hnext + lr * LD + u) = hv;
+      if (TRAIN && row < n) {
+        const int64_t zr = (int64_t(row) * k_len + t) * xs + int64_t(d) * G + u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          *reinterpret_cast<uint32_t*>(z_out + zr + q * H) = pack2(z[0][q], z[1][q]);
+        }
+        *reinterpret_cast<uint32_t*>(c_out + (int64_t(row) * k_len + t) * ys +
+                                     int64_t(d) * H + u) = pack2(cnew[0], cnew[1]);
+      }
     }
+    cp_async_wait<kStages - 2>();  // the next step's tile
     __syncthreads();
     buf ^= 1;
   }
-
+  store_h(sh + buf * kRows * LD, rev ? 0 : k_len - 1);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r0 + gq + 8 * hr;
     if (row >= n) continue;
+    const int64_t at = (int64_t(d) * n + row) * H + u;
+    *reinterpret_cast<uint32_t*>(hn + at) = hlast[hr];
+    *reinterpret_cast<uint32_t*>(cn + at) = pack2(c[hr][0], c[hr][1]);
+  }
+}
+
+// The scan's VJP. dy (N, K, D*H), dhn/dcn/c0/dh0/dc0 (D, N, H), the training
+// forward's z (N, K, D*4H) and c (N, K, D*H), w_hh (D, 4H, H), dz (N, K,
+// D*4H): bfloat16 bits, contiguous. Each (tile, direction) walks its steps
+// from the last back to the first; a step reads that step's z, c and dy and
+// the previous step's c (c0 at the first), takes dh from the product of the
+// step after it, rnd(dz_{t+1} . W_hh) on the tensor cores, and writes dz.
+template <int H>
+__global__ void __launch_bounds__(4 * H, 1)
+bf16_lstm_scan_backward_kernel(const uint16_t* __restrict__ dy,
+                               const uint16_t* __restrict__ dhn,
+                               const uint16_t* __restrict__ dcn,
+                               const uint16_t* __restrict__ z,
+                               const uint16_t* __restrict__ c,
+                               const uint16_t* __restrict__ w_hh,
+                               const uint16_t* __restrict__ c0,
+                               uint16_t* __restrict__ dz, uint16_t* __restrict__ dh0,
+                               uint16_t* __restrict__ dc0, int n, int k_len, int dirs,
+                               unsigned reverse_mask) {
+  constexpr int G = 4 * H;
+  constexpr int KT = G / 16;      // k tiles of dz . W_hh
+  constexpr int THREADS = 4 * H;  // H / 8 warps
+  constexpr int ZLD = G + 8;      // z and dz row stride in shared memory
+  constexpr int CLD = H + 8;      // c and dy row stride in shared memory
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* zring = reinterpret_cast<uint16_t*>(smem);  // [kStages][kRows][ZLD]
+  uint16_t* cring = zring + kStages * kRows * ZLD;      // [kStages][kRows][CLD]
+  uint16_t* gring = cring + kStages * kRows * CLD;      // [kStages][kRows][CLD], dy
+  uint16_t* sz = gring + kStages * kRows * CLD;         // [2][kRows][ZLD]
+  uint16_t* sig = sz + 2 * kRows * ZLD;                 // [kTable]
+  uint16_t* tnh = sig + kTable;                         // [kTable]
+
+  const int d = blockIdx.y;
+  const int r0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int u = warp * 8 + 2 * tq;
+  const bool rev = (reverse_mask >> d) & 1u;
+  const int64_t zs = int64_t(dirs) * G, ys = int64_t(dirs) * H;
+
+  // B[k][col] = W_hh[k][col]: k a gate row, col a unit 8 warp + gq; the
+  // pair (k, k + 1) is H apart in W_hh.
+  uint32_t bw[KT][2];
+  const uint16_t* wd = w_hh + int64_t(d) * G * H + warp * 8 + gq;
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int64_t at = (int64_t(d) * n + row) * H + u0 + 8 * s + 2 * tq;
-      *reinterpret_cast<uint32_t*>(hn + at) = hlast[hr][s];
-      *reinterpret_cast<uint32_t*>(cn + at) = pack2(c[hr][s][0], c[hr][s][1]);
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k = kt * 16 + 8 * half + 2 * tq;
+      bw[kt][half] = uint32_t(wd[int64_t(k) * H]) | (uint32_t(wd[int64_t(k + 1) * H]) << 16);
     }
   }
+  fill_tables(sig, tnh, THREADS);
+  // A step's z and dz tiles are 16 rows x G / 8 16-byte chunks, two a
+  // thread: rows zrow and zrow + 8, chunk zc8; its c and dy tiles 16 rows x
+  // H / 8 chunks, one for each of the first 2H threads. Their addresses, but
+  // for the step's offset, are fixed for the scan.
+  const int zrow = threadIdx.x / (G / 8), zc8 = threadIdx.x % (G / 8);
+  const int crow = threadIdx.x / (H / 8), cc8 = threadIdx.x % (H / 8);
+  const bool cthread = threadIdx.x < 2 * H;
+  uint16_t* zdst[2];
+  const uint16_t* zsrc[2];
+  bool zstore[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = r0 + zrow + 8 * j;
+    zstore[j] = row < n;
+    zdst[j] = dz + int64_t(row) * k_len * zs + int64_t(d) * G + zc8 * 8;
+    zsrc[j] = z + int64_t(min(row, n - 1)) * k_len * zs + int64_t(d) * G + zc8 * 8;
+  }
+  const int64_t cbase = int64_t(min(r0 + crow, n - 1)) * k_len * ys + int64_t(d) * H + cc8 * 8;
+  const int cbytes = r0 + crow < n ? 16 : 0;
+  // Walk position p's z, c and dy tiles (step K - 1 - p) into ring slot p %
+  // kStages, zeros for rows past n.
+  auto issue = [&](int p) {
+    const int s = k_len - 1 - p, t = rev ? k_len - 1 - s : s;
+    const int slot = p % kStages;
+    uint16_t* zslot = zring + slot * kRows * ZLD + zrow * ZLD + zc8 * 8;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      cp_async16(zslot + 8 * j * ZLD, zsrc[j] + int64_t(t) * zs, zstore[j] ? 16 : 0);
+    }
+    if (cthread) {
+      const int at = slot * kRows * CLD + crow * CLD + cc8 * 8;
+      cp_async16(cring + at, c + cbase + int64_t(t) * ys, cbytes);
+      cp_async16(gring + at, dy + cbase + int64_t(t) * ys, cbytes);
+    }
+  };
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < k_len) issue(p);
+    cp_async_commit();
+  }
+
+  float dh[2][2], dc[2][2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + gq + 8 * hr;
+    uint32_t hv = 0, cv = 0;
+    if (row < n) {
+      const int64_t at = (int64_t(d) * n + row) * H + u;
+      hv = load2(dhn + at);
+      cv = load2(dcn + at);
+    }
+    const float2 hf = unpack2(hv), cf = unpack2(cv);
+    dh[hr][0] = hf.x;
+    dh[hr][1] = hf.y;
+    dc[hr][0] = cf.x;
+    dc[hr][1] = cf.y;
+  }
+  cp_async_wait<kStages - 2>();  // the first step's tiles
+  __syncthreads();
+
+  // rnd(dz . W_hh) for the thread's cells, dz the tile in `tile`.
+  auto product = [&](const uint16_t* tile, float (&out)[2][2]) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      uint32_t a[4];
+      load_a(a, tile, ZLD, kt * 16, gq, tq);
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(part, a, bw[kt][0], bw[kt][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += part[j];
+    }
+    out[0][0] = rnd(acc[0]);
+    out[0][1] = rnd(acc[1]);
+    out[1][0] = rnd(acc[2]);
+    out[1][1] = rnd(acc[3]);
+  };
+
+  int buf = 0;
+  for (int step = k_len - 1; step >= 0; --step) {
+    const int t = rev ? k_len - 1 - step : step;
+    const int tp = rev ? t + 1 : t - 1;  // the step before, in the walk
+    const int p = k_len - 1 - step;
+    // Three positions ahead; the slot was last read at position p - 1,
+    // before its barrier.
+    if (p + kStages - 1 < k_len) issue(p + kStages - 1);
+    cp_async_commit();
+    uint32_t pv[2];  // the cells' c before this step, from device memory
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r0 + gq + 8 * hr;
+      pv[hr] = row >= n ? 0u
+               : step > 0 ? load2(c + (int64_t(row) * k_len + tp) * ys + int64_t(d) * H + u)
+                          : load2(c0 + (int64_t(d) * n + row) * H + u);
+    }
+    if (step < k_len - 1) product(sz + buf * kRows * ZLD, dh);
+    const uint16_t* zslot = zring + (p % kStages) * kRows * ZLD;
+    const uint16_t* cslot = cring + (p % kStages) * kRows * CLD;
+    const uint16_t* gslot = gring + (p % kStages) * kRows * CLD;
+    uint16_t* out = sz + (buf ^ 1) * kRows * ZLD;
+    // One row at a time (registers): its cells' gates and tanh(c') [e][i,
+    // f, g, o, tanh c'], every lookup at once, the rare input outside the
+    // tables' window computed after.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int lr = gq + 8 * hr;
+      float in[2][5], gv[2][5];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 v = unpack2(*reinterpret_cast<const uint32_t*>(zslot + lr * ZLD + q * H + u));
+        in[0][q] = v.x;
+        in[1][q] = v.y;
+      }
+      const float2 cc = unpack2(*reinterpret_cast<const uint32_t*>(cslot + lr * CLD + u));
+      in[0][4] = cc.x;
+      in[1][4] = cc.y;
+      bool outside = false;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int q = 0; q < 5; ++q) {
+          bool o;
+          gv[e][q] = lookup(q == 2 || q == 4 ? tnh : sig, in[e][q], o);
+          outside |= o;
+        }
+      }
+      if (outside) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int q = 0; q < 5; ++q) {
+            bool o;
+            lookup(sig, in[e][q], o);
+            if (o) {
+              gv[e][q] = q == 2 || q == 4 ? tanh_rounded(in[e][q]) : sigmoid_rounded(in[e][q]);
+            }
+          }
+        }
+      }
+      const float2 cp = unpack2(pv[hr]);
+      const float2 gy = unpack2(*reinterpret_cast<const uint32_t*>(gslot + lr * CLD + u));
+      const float cprev[2] = {cp.x, cp.y}, dyv[2] = {gy.x, gy.y};
+      float dzq[4][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ig = gv[e][0], fg = gv[e][1], gg = gv[e][2], og = gv[e][3], tc = gv[e][4];
+        const float cth = rnd(dh[hr][e] + dyv[e]);
+        const float uu = rnd(rnd(og * cth) * rnd(1.0f - tc));
+        const float dct = rnd(rnd(dc[hr][e] + uu) + rnd(uu * tc));
+        const float v = rnd(rnd(ig * dct) * rnd(1.0f - gg));
+        dzq[0][e] = rnd(rnd(dct * gg) * rnd(ig * rnd(1.0f - ig)));
+        dzq[1][e] = rnd(rnd(dct * cprev[e]) * rnd(fg * rnd(1.0f - fg)));
+        dzq[2][e] = rnd(v + rnd(v * gg));
+        dzq[3][e] = rnd(rnd(cth * tc) * rnd(og * rnd(1.0f - og)));
+        dc[hr][e] = rnd(fg * dct);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        *reinterpret_cast<uint32_t*>(out + lr * ZLD + q * H + u) = pack2(dzq[q][0], dzq[q][1]);
+      }
+    }
+    cp_async_wait<kStages - 2>();  // the next step's tiles
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // dz, 16-byte stores from shared memory
+      if (zstore[j]) {
+        *reinterpret_cast<uint4*>(zdst[j] + int64_t(t) * zs) =
+            *reinterpret_cast<const uint4*>(out + (zrow + 8 * j) * ZLD + zc8 * 8);
+      }
+    }
+    buf ^= 1;
+  }
+  product(sz + buf * kRows * ZLD, dh);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + gq + 8 * hr;
+    if (row >= n) continue;
+    const int64_t at = (int64_t(d) * n + row) * H + u;
+    *reinterpret_cast<uint32_t*>(dh0 + at) = pack2(dh[hr][0], dh[hr][1]);
+    *reinterpret_cast<uint32_t*>(dc0 + at) = pack2(dc[hr][0], dc[hr][1]);
+  }
+}
+
+constexpr int kSumThreads = 256;
+constexpr int kSumLanes = kSumThreads / 32;  // threads a column, in the bias blocks
+constexpr int kSumChunk = 8;  // steps a bias block sums over the rows
+
+// The weight and bias gradients as the JAX scan's transpose loop sums
+// them, walking each direction's steps from its last to its first (walk
+// position o = 0, 1, ... is step K - 1 - o):
+//  * blocks [0, weight_blocks): one element of dw (D, 4H, M) a thread,
+//    dw = rnd(dw + rnd(P_t)) over products (D, K, 4H, M) float32, eight
+//    steps' loads in flight;
+//  * the rest: 32 columns of db (D, 4H) and `chunk` walk positions a
+//    block. s_t, the step's dz (N, K, D*4H) summed over the rows as XLA
+//    sums a bfloat16 reduce (windows of 32 rows summed in order, each add
+//    rounded; more than 32 windows summed the same way), goes to `partial`
+//    (groups, K, 32): 8 threads a column take the windows in turn, one
+//    thread a step sums a step's windows. The block that finishes its
+//    column group last (`counters`, zero on entry) adds the steps up in
+//    order, db = rnd(db + s_t). Dynamic shared memory: chunk x windows x 32
+//    floats.
+__global__ void __launch_bounds__(kSumThreads)
+bf16_running_sum_kernel(const float* __restrict__ products, const uint16_t* __restrict__ dz,
+                        uint16_t* __restrict__ dw, uint16_t* __restrict__ db,
+                        float* __restrict__ partial, int* __restrict__ counters, int n,
+                        int k_len, int dirs, int gates, int64_t m, unsigned reverse_mask,
+                        int weight_blocks, int chunk) {
+  extern __shared__ float win[];
+  if (int(blockIdx.x) < weight_blocks) {
+    const int64_t per_dir = int64_t(gates) * m;
+    const int64_t e = int64_t(blockIdx.x) * kSumThreads + threadIdx.x;
+    if (e >= per_dir * dirs) return;
+    const int d = int(e / per_dir);
+    const int64_t j = e % per_dir;
+    const bool rev = (reverse_mask >> d) & 1u;
+    const float* p = products + int64_t(d) * k_len * per_dir + j;
+    float acc = 0.0f;
+    for (int s0 = k_len - 1; s0 >= 0; s0 -= 8) {
+      float v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int s = max(s0 - q, 0), t = rev ? k_len - 1 - s : s;
+        v[q] = __ldg(p + int64_t(t) * per_dir);
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (s0 - q >= 0) acc = rnd(acc + rnd(v[q]));
+      }
+    }
+    dw[e] = __bfloat16_as_ushort(__float2bfloat16_rn(acc));
+    return;
+  }
+  const int chunks = (k_len + chunk - 1) / chunk, per_dir = gates / 32;
+  const int b = blockIdx.x - weight_blocks, group = b / chunks, o0 = (b % chunks) * chunk;
+  const int col = threadIdx.x & 31, lane = threadIdx.x >> 5;
+  const int d = group / per_dir, j = (group % per_dir) * 32 + col;
+  const bool rev = (reverse_mask >> d) & 1u;
+  const int windows = (n + 31) / 32, lo = (windows * 32 - n) / 2;
+  const int64_t zs = int64_t(dirs) * gates;
+  const uint16_t* src = dz + int64_t(d) * gates + j;
+  float* part = partial + int64_t(group) * k_len * 32 + col;
+  const int steps = min(chunk, k_len - o0);
+  for (int p = lane; p < steps * windows; p += kSumLanes) {
+    const int i = p / windows, w = p % windows, s = k_len - 1 - (o0 + i);
+    const int t = rev ? k_len - 1 - s : s;
+    // The window's 32 rows loaded at once (the padding's rows read as any
+    // row and not added: an add of a zero changes nothing), then added in
+    // order.
+    const int base = 32 * w - lo;
+    uint16_t v[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      v[q] = __ldg(src + (int64_t(min(max(base + q, 0), n - 1)) * k_len + t) * zs);
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      if (base + q >= 0 && base + q < n) {
+        sum = rnd(sum + __bfloat162float(__ushort_as_bfloat16(v[q])));
+      }
+    }
+    win[p * 32 + col] = sum;
+  }
+  __syncthreads();
+  for (int i = lane; i < steps; i += kSumLanes) {  // one step's windows a thread
+    float* v = win + i * windows * 32 + col;
+    int count = windows;
+    while (count > 32) {  // a further level of windows, in place
+      const int next = (count + 31) / 32, l2 = (next * 32 - count) / 2;
+      for (int q = 0; q < next; ++q) {
+        const int a = max(0, 32 * q - l2), e = min(count, 32 * q + 32 - l2);
+        float sum = 0.0f;
+        for (int r = a; r < e; ++r) sum = rnd(sum + v[r * 32]);
+        v[q * 32] = sum;
+      }
+      count = next;
+    }
+    float sum = 0.0f;
+    for (int r = 0; r < count; ++r) sum = rnd(sum + v[r * 32]);
+    part[int64_t(o0 + i) * 32] = sum;
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ bool last;
+  if (threadIdx.x == 0) last = atomicAdd(counters + group, 1) == chunks - 1;
+  __syncthreads();
+  if (!last || lane != 0) return;
+  __threadfence();
+  float acc = 0.0f;
+  for (int o = 0; o < k_len; ++o) acc = rnd(acc + __ldcg(part + int64_t(o) * 32));
+  db[int64_t(d) * gates + j] = __bfloat16_as_ushort(__float2bfloat16_rn(acc));
+}
+
+template <int H>
+constexpr int scan_smem() {
+  return (kStages * kRows * (4 * H + 8) + 2 * kRows * (H + 8) + 2 * kTable) * 2 + 4 * H * 4;
+}
+
+template <int H>
+constexpr int backward_smem() {
+  return (kStages * kRows * (4 * H + 8 + 2 * (H + 8)) + 2 * kRows * (4 * H + 8) + 2 * kTable) * 2;
+}
+
+// The dynamic shared memory a kernel may take above 48 KB, set once per
+// device (`done` flags the devices already set).
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 template <int H>
 int launch(const uint16_t* xp, const uint16_t* w_hh, const uint16_t* bias,
            const uint16_t* h0, const uint16_t* c0, uint16_t* y, uint16_t* hn,
-           uint16_t* cn, int64_t n, int64_t k_len, int64_t dirs,
-           unsigned reverse_mask, cudaStream_t st) {
+           uint16_t* cn, uint16_t* z_out, uint16_t* c_out, int64_t n, int64_t k_len,
+           int64_t dirs, unsigned reverse_mask, cudaStream_t st) {
   const dim3 grid(unsigned((n + kRows - 1) / kRows), unsigned(dirs));
-  bf16_lstm_scan_kernel<H><<<grid, 2 * H, 0, st>>>(
-      xp, w_hh, bias, h0, c0, y, hn, cn, int(n), int(k_len), int(dirs),
+  constexpr int bytes = scan_smem<H>();
+  static bool done[2][64];
+  auto kernel = z_out ? bf16_lstm_scan_kernel<H, true> : bf16_lstm_scan_kernel<H, false>;
+  const cudaError_t err = allow_smem(kernel, bytes, done[z_out ? 1 : 0]);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<grid, 4 * H, bytes, st>>>(xp, w_hh, bias, h0, c0, y, hn, cn, z_out, c_out,
+                                     int(n), int(k_len), int(dirs), reverse_mask);
+  return int(cudaGetLastError());
+}
+
+template <int H>
+int launch_backward(const uint16_t* dy, const uint16_t* dhn, const uint16_t* dcn,
+                    const uint16_t* z, const uint16_t* c, const uint16_t* w_hh,
+                    const uint16_t* c0, uint16_t* dz, uint16_t* dh0, uint16_t* dc0,
+                    int64_t n, int64_t k_len, int64_t dirs, unsigned reverse_mask,
+                    cudaStream_t st) {
+  const dim3 grid(unsigned((n + kRows - 1) / kRows), unsigned(dirs));
+  constexpr int bytes = backward_smem<H>();
+  static bool done[64];
+  const cudaError_t err = allow_smem(bf16_lstm_scan_backward_kernel<H>, bytes, done);
+  if (err != cudaSuccess) return int(err);
+  bf16_lstm_scan_backward_kernel<H><<<grid, 4 * H, bytes, st>>>(
+      dy, dhn, dcn, z, c, w_hh, c0, dz, dh0, dc0, int(n), int(k_len), int(dirs),
       reverse_mask);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the launch was taken. 1
-// (cudaErrorInvalidValue) for a hidden width the kernel has no instance of
-// (a multiple of 16 up to 128).
+// Each returns a cudaError_t: 0 when the launch was taken. 1
+// (cudaErrorInvalidValue) for a hidden width the kernels have no instance
+// of (a multiple of 16 up to 128).
 extern "C" int sonicsim_bf16_lstm_scan(const void* xp, const void* w_hh,
                                        const void* bias, const void* h0,
                                        const void* c0, void* y, void* hn,
-                                       void* cn, int64_t n, int64_t k_len,
-                                       int64_t dirs, int64_t hidden,
-                                       int64_t reverse_mask, int device,
-                                       void* stream) {
+                                       void* cn, void* z_out, void* c_out, int64_t n,
+                                       int64_t k_len, int64_t dirs, int64_t hidden,
+                                       int64_t reverse_mask, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (n == 0 || dirs == 0) return 0;
@@ -285,17 +807,81 @@ extern "C" int sonicsim_bf16_lstm_scan(const void* xp, const void* w_hh,
   auto* yo = static_cast<uint16_t*>(y);
   auto* ho = static_cast<uint16_t*>(hn);
   auto* co = static_cast<uint16_t*>(cn);
+  auto* zo = static_cast<uint16_t*>(z_out);
+  auto* cs = static_cast<uint16_t*>(c_out);
   const unsigned mask = unsigned(reverse_mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hidden) {
-    case 16: return launch<16>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
-    case 32: return launch<32>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
-    case 48: return launch<48>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
-    case 64: return launch<64>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
-    case 80: return launch<80>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
-    case 96: return launch<96>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
-    case 112: return launch<112>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
-    case 128: return launch<128>(x, w, b, h, c, yo, ho, co, n, k_len, dirs, mask, st);
+#define SONICSIM_CASE(HH) \
+    case HH: return launch<HH>(x, w, b, h, c, yo, ho, co, zo, cs, n, k_len, dirs, mask, st);
+    SONICSIM_CASE(16) SONICSIM_CASE(32) SONICSIM_CASE(48) SONICSIM_CASE(64)
+    SONICSIM_CASE(80) SONICSIM_CASE(96) SONICSIM_CASE(112) SONICSIM_CASE(128)
+#undef SONICSIM_CASE
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+extern "C" int sonicsim_bf16_lstm_scan_backward(const void* dy, const void* dhn,
+                                                const void* dcn, const void* z,
+                                                const void* c, const void* w_hh,
+                                                const void* c0, void* dz, void* dh0,
+                                                void* dc0, int64_t n, int64_t k_len,
+                                                int64_t dirs, int64_t hidden,
+                                                int64_t reverse_mask, int device,
+                                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (n == 0 || dirs == 0) return 0;
+  const auto* g = static_cast<const uint16_t*>(dy);
+  const auto* gh = static_cast<const uint16_t*>(dhn);
+  const auto* gc = static_cast<const uint16_t*>(dcn);
+  const auto* zz = static_cast<const uint16_t*>(z);
+  const auto* cc = static_cast<const uint16_t*>(c);
+  const auto* w = static_cast<const uint16_t*>(w_hh);
+  const auto* ci = static_cast<const uint16_t*>(c0);
+  auto* o = static_cast<uint16_t*>(dz);
+  auto* oh = static_cast<uint16_t*>(dh0);
+  auto* oc = static_cast<uint16_t*>(dc0);
+  const unsigned mask = unsigned(reverse_mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+#define SONICSIM_CASE(HH)                                                                \
+    case HH: return launch_backward<HH>(g, gh, gc, zz, cc, w, ci, o, oh, oc, n, k_len, \
+                                        dirs, mask, st);
+    SONICSIM_CASE(16) SONICSIM_CASE(32) SONICSIM_CASE(48) SONICSIM_CASE(64)
+    SONICSIM_CASE(80) SONICSIM_CASE(96) SONICSIM_CASE(112) SONICSIM_CASE(128)
+#undef SONICSIM_CASE
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// products (D, K, gates, m) float32, dz (N, K, D*gates) bfloat16, dw (D,
+// gates, m) and db (D, gates) bfloat16; partial (D * gates / 32, K, 32)
+// float32 scratch and counters (D * gates / 32) int32, zero; gates a
+// multiple of 32, and at most 51,200 rows (one step's window sums in 200 KB
+// of shared memory).
+extern "C" int sonicsim_bf16_running_sum(const void* products, const void* dz, void* dw,
+                                         void* db, void* partial, void* counters, int64_t n,
+                                         int64_t k_len, int64_t dirs, int64_t gates, int64_t m,
+                                         int64_t reverse_mask, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (dirs == 0 || gates == 0 || k_len == 0) return 0;
+  if (gates % 32) return int(cudaErrorInvalidValue);
+  const int64_t weight_blocks = (dirs * gates * m + kSumThreads - 1) / kSumThreads;
+  const int64_t window_bytes = ((n + 31) / 32 > 0 ? (n + 31) / 32 : 1) * 32 * int64_t(sizeof(float));
+  constexpr int64_t budget = 200 * 1024;  // of the 227 KB a block may hold
+  if (window_bytes > budget) return int(cudaErrorInvalidValue);
+  const int64_t chunk = budget / window_bytes < kSumChunk ? budget / window_bytes : kSumChunk;
+  const int64_t bias_blocks = dirs * gates / 32 * ((k_len + chunk - 1) / chunk);
+  static bool done[64];
+  err = allow_smem(bf16_running_sum_kernel, int(budget), done);
+  if (err != cudaSuccess) return int(err);
+  bf16_running_sum_kernel<<<unsigned(weight_blocks + bias_blocks), kSumThreads,
+                            int(chunk * window_bytes), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(products), static_cast<const uint16_t*>(dz),
+      static_cast<uint16_t*>(dw), static_cast<uint16_t*>(db), static_cast<float*>(partial),
+      static_cast<int*>(counters), int(n), int(k_len), int(dirs), int(gates), m,
+      unsigned(reverse_mask), int(weight_blocks), int(chunk));
+  return int(cudaGetLastError());
 }

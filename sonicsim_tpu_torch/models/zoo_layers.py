@@ -42,7 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.lstm_cell import bf16_lstm_scan
+from ..ops.lstm_cell import bf16_lstm
 from .layers import Conv1d, Linear, PReLU, group_norm, float32_or_wider
 
 F32_EPS = 1.1920929e-7  # torch.finfo(torch.float32).eps: GroupNorm1's epsilon
@@ -249,8 +249,8 @@ class LSTMLayer(nn.LSTM):
     The recurrence and carry are float32 (or wider), as flax's with its
     float32 carry, unless the input, the weights and the initial state are
     all bfloat16: then flax's bfloat16 cell (:func:`_run_wide`), outputs
-    and final state bfloat16, in inference only (the kernel has no backward
-    yet)."""
+    and final state bfloat16, in inference and in training (its gradients
+    the JAX scan's, ``ops.lstm_cell.bf16_lstm``)."""
 
     def __init__(self, input_size: int, hidden: int, bidirectional: bool = False,
                  num_layers: int = 1):
@@ -330,10 +330,8 @@ def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx,
 
     Where the carry too is bfloat16 (the input, the weights and the state
     promote to it), flax's cell computes in bfloat16: :func:`_bf16_cell`,
-    the kernel of ``ops.lstm_cell``. The kernel has no backward yet, so
-    while autograd records (grad enabled and an operand that requires it)
-    such a call keeps the float32 recurrence above, on the CPU and on the
-    card alike."""
+    the kernels of ``ops.lstm_cell``, forward and, while autograd records,
+    backward."""
     # By name: ``torch.func.functional_call`` swaps the attributes, not
     # ``_flat_weights``.
     weights = [getattr(rnn, n) for n in rnn._flat_weights_names]
@@ -343,9 +341,21 @@ def _run_wide(rnn: nn.RNNBase, own, op, n_states: int, x: torch.Tensor, hx,
     run = float32_or_wider(out)
     if x.dtype == weights[0].dtype == run and all(s.dtype == run for s in states):
         return own(rnn, x, hx)
-    if out == torch.bfloat16 and not (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *weights, *states))):
+    if out == torch.bfloat16:
         return _bf16_cell(rnn, x, weights, states)
+    return _wide_recurrence(rnn, op, n_states, x, weights, states, input_bias)
+
+
+def _wide_recurrence(rnn: nn.RNNBase, op, n_states: int, x: torch.Tensor, weights: list,
+                     states: tuple, input_bias: bool):
+    """:func:`_run_wide`'s float32 (or wider) recurrence, whatever the
+    carry's dtype: ``op`` on the input, the weights and the state (zeros
+    where ``states`` is empty) cast up, the first layer's input projection
+    rounded to the narrower dtype of the input and the weights, the output
+    and the state cast back to the dtype all three promote to."""
+    out = torch.promote_types(x.dtype, weights[0].dtype)
+    out = torch.promote_types(out, states[0].dtype if states else torch.float32)
+    run = float32_or_wider(out)
     if not states:
         states = (x.new_zeros(rnn.num_layers * (2 if rnn.bidirectional else 1), x.shape[0],
                               rnn.hidden_size, dtype=run),) * n_states
@@ -375,18 +385,14 @@ def _bf16_cell(rnn: nn.RNNBase, x: torch.Tensor, weights: list, states: tuple):
                                   f"has no JAX caller and is not ported")
     n_dir = 2 if rnn.bidirectional else 1
     per_dir = len(weights) // n_dir
-    xf = x.float()
-    xp, w_hh, bias = [], [], []
-    for d in range(n_dir):
-        w = weights[d * per_dir:(d + 1) * per_dir]
-        xp.append((xf @ w[0].float().t()).to(torch.bfloat16))
-        w_hh.append(w[1].to(torch.bfloat16))
-        # flax's one bias per gate: bias_ih + bias_hh in float32, rounded once.
-        bias.append((w[2].float() + w[3].float()).to(torch.bfloat16) if rnn.bias
-                    else x.new_zeros(w[1].shape[0], dtype=torch.bfloat16))
+    w = [weights[d * per_dir:(d + 1) * per_dir] for d in range(n_dir)]
+    # flax's one bias per gate: bias_ih + bias_hh in float32, rounded once.
+    bias = [(p[2].float() + p[3].float()).to(torch.bfloat16) if rnn.bias
+            else x.new_zeros(p[1].shape[0], dtype=torch.bfloat16) for p in w]
     h0, c0 = (s.to(torch.bfloat16) for s in states)
-    y, h, c = bf16_lstm_scan(torch.cat(xp, dim=-1), torch.stack(w_hh), torch.stack(bias), h0,
-                             c0, [d == 1 for d in range(n_dir)])
+    y, h, c = bf16_lstm(x, torch.stack([p[0] for p in w]).to(torch.bfloat16),
+                        torch.stack([p[1] for p in w]).to(torch.bfloat16), torch.stack(bias),
+                        h0, c0, [d == 1 for d in range(n_dir)])
     return y, (h, c)
 
 

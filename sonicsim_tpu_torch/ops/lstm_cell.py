@@ -1,6 +1,7 @@
-"""flax's bfloat16 LSTM cell scanned over a sequence: a Hopper kernel
-(``csrc/bf16_lstm.cu``, CUDA C++ for ``sm_90a``), its plain version and its
-wrapper.
+"""flax's bfloat16 LSTM cell scanned over a sequence, forward and backward:
+Hopper kernels (``csrc/bf16_lstm.cu``, CUDA C++ for ``sm_90a``), their plain
+versions and their wrappers, and :func:`bf16_lstm`, the layer under
+autograd.
 
 flax's ``OptimizedLSTMCell`` computes in the dtype that its carry, its
 kernels and its input promote to. Where all three are bfloat16 (the JAX
@@ -17,11 +18,16 @@ g, o:
   ``g = rnd(tanh(z_g))``;
 * ``c′ = rnd(rnd(f·c) + rnd(i·g))`` and ``h′ = rnd(o·rnd(tanh(c′)))``.
 
-The kernel replaces no TPU kernel (the JAX package leaves the scan to XLA),
-and no library call computes this function: cuDNN's bfloat16 RNN keeps the
-cell in float32. Dispatch is by the tensors' device alone: a CPU tensor
-goes to :func:`bf16_lstm_scan_ref`, a CUDA tensor to the kernel, or the
-call raises. The library is built with ``nvcc`` at first use into
+The gradients are those of the compiled HLO of ``jax.vjp`` of that scan
+(:func:`bf16_lstm_scan_backward_ref`, :func:`bf16_running_sum_ref`): each
+op of the cell's VJP rounded, and each weight's and bias's gradient a
+bfloat16 running sum over the steps in the transpose loop's order.
+
+The kernels replace no TPU kernel (the JAX package leaves the scan and its
+VJP to XLA), and no library call computes these functions: cuDNN's
+bfloat16 RNN keeps the cell in float32. Dispatch is by the tensors' device
+alone: a CPU tensor goes to the plain version, a CUDA tensor to the kernel,
+or the call raises. The library is built with ``nvcc`` at first use into
 ``_build/`` (``kernels.build``).
 """
 
@@ -35,13 +41,14 @@ import torch
 from . import kernels
 
 SOURCE = kernels._PKG / "csrc" / "bf16_lstm.cu"
-# Hidden widths the kernel has an instance of: its warps own 16 units each,
-# and a warp's slice of W_hh (8 · H / 16 · 2 registers) stays in registers.
+# Hidden widths the kernels have an instance of: their warps own 8 units
+# each, and a warp's slice of W_hh (H / 2 registers) stays in registers.
 HIDDEN = tuple(range(16, 129, 16))
 
-# Launches of the kernel in this process; plain-version calls are not
+# Launches of each kernel in this process; plain-version calls are not
 # counted.
-LAUNCHES = {"bf16_lstm_scan": 0}
+LAUNCHES = {"bf16_lstm_scan": 0, "bf16_lstm_scan_train": 0, "bf16_lstm_scan_backward": 0,
+            "bf16_running_sum": 0}
 
 _lib = None
 
@@ -62,7 +69,7 @@ def _sigmoid(z: torch.Tensor) -> torch.Tensor:
 
 def bf16_lstm_scan_ref(xp: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
                        h0: torch.Tensor, c0: torch.Tensor,
-                       reverse: Sequence[bool]) -> tuple:
+                       reverse: Sequence[bool], keep: bool = False) -> tuple:
     """Plain version of :func:`bf16_lstm_scan`: the rounding schedule of the
     module docstring, one step at a time, every direction at once."""
     n, k, _ = xp.shape
@@ -72,15 +79,160 @@ def bf16_lstm_scan_ref(xp: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
     x = xp.float().reshape(n, k, dirs, gates)
     h, c = h0.float(), c0.float()
     out = torch.empty(n, k, dirs, hidden, dtype=torch.bfloat16, device=xp.device)
+    if keep:
+        zs = torch.empty(n, k, dirs, gates, dtype=torch.bfloat16, device=xp.device)
+        cs = torch.empty_like(out)
     lanes = torch.arange(dirs, device=xp.device)
     for step in range(k):
-        at = torch.tensor([k - 1 - step if r else step for r in reverse], device=xp.device)
+        at = _at(step, k, reverse, xp.device)
         z = _rnd(_rnd(_rnd(torch.bmm(h, w_t)) + b) + x[:, at, lanes].transpose(0, 1))
         zi, zf, zg, zo = z.split(hidden, dim=-1)
         c = _rnd(_rnd(_sigmoid(zf) * c) + _rnd(_sigmoid(zi) * _rnd(torch.tanh(zg))))
         h = _rnd(_sigmoid(zo) * _rnd(torch.tanh(c)))
         out[:, at, lanes] = h.transpose(0, 1).to(torch.bfloat16)
-    return (out.reshape(n, k, dirs * hidden), h.to(torch.bfloat16), c.to(torch.bfloat16))
+        if keep:
+            zs[:, at, lanes] = z.transpose(0, 1).to(torch.bfloat16)
+            cs[:, at, lanes] = c.transpose(0, 1).to(torch.bfloat16)
+    result = (out.reshape(n, k, dirs * hidden), h.to(torch.bfloat16), c.to(torch.bfloat16))
+    if keep:
+        result += (zs.reshape(n, k, dirs * gates), cs.reshape(n, k, dirs * hidden))
+    return result
+
+
+def _at(step: int, k: int, reverse: Sequence[bool], device) -> torch.Tensor:
+    """Each direction's time at its ``step``-th step."""
+    return torch.tensor([k - 1 - step if r else step for r in reverse], device=device)
+
+
+def bf16_lstm_scan_backward_ref(dy: torch.Tensor, dhn: torch.Tensor, dcn: torch.Tensor,
+                                z: torch.Tensor, c: torch.Tensor, w_hh: torch.Tensor,
+                                c0: torch.Tensor, reverse: Sequence[bool]) -> tuple:
+    """Plain version of :func:`bf16_lstm_scan_backward`: the VJP of the scan
+    as the compiled HLO of ``jax.vjp`` computes it, each op rounded, walking
+    each direction's steps backwards. ``z`` and ``c`` are the forward's
+    rounded pre-activations (N, K, D·4H) and cells (N, K, D·H)
+    (``keep=True``); ``dy`` (N, K, D·H) and ``dhn``, ``dcn`` (D, N, H) the
+    cotangents of the outputs and of the final ``(h, c)``. With ct_h, ct_c
+    a step's cotangents of its ``(h′, c′)`` and τ = tanh(c′) rounded:
+
+    * ``u = rnd(rnd(o·ct_h)·rnd(1 − τ))``,
+      ``dc = rnd(rnd(ct_c + u) + rnd(u·τ))``;
+    * ``dz_i = rnd(rnd(dc·g)·rnd(i·rnd(1 − i)))``, ``dz_f`` the same of
+      ``rnd(dc·c)`` and f, ``dz_o = rnd(rnd(ct_h·τ)·rnd(o·rnd(1 − o)))``,
+      and with ``v = rnd(rnd(i·dc)·rnd(1 − g))``, ``dz_g = rnd(v + rnd(v·g))``;
+    * the previous step's ``ct_c = rnd(f·dc)`` and ``ct_h = rnd(rnd(dz·W_hh)
+      + dy)``, the dot in float32 over bfloat16 values.
+
+    Returns ``dz`` (N, K, D·4H), which is also the cotangent of ``xp``, and
+    the cotangents of ``h0`` and ``c0`` (D, N, H), all bfloat16."""
+    n, k, _ = z.shape
+    dirs, gates, hidden = w_hh.shape
+    w = w_hh.float()
+    zz = z.float().reshape(n, k, dirs, gates)
+    cc = c.float().reshape(n, k, dirs, hidden)
+    dyy = dy.float().reshape(n, k, dirs, hidden)
+    dh, dc_next = dhn.float(), dcn.float()
+    dz_all = torch.empty(n, k, dirs, gates, dtype=torch.bfloat16, device=z.device)
+    lanes = torch.arange(dirs, device=z.device)
+    for step in reversed(range(k)):
+        at = _at(step, k, reverse, z.device)
+        zi, zf, zg, zo = zz[:, at, lanes].transpose(0, 1).split(hidden, dim=-1)
+        c_prev = c0.float() if step == 0 else cc[:, _at(step - 1, k, reverse, z.device),
+                                                 lanes].transpose(0, 1)
+        tc = _rnd(torch.tanh(cc[:, at, lanes].transpose(0, 1)))
+        i, f, o, g = _sigmoid(zi), _sigmoid(zf), _sigmoid(zo), _rnd(torch.tanh(zg))
+        ct_h = _rnd(dh + dyy[:, at, lanes].transpose(0, 1))
+        u = _rnd(_rnd(o * ct_h) * _rnd(1.0 - tc))
+        dc = _rnd(_rnd(dc_next + u) + _rnd(u * tc))
+        v = _rnd(_rnd(i * dc) * _rnd(1.0 - g))
+        dz = torch.cat([_rnd(_rnd(dc * g) * _rnd(i * _rnd(1.0 - i))),
+                        _rnd(_rnd(dc * c_prev) * _rnd(f * _rnd(1.0 - f))),
+                        _rnd(v + _rnd(v * g)),
+                        _rnd(_rnd(ct_h * tc) * _rnd(o * _rnd(1.0 - o)))], dim=-1)
+        dz_all[:, at, lanes] = dz.transpose(0, 1).to(torch.bfloat16)
+        dc_next = _rnd(f * dc)
+        dh = _rnd(torch.bmm(dz, w))
+    return (dz_all.reshape(n, k, dirs * gates), dh.to(torch.bfloat16),
+            dc_next.to(torch.bfloat16))
+
+
+def step_products(dz: torch.Tensor, x: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
+                  reverse: Sequence[bool]) -> torch.Tensor:
+    """Each step's weight gradient before rounding: ``dz_tᵀ · [h_{t−1} |
+    x_t]`` over the N rows, in float32 on the bfloat16 values, (D, K, 4H,
+    H + C), ``h_{t−1}`` the state each direction's step ``t`` read. Plain
+    batched products, as XLA computes them outside any kernel of the JAX
+    package: one ``bmm`` a direction on strided views."""
+    n, k, width = dz.shape
+    dirs, _, hidden = h0.shape
+    gates = width // dirs
+    # On the card the operands stay bfloat16 and the GEMM accumulates and
+    # returns float32: the same exact products, summed in float32.
+    cast = (lambda t: t) if dz.device.type == "cuda" else (lambda t: t.float())
+    dzs = cast(dz).reshape(n, k, dirs, gates)
+    xs, ys = cast(x), cast(y).reshape(n, k, dirs, hidden)
+    out = torch.empty(dirs, k, gates, hidden + x.shape[-1], dtype=torch.float32,
+                      device=dz.device)
+    for d, r in enumerate(reverse):
+        hd, first = ys[:, :, d], cast(h0[d])[:, None]
+        h_prev = torch.cat([hd[:, 1:], first], 1) if r else torch.cat([first, hd[:, :-1]], 1)
+        rhs = torch.cat([h_prev, xs], -1).transpose(0, 1)  # (K, N, H + C)
+        lhs = dzs[:, :, d].permute(1, 2, 0)  # (K, 4H, N)
+        if dz.device.type == "cuda":
+            out[d] = torch.bmm(lhs, rhs, out_dtype=torch.float32)
+        else:
+            torch.bmm(lhs, rhs, out=out[d])
+    return out
+
+
+ROW_WINDOW = 32  # XLA's TreeReductionRewriter: the rows a reduce-window sums
+
+
+def row_sum_ref(v: torch.Tensor) -> torch.Tensor:
+    """``v`` (N, ...) summed over its first axis as XLA's CPU backend sums
+    a bfloat16 ``reduce_sum`` (its reducer rounds each add): up to 32
+    rows in row order from 0; more, padded with zeros to a multiple of 32
+    (half the padding, rounded down, in front), each window of 32 summed
+    in order, and the window sums summed the same way."""
+    n = v.shape[0]
+    if n > ROW_WINDOW:
+        m = -(-n // ROW_WINDOW) * ROW_WINDOW
+        lo = (m - n) // 2
+        pad = [0, 0] * (v.dim() - 1) + [lo, m - n - lo]
+        windows = torch.nn.functional.pad(v, pad).reshape(m // ROW_WINDOW, ROW_WINDOW,
+                                                          *v.shape[1:])
+        return row_sum_ref(_in_order(windows.transpose(0, 1)))
+    return _in_order(v)
+
+
+def _in_order(v: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(v.shape[1:], dtype=torch.float32, device=v.device)
+    for r in range(v.shape[0]):
+        acc = _rnd(acc + v[r])
+    return acc
+
+
+def bf16_running_sum_ref(products: torch.Tensor, dz: torch.Tensor,
+                         reverse: Sequence[bool]) -> tuple:
+    """Plain version of :func:`bf16_running_sum`: the weight and bias
+    gradients as the JAX scan's transpose loop accumulates them, in
+    bfloat16, walking each direction's steps from its last to its first:
+
+    * ``dW = rnd(dW + rnd(P_t))`` over ``products`` P (D, K, 4H, H + C);
+    * ``db = rnd(db + s_t)``, ``s_t`` the step's ``dz`` (N, K, D·4H)
+      summed over the rows by :func:`row_sum_ref`.
+
+    Returns ``dW`` (D, 4H, H + C) and ``db`` (D, 4H), bfloat16."""
+    dirs, k = products.shape[:2]
+    rows = row_sum_ref(dz.float()).reshape(k, dirs, -1).transpose(0, 1)  # (D, K, 4H)
+    dw = torch.zeros((dirs,) + products.shape[2:], dtype=torch.float32, device=dz.device)
+    db = torch.zeros(rows.shape[0], rows.shape[2], dtype=torch.float32, device=dz.device)
+    lanes = torch.arange(dirs, device=dz.device)
+    for step in reversed(range(k)):
+        at = _at(step, k, reverse, dz.device)
+        dw = _rnd(dw + _rnd(products[lanes, at]))
+        db = _rnd(db + rows[lanes, at])
+    return dw.to(torch.bfloat16), db.to(torch.bfloat16)
 
 
 def _library():
@@ -88,19 +240,59 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(kernels.build(source=SOURCE)))
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.sonicsim_bf16_lstm_scan.argtypes = [p] * 8 + [i64] * 5 + [ctypes.c_int, p]
-        lib.sonicsim_bf16_lstm_scan.restype = ctypes.c_int
+        lib.sonicsim_bf16_lstm_scan.argtypes = [p] * 10 + [i64] * 5 + [ctypes.c_int, p]
+        lib.sonicsim_bf16_lstm_scan_backward.argtypes = [p] * 10 + [i64] * 5 + [ctypes.c_int, p]
+        lib.sonicsim_bf16_running_sum.argtypes = [p] * 6 + [i64] * 6 + [ctypes.c_int, p]
+        for fn in (lib.sonicsim_bf16_lstm_scan, lib.sonicsim_bf16_lstm_scan_backward,
+                   lib.sonicsim_bf16_running_sum):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def _check(name: str, tensors: dict, shapes: dict, dtype=torch.bfloat16) -> torch.device:
+    """Every tensor of ``tensors`` has its shape of ``shapes`` and ``dtype``,
+    on the first one's device; returns that device."""
+    device = next(iter(tensors.values())).device
+    for key, t in tensors.items():
+        want = dtype[key] if isinstance(dtype, dict) else dtype
+        if t.dtype != want or t.device != device:
+            raise TypeError(f"{name}: {key} must be {want} on {device}, got {t.dtype} on "
+                            f"{t.device}")
+        if key in shapes and tuple(t.shape) != tuple(shapes[key]):
+            raise ValueError(f"{name}: {key} must be {tuple(shapes[key])}, got "
+                             f"{tuple(t.shape)}")
+    return device
+
+
+def _on_card(name: str, device: torch.device, hidden: int, n: int, k: int, width: int) -> None:
+    """Raise unless the kernel ``name`` takes these arguments on ``device``."""
+    if device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {device}")
+    if hidden not in HIDDEN:
+        raise ValueError(f"{name}: the kernel takes a hidden width in {HIDDEN}, got {hidden}")
+    if n * k * width >= 2**62 or k >= 2**31 or n >= 2**31:
+        raise ValueError(f"{name}: N={n}, K={k} too large")
+
+
+def _mask(reverse: Sequence[bool]) -> int:
+    return sum(1 << d for d, r in enumerate(reverse) if r)
+
+
+def _launched(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {status}")
+    LAUNCHES[name] += 1
+
+
 def bf16_lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
-                   h0: torch.Tensor, c0: torch.Tensor, reverse: Sequence[bool]) -> tuple:
+                   h0: torch.Tensor, c0: torch.Tensor, reverse: Sequence[bool],
+                   keep: bool = False) -> tuple:
     """flax's bfloat16 LSTM cell over D directions of N sequences of K
     steps, every tensor bfloat16:
 
     * ``xp`` (N, K, D·4H): each direction's rounded input projection,
-      side by side on the last axis (``zoo_layers._rounded_projection``);
+      side by side on the last axis;
     * ``w_hh`` (D, 4H, H), torch's gate order (i, f, g, o), and ``bias``
       (D, 4H), flax's one bias per gate;
     * ``h0``, ``c0`` (D, N, H), torch's state layout; ``reverse`` one flag
@@ -108,7 +300,9 @@ def bf16_lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
 
     Returns the outputs (N, K, D·H), ``[direction 0, direction 1]`` on the
     last axis, each at the step that made it, and the final ``(h, c)``,
-    each (D, N, H)."""
+    each (D, N, H). With ``keep`` (the training variant) also what the
+    backward reads: each step's rounded pre-activations ``z`` (N, K, D·4H)
+    and cells ``c`` (N, K, D·H)."""
     if xp.dim() != 3 or w_hh.dim() != 3:
         raise ValueError(f"xp must be (N, K, D·4H) and w_hh (D, 4H, H), got "
                          f"{tuple(xp.shape)} and {tuple(w_hh.shape)}")
@@ -117,34 +311,150 @@ def bf16_lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
     if gates != 4 * hidden or width != dirs * gates or len(reverse) != dirs:
         raise ValueError(f"xp {tuple(xp.shape)}, w_hh {tuple(w_hh.shape)} and "
                          f"{len(reverse)} reverse flags do not agree")
-    for name, t, shape in (("bias", bias, (dirs, gates)), ("h0", h0, (dirs, n, hidden)),
-                           ("c0", c0, (dirs, n, hidden))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    for name, t in (("xp", xp), ("w_hh", w_hh), ("bias", bias), ("h0", h0), ("c0", c0)):
-        if t.dtype != torch.bfloat16 or t.device != xp.device:
-            raise TypeError(f"{name} must be bfloat16 on {xp.device}, got {t.dtype} on "
-                            f"{t.device}")
-    if xp.device.type == "cpu":
-        return bf16_lstm_scan_ref(xp, w_hh, bias, h0, c0, reverse)
-    if xp.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {xp.device}")
-    if hidden not in HIDDEN:
-        raise ValueError(f"bf16_lstm_scan: the kernel takes a hidden width in {HIDDEN}, "
-                         f"got {hidden}")
-    if n * k * width >= 2**62 or k >= 2**31 or n >= 2**31:
-        raise ValueError(f"bf16_lstm_scan: N={n}, K={k} too large")
+    device = _check("bf16_lstm_scan", dict(xp=xp, w_hh=w_hh, bias=bias, h0=h0, c0=c0),
+                    dict(bias=(dirs, gates), h0=(dirs, n, hidden), c0=(dirs, n, hidden)))
+    if device.type == "cpu":
+        return bf16_lstm_scan_ref(xp, w_hh, bias, h0, c0, reverse, keep)
+    name = "bf16_lstm_scan_train" if keep else "bf16_lstm_scan"
+    _on_card(name, device, hidden, n, k, width)
     xp, w_hh, bias, h0, c0 = (t.contiguous() for t in (xp, w_hh, bias, h0, c0))
-    y = torch.empty(n, k, dirs * hidden, dtype=torch.bfloat16, device=xp.device)
+    y = torch.empty(n, k, dirs * hidden, dtype=torch.bfloat16, device=device)
+    z = torch.empty_like(xp) if keep else None
+    c = torch.empty_like(y) if keep else None
+    kept = (z, c) if keep else ()
     if k == 0:
-        return y, h0.clone(), c0.clone()
+        return (y, h0.clone(), c0.clone()) + kept
     hn, cn = torch.empty_like(h0), torch.empty_like(c0)
-    mask = sum(1 << d for d, r in enumerate(reverse) if r)
-    status = _library().sonicsim_bf16_lstm_scan(
+    _launched(name, _library().sonicsim_bf16_lstm_scan(
         xp.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        y.data_ptr(), hn.data_ptr(), cn.data_ptr(), n, k, dirs, hidden, mask,
-        xp.device.index, torch.cuda.current_stream(xp.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"bf16_lstm_scan kernel launch failed: cudaError {status}")
-    LAUNCHES["bf16_lstm_scan"] += 1
-    return y, hn, cn
+        y.data_ptr(), hn.data_ptr(), cn.data_ptr(), z.data_ptr() if keep else None,
+        c.data_ptr() if keep else None, n, k, dirs, hidden, _mask(reverse), device.index,
+        torch.cuda.current_stream(device).cuda_stream))
+    return (y, hn, cn) + kept
+
+
+def bf16_lstm_scan_backward(dy: torch.Tensor, dhn: torch.Tensor, dcn: torch.Tensor,
+                            z: torch.Tensor, c: torch.Tensor, w_hh: torch.Tensor,
+                            c0: torch.Tensor, reverse: Sequence[bool]) -> tuple:
+    """The scan's VJP (:func:`bf16_lstm_scan_backward_ref` is its plain
+    version and says what it computes): from the cotangents ``dy`` (N, K,
+    D·H), ``dhn``, ``dcn`` (D, N, H) and the training forward's ``z`` and
+    ``c``, the gate cotangents ``dz`` (N, K, D·4H) and those of ``h0`` and
+    ``c0``, all bfloat16."""
+    n, k, width = z.shape
+    dirs, gates, hidden = w_hh.shape
+    if width != dirs * gates or gates != 4 * hidden or len(reverse) != dirs:
+        raise ValueError(f"z {tuple(z.shape)}, w_hh {tuple(w_hh.shape)} and {len(reverse)} "
+                         f"reverse flags do not agree")
+    state = (dirs, n, hidden)
+    device = _check("bf16_lstm_scan_backward",
+                    dict(z=z, dy=dy, dhn=dhn, dcn=dcn, c=c, w_hh=w_hh, c0=c0),
+                    dict(dy=(n, k, dirs * hidden), c=(n, k, dirs * hidden), dhn=state,
+                         dcn=state, c0=state))
+    if device.type == "cpu":
+        return bf16_lstm_scan_backward_ref(dy, dhn, dcn, z, c, w_hh, c0, reverse)
+    _on_card("bf16_lstm_scan_backward", device, hidden, n, k, width)
+    dy, dhn, dcn, z, c, w_hh, c0 = (t.contiguous() for t in (dy, dhn, dcn, z, c, w_hh, c0))
+    dz = torch.empty_like(z)
+    if k == 0:
+        return dz, dhn.clone(), dcn.clone()
+    dh0, dc0 = torch.empty_like(dhn), torch.empty_like(dcn)
+    _launched("bf16_lstm_scan_backward", _library().sonicsim_bf16_lstm_scan_backward(
+        dy.data_ptr(), dhn.data_ptr(), dcn.data_ptr(), z.data_ptr(), c.data_ptr(),
+        w_hh.data_ptr(), c0.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), n, k,
+        dirs, hidden, _mask(reverse), device.index,
+        torch.cuda.current_stream(device).cuda_stream))
+    return dz, dh0, dc0
+
+
+def bf16_running_sum(products: torch.Tensor, dz: torch.Tensor,
+                     reverse: Sequence[bool]) -> tuple:
+    """The weight and bias gradients accumulated in bfloat16 as the JAX
+    scan's transpose loop does (:func:`bf16_running_sum_ref` is the plain
+    version): ``products`` (D, K, 4H, M) float32 (:func:`step_products`)
+    and ``dz`` (N, K, D·4H) bfloat16 → ``dW`` (D, 4H, M) and ``db`` (D,
+    4H), bfloat16."""
+    if products.dim() != 4 or dz.dim() != 3:
+        raise ValueError(f"products must be (D, K, 4H, M) and dz (N, K, D·4H), got "
+                         f"{tuple(products.shape)} and {tuple(dz.shape)}")
+    dirs, k, gates, m = products.shape
+    n = dz.shape[0]
+    if len(reverse) != dirs:
+        raise ValueError(f"{dirs} directions and {len(reverse)} reverse flags")
+    device = _check("bf16_running_sum", dict(products=products, dz=dz),
+                    dict(dz=(n, k, dirs * gates)),
+                    dict(products=torch.float32, dz=torch.bfloat16))
+    if device.type == "cpu":
+        return bf16_running_sum_ref(products, dz, reverse)
+    if device.type != "cuda":
+        raise RuntimeError(f"bf16_running_sum: no kernel for device {device}")
+    if products.numel() >= 2**62 or dz.numel() >= 2**62 or n > 51200 or k >= 2**31:
+        raise ValueError(f"bf16_running_sum: N={n}, K={k} too large (at most 51,200 rows)")
+    if gates % 32:
+        raise ValueError(f"bf16_running_sum: 4H={gates} is not a multiple of 32")
+    products, dz = products.contiguous(), dz.contiguous()
+    dw = torch.empty(dirs, gates, m, dtype=torch.bfloat16, device=device)
+    db = torch.empty(dirs, gates, dtype=torch.bfloat16, device=device)
+    if k == 0:
+        return dw.zero_(), db.zero_()
+    if dw.numel() == 0:
+        return dw, db
+    # Scratch: each step's bias row sums, and a count of finished blocks per
+    # 32 columns.
+    partial = torch.empty(dirs * gates // 32, k, 32, dtype=torch.float32, device=device)
+    counters = torch.zeros(dirs * gates // 32, dtype=torch.int32, device=device)
+    _launched("bf16_running_sum", _library().sonicsim_bf16_running_sum(
+        products.data_ptr(), dz.data_ptr(), dw.data_ptr(), db.data_ptr(), partial.data_ptr(),
+        counters.data_ptr(), n, k, dirs, gates, m, _mask(reverse), device.index,
+        torch.cuda.current_stream(device).cuda_stream))
+    return dw, db
+
+
+def _projection(x: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
+    """flax's input dense: ``x`` (N, K, C) times each direction's ``w_ih``
+    (D, 4H, C), a float32 dot over bfloat16 values rounded to bfloat16,
+    (N, K, D·4H)."""
+    xf = x.float()
+    return torch.cat([(xf @ w.float().t()).to(torch.bfloat16) for w in w_ih], dim=-1)
+
+
+class _Bf16Lstm(torch.autograd.Function):
+    """:func:`bf16_lstm` under autograd: the training forward keeps ``z``
+    and ``c``; the backward runs the backward scan, the step products and
+    the running sum, and ``dx`` as flax's per-step ``rnd(dz_t·W_ih)``
+    (one product over all steps, the directions' parts added and rounded)."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, w_hh, bias, h0, c0, reverse):
+        y, hn, cn, z, c = bf16_lstm_scan(_projection(x, w_ih), w_hh, bias, h0, c0, reverse,
+                                         keep=True)
+        ctx.reverse = reverse
+        ctx.save_for_backward(x, w_ih, w_hh, h0, c0, y, z, c)
+        return y, hn, cn
+
+    @staticmethod
+    def backward(ctx, dy, dhn, dcn):
+        x, w_ih, w_hh, h0, c0, y, z, c = ctx.saved_tensors
+        reverse = ctx.reverse
+        dz, dh0, dc0 = bf16_lstm_scan_backward(dy, dhn, dcn, z, c, w_hh, c0, reverse)
+        dw, db = bf16_running_sum(step_products(dz, x, y, h0, reverse), dz, reverse)
+        hidden = w_hh.shape[2]
+        n, k, _ = x.shape
+        dzs = dz.float().reshape(n, k, len(reverse), -1)
+        dx = sum(_rnd(dzs[:, :, d] @ w_ih[d].float()) for d in range(len(reverse)))
+        return (_rnd(dx).to(torch.bfloat16), dw[:, :, hidden:], dw[:, :, :hidden], db, dh0, dc0,
+                None)
+
+
+def bf16_lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
+              h0: torch.Tensor, c0: torch.Tensor, reverse: Sequence[bool]) -> tuple:
+    """flax's bfloat16 ``nn.RNN(OptimizedLSTMCell)`` over D directions, the
+    input projection included: ``x`` (N, K, C), ``w_ih`` (D, 4H, C), the
+    rest as :func:`bf16_lstm_scan` takes them, all bfloat16. Returns the
+    outputs (N, K, D·H) and the final ``(h, c)``. While autograd records,
+    the training forward runs and the gradients are the JAX scan's
+    (:class:`_Bf16Lstm`); else the inference forward."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, w_ih, w_hh, bias, h0, c0)):
+        return _Bf16Lstm.apply(x, w_ih, w_hh, bias, h0, c0, tuple(reverse))
+    return bf16_lstm_scan(_projection(x, w_ih), w_hh, bias, h0, c0, reverse)

@@ -10,6 +10,21 @@ kernel's, the plain version's and cuDNN's bf16 LSTM layer's CUDA-event
 medians. One JSON line per reading.
 
     python tests/bf16_cell_probe.py
+    python tests/bf16_cell_probe.py --variants SOURCE
+
+With ``--variants``, what sets the step time of the forward of
+``SOURCE`` (an earlier form with the signature
+``sonicsim_bf16_lstm_scan(xp, w_hh, bias, h0, c0, y, hn, cn, n, k, dirs,
+hidden, mask, device, stream)``, from a ``git archive`` of a commit that
+has it) and of this checkout's forward: each source built as it is and
+with one part of its
+step taken out at a time, by text (``VARIANTS``: the projection's loads,
+the gate arithmetic, the products, the output stores, the barrier;
+``NEW_VARIANTS``), each timed at SkiM's shape, in two turns; then this
+checkout's forward, training forward, backward, step products and running
+sum at the same shape, and the backward, its plain version and the plain
+version with an exact dot against each other. The variants compute wrong
+values and are timed only.
 
 Needs the card; imports neither jax nor the JAX package.
 """
@@ -112,5 +127,152 @@ def main() -> None:
     print(json.dumps({"device": torch.cuda.get_device_name(0), **times}), flush=True)
 
 
+def plain_backward_f64_dot(dy, dhn, dcn, z, c, w_hh, c0, reverse):
+    """``bf16_lstm_scan_backward_ref`` with ``dz·W_hh`` in float64, rounded
+    once to float32: the correctly rounded dot."""
+    ref = lstm_cell.bf16_lstm_scan_backward_ref
+    bmm = torch.bmm
+    torch.bmm = lambda a, b: bmm(a.double(), b.double()).float()
+    try:
+        return ref(dy, dhn, dcn, z, c, w_hh, c0, reverse)
+    finally:
+        torch.bmm = bmm
+
+
+# This checkout's forward with one part of its step taken out.
+NEW_VARIANTS = {
+    "as-is": ("nothing", []),
+    "no-gate-lookups": ("the tables' loads (every gate 0.5)", [
+        ("  return from_bits(table[outside ? 0u : ((((b >> 15) * kExps + e) << 7) | (b & 0x7fu))]);",
+         "  outside = false;\n  return 0.5f + 0.0f * z;")]),
+    "no-products": ("the mma.sync products", [
+        ("        mma_bf16(part, a, bw[q][kt][0], bw[q][kt][1]);",
+         "        part[0] = __uint_as_float(a[0] ^ bw[q][kt][0]); "
+         "part[1] = __uint_as_float(a[1] ^ bw[q][kt][1]);")]),
+    "no-barrier": ("the step's __syncthreads", [
+        ("    cp_async_wait<kStages - 2>();  // the next step's tile\n    __syncthreads();",
+         "    cp_async_wait<kStages - 2>();  // the next step's tile")]),
+    "no-output-stores": ("the y stores", [
+        ("    if (step > 0) store_h(hb, rev ? t + 1 : t - 1);",
+         "    if (step < 0) store_h(hb, rev ? t + 1 : t - 1);")]),
+}
+
+# Each variant: (what it takes out of the step, [(text, replacement)]).
+VARIANTS = {
+    "as-is": ("nothing", []),
+    "no-projection-loads": ("(i) the step's xp loads", [
+        ("row < n ? load2(xr + q * H + u0 + 8 * s + 2 * tq) : 0u", "uint32_t(q + s)")]),
+    "no-gate-math": ("(iii) the exact expf, division and tanhf", [
+        ("return rnd(1.0f / rnd(rnd(expf(-z)) + 1.0f));", "return rnd(0.25f * z + 0.5f);"),
+        ("tanhf(", "0.5f * (")]),
+    "no-products": ("(ii) the mma.sync products", [
+        ("mma_bf16(part, a, bw[t8][kt][0], bw[t8][kt][1]);",
+         "part[0] = __uint_as_float(a[0] ^ bw[t8][kt][0]); "
+         "part[1] = __uint_as_float(a[1] ^ bw[t8][kt][1]);")]),
+    "no-output-stores": ("(iv) the y stores", [
+        ("if (row < n) {\n          *reinterpret_cast<uint32_t*>(y",
+         "if (row < 0) {\n          *reinterpret_cast<uint32_t*>(y")]),
+    "no-barrier": ("(v) the step's __syncthreads", [
+        ("    __syncthreads();\n    buf ^= 1;", "    buf ^= 1;")]),
+}
+
+
+def variants(source: Path) -> None:
+    """The module docstring's ``--variants``."""
+    import ctypes
+    import hashlib
+    import os
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sonicsim_tpu_torch.ops import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {f"given {n}": (source.read_text(), VARIANTS[n]) for n in VARIANTS}
+    todo.update({f"this {n}": (lstm_cell.SOURCE.read_text(), NEW_VARIANTS[n])
+                 for n in NEW_VARIANTS})
+
+    def build(name):
+        src, (_, subs) = todo[name]
+        for old, new in subs:
+            if old not in src:
+                raise SystemExit(f"variant {name}: {old!r} not in {source}")
+            src = src.replace(old, new)
+        key = hashlib.sha256(src.encode()).hexdigest()[:12]
+        cu = kernels.BUILD_DIR / f"probe_{name.replace(' ', '_')}_{key}.cu"
+        so = cu.with_suffix(".so")
+        cu.write_text(src)
+        r = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise SystemExit(f"variant {name}: nvcc failed\n{r.stderr}")
+        return so
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        libs = dict(zip(todo, pool.map(build, todo)))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def bf(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+    xp = bf(rng.standard_normal((N, 250, DIRS * 4 * H)))
+    w_hh = bf(rng.standard_normal((DIRS, 4 * H, H)) / np.sqrt(H))
+    bias = bf(0.1 * rng.standard_normal((DIRS, 4 * H)))
+    h0 = c0 = bf(np.zeros((DIRS, N, H)))
+    y = torch.empty(N, 250, DIRS * H, dtype=torch.bfloat16, device=dev)
+    hn, cn = torch.empty_like(h0), torch.empty_like(c0)
+    stream = torch.cuda.current_stream().cuda_stream
+    smi = __import__("subprocess").run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    times = {}
+    for turn in range(2):  # in turns: every variant twice
+        for name, so in libs.items():
+            fn = ctypes.CDLL(str(so)).sonicsim_bf16_lstm_scan
+            new = name.startswith("this")  # two more pointers: z_out, c_out (null)
+            fn.argtypes = [ctypes.c_void_p] * (10 if new else 8) + [ctypes.c_int64] * 5 + [
+                ctypes.c_int, ctypes.c_void_p]
+            args = [t.data_ptr() for t in (xp, w_hh, bias, h0, c0, y, hn, cn)] + (
+                [None, None] if new else []) + [N, 250, DIRS, H, 2, 0, stream]
+            times.setdefault(name, []).append(median_ms(lambda: fn(*args)))
+    for name, ms in times.items():
+        print(json.dumps({"variant": name, "takes out": todo[name][1][0], "ms": ms,
+                          "source": str(source) if name.startswith("given") else "this checkout",
+                          "card": smi}), flush=True)
+    # This checkout's kernels at the same shape.
+    reverse = [False, True]
+    args = (xp, w_hh, bias, h0, c0, reverse)
+    y, hn, cn, z, c = lstm_cell.bf16_lstm_scan(*args, keep=True)
+    dy = torch.randn(y.shape, device=dev).bfloat16()
+    zero = torch.zeros_like(h0)
+    dz, _, _ = lstm_cell.bf16_lstm_scan_backward(dy, zero, zero, z, c, w_hh, c0, reverse)
+    x = bf(rng.standard_normal((N, 250, 64)))
+    prods = lstm_cell.step_products(dz, x, y, h0, reverse)
+    # The backward: kernel, plain, plain with an exact dot, each against the others.
+    dhn, dcn = (torch.randn(h0.shape, device=dev).bfloat16() for _ in range(2))
+    bargs = (dy, dhn, dcn, z, c, w_hh, c0, reverse)
+    outs = {"kernel": lstm_cell.bf16_lstm_scan_backward(*bargs),
+            "plain": lstm_cell.bf16_lstm_scan_backward_ref(*bargs),
+            "plain_f64_dot": plain_backward_f64_dot(*bargs)}
+    for a, b in (("kernel", "plain"), ("kernel", "plain_f64_dot"), ("plain", "plain_f64_dot")):
+        u, v = outs[a], outs[b]
+        print(json.dumps({"backward": f"{a} vs {b}", "dz": rel(u[0], v[0]), "dh0": rel(u[1], v[1]),
+                          "dc0": rel(u[2], v[2]),
+                          "flipped": [float((p != q).float().mean()) for p, q in zip(u, v)]}),
+              flush=True)
+    print(json.dumps({
+        "forward_ms": median_ms(lambda: lstm_cell.bf16_lstm_scan(*args)),
+        "training_forward_ms": median_ms(lambda: lstm_cell.bf16_lstm_scan(*args, keep=True)),
+        "backward_ms": median_ms(lambda: lstm_cell.bf16_lstm_scan_backward(
+            dy, zero, zero, z, c, w_hh, c0, reverse)),
+        "step_products_ms": median_ms(lambda: lstm_cell.step_products(dz, x, y, h0, reverse)),
+        "running_sum_ms": median_ms(lambda: lstm_cell.bf16_running_sum(prods, dz, reverse)),
+        "card": smi}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if "--variants" in sys.argv:
+        variants(Path(sys.argv[sys.argv.index("--variants") + 1]))
+    else:
+        main()

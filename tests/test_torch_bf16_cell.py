@@ -30,7 +30,7 @@ from sonicsim_tpu.infer.precision import cast_floating
 from sonicsim_tpu.models.skim import SegLSTM as JSegLSTM
 from sonicsim_tpu_torch import bridge
 from sonicsim_tpu_torch.models.skim import SegLSTM
-from sonicsim_tpu_torch.models.zoo_layers import GRULayer, LSTMLayer
+from sonicsim_tpu_torch.models.zoo_layers import GRULayer, LSTMLayer, _wide_recurrence
 from sonicsim_tpu_torch.ops.lstm_cell import bf16_lstm_scan, bf16_lstm_scan_ref
 
 from torch_threads import one_intra_op_thread  # noqa: F401
@@ -98,9 +98,11 @@ def test_plain_scan_is_flax_bf16_cell(reverse, carry):
     layer.load_state_dict({k[2:]: torch.from_numpy(np.asarray(v, np.float32))
                            for k, v in sd.items()})
     layer.bfloat16()
-    with torch.enable_grad():  # autograd records: the float32 recurrence
-        old, _ = layer.run(bf16(xi), (bf16(h0)[None], bf16(c0)[None]))
-    old = old.detach().float().numpy()
+    weights = [getattr(layer, n) for n in layer._flat_weights_names]
+    with torch.no_grad():
+        old, _ = _wide_recurrence(layer, torch._VF.lstm, 2, bf16(xi), weights,
+                                  (bf16(h0)[None], bf16(c0)[None]), False)
+    old = old.float().numpy()
     old = old[:, ::-1] if reverse else old
     assert rel_l2(old, want[0]) > REL
 

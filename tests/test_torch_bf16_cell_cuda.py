@@ -1,19 +1,35 @@
-"""The bf16 LSTM cell kernel (``csrc/bf16_lstm.cu``) on the card against its
-plain version (``ops.lstm_cell.bf16_lstm_scan_ref``) on the same card.
+"""The bf16 LSTM cell kernels (``csrc/bf16_lstm.cu``) on the card against
+their plain versions (``ops.lstm_cell``'s ``*_ref``) on the same card.
 
-* at a small shape (6 rows, 24 steps, 32 units), both directions, from a
-  zero and from a seeded carry, and every hidden width the kernel has an
-  instance of, uni- and bidirectional;
+* the forward, both variants (inference, and training, which also writes
+  z and c), at a small shape (6 rows, 24 steps, 32 units), both directions,
+  from a zero and from a seeded carry, and every hidden width the kernels
+  have an instance of, uni- and bidirectional;
 * at SkiM's full shape (642 rows, 250 steps, 128 units, two directions: the
   first SegLSTM of skim.yaml on 10 s of audio), from the inputs the model's
   bf16 forward gives the kernel and from injected carries;
-* a failed build raises, and so does a width the kernel has no instance of.
+* the backward at the small shapes, every width and SkiM's, on the
+  training forward's own z and c;
+* the running sum (weights and the windowed bias sum over 70 and 1,100
+  rows): bit-equal to its plain version, which does the same arithmetic in
+  the same order;
+* ``bf16_lstm``'s gradients on the card against the CPU's (the plain
+  versions), every cotangent;
+* a failed build raises, and so does a width the kernels have no instance
+  of.
 
-Tolerance rel-L2 1e-3 (``chip_smoke.py`` phase 22's): the kernel's dot runs
-on the tensor cores in another summation order than the plain version's
-float32 matmul, and a bfloat16 rounding that flips carries through the
-recurrence. Imports neither jax nor the JAX package (the card's host has
-neither); run with ``--noconftest``.
+Tolerance rel-L2 1e-3 (``chip_smoke.py`` phase 22's) for the forward
+scans: their dots run on the tensor cores in another summation order than
+the plain version's float32 matmul, and a bfloat16 rounding that flips
+carries through the recurrence. 5e-3 for the backward, 3x its readings
+(up to 1.66e-3 at SkiM's shape, on dh0, the rounding of one dot over 512
+terms): the same cause over four times as many terms, and the kernel's
+dot is the closer of the two to an exact one (``tests/bf16_cell_probe.py
+--variants``: 7.4e-4 against the plain version's 9.3e-4). 1e-2 for the
+gradients card against CPU, which carry the forward's flips and the
+backward's. The bit-equal share of each
+output is printed. Imports neither jax nor the JAX package (the card's host
+has neither); run with ``--noconftest``.
 """
 
 import numpy as np
@@ -23,6 +39,8 @@ import torch
 from sonicsim_tpu_torch.ops import lstm_cell
 
 REL = 1e-3
+BACKWARD_REL = 5e-3
+GRAD_REL = 1e-2
 
 
 @pytest.fixture
@@ -54,52 +72,122 @@ def inputs(n, k, h, dirs, seed, carry, device):
     return xp, w_hh, bias, h0, c0, [d == 1 for d in range(dirs)]
 
 
-def hold(args) -> list:
-    before = lstm_cell.LAUNCHES["bf16_lstm_scan"]
-    got = lstm_cell.bf16_lstm_scan(*args)
+def hold(args, keep=False) -> list:
+    name = "bf16_lstm_scan_train" if keep else "bf16_lstm_scan"
+    before = lstm_cell.LAUNCHES[name]
+    got = lstm_cell.bf16_lstm_scan(*args, keep=keep)
     torch.cuda.synchronize()
-    assert lstm_cell.LAUNCHES["bf16_lstm_scan"] == before + 1
-    ref = lstm_cell.bf16_lstm_scan_ref(*args)
-    assert all(g.dtype == torch.bfloat16 and g.shape == r.shape for g, r in zip(got, ref))
+    assert lstm_cell.LAUNCHES[name] == before + 1
+    ref = lstm_cell.bf16_lstm_scan_ref(*args, keep=keep)
+    return compare(got, ref)
+
+
+def compare(got, ref) -> list:
+    assert all(g.dtype == r.dtype and g.shape == r.shape for g, r in zip(got, ref))
     assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    print("bit-equal:", [float((g == r).float().mean()) for g, r in zip(got, ref)])
     return [rel_l2(g, r) for g, r in zip(got, ref)]
 
 
+def hold_backward(args) -> list:
+    """The backward on the training forward's (plain version's) z and c and
+    seeded cotangents, against its plain version."""
+    xp, w_hh, bias, h0, c0, reverse = args
+    y, hn, cn, z, c = lstm_cell.bf16_lstm_scan_ref(*args, keep=True)
+    g = torch.Generator(device=xp.device).manual_seed(5)
+    dy, dhn, dcn = (torch.randn(t.shape, generator=g, device=xp.device).bfloat16()
+                    for t in (y, hn, cn))
+    before = lstm_cell.LAUNCHES["bf16_lstm_scan_backward"]
+    got = lstm_cell.bf16_lstm_scan_backward(dy, dhn, dcn, z, c, w_hh, c0, reverse)
+    torch.cuda.synchronize()
+    assert lstm_cell.LAUNCHES["bf16_lstm_scan_backward"] == before + 1
+    return compare(got, lstm_cell.bf16_lstm_scan_backward_ref(dy, dhn, dcn, z, c, w_hh, c0,
+                                                              reverse))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("keep", [False, True], ids=["inference", "training"])
 @pytest.mark.parametrize("carry", [False, True], ids=["zero", "seeded"])
 @pytest.mark.parametrize("dirs", [1, 2])
-def test_kernel_matches_plain_small(cuda_device, dirs, carry):
-    dists = hold(inputs(6, 24, 32, dirs, 3 + dirs, carry, cuda_device))
+def test_kernel_matches_plain_small(cuda_device, dirs, carry, keep):
+    dists = hold(inputs(6, 24, 32, dirs, 3 + dirs, carry, cuda_device), keep)
     assert max(dists) <= REL, dists
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", lstm_cell.HIDDEN)
 def test_every_hidden_width(cuda_device, hidden):
-    dists = hold(inputs(21, 9, hidden, 2, hidden, True, cuda_device))
+    args = inputs(21, 9, hidden, 2, hidden, True, cuda_device)
+    dists = hold(args) + hold(args, keep=True)
     assert max(dists) <= REL, dists
+    dists = hold_backward(args)
+    assert max(dists) <= BACKWARD_REL, dists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", [False, True], ids=["zero", "seeded"])
+@pytest.mark.parametrize("dirs", [1, 2])
+def test_backward_matches_plain_small(cuda_device, dirs, carry):
+    dists = hold_backward(inputs(6, 24, 32, dirs, 7 + dirs, carry, cuda_device))
+    assert max(dists) <= BACKWARD_REL, dists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [70, 1100])
+def test_running_sum_is_its_plain_version(cuda_device, rows):
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    products = torch.randn(2, 9, 64, 40, generator=g, device=cuda_device)
+    dz = torch.randn(rows, 9, 128, generator=g, device=cuda_device).bfloat16()
+    before = lstm_cell.LAUNCHES["bf16_running_sum"]
+    got = lstm_cell.bf16_running_sum(products, dz, [False, True])
+    torch.cuda.synchronize()
+    assert lstm_cell.LAUNCHES["bf16_running_sum"] == before + 1
+    ref = lstm_cell.bf16_running_sum_ref(products, dz, [False, True])
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dirs", [1, 2])
+def test_layer_gradients_on_the_card_are_the_cpus(cuda_device, dirs):
+    rng = np.random.default_rng(dirs)
+    n, k, c_in, h = 37, 20, 24, 32
+    args = [rng.standard_normal((n, k, c_in)), 0.3 * rng.standard_normal((dirs, 4 * h, c_in)),
+            0.3 * rng.standard_normal((dirs, 4 * h, h)), 0.3 * rng.standard_normal((dirs, 4 * h)),
+            np.tanh(rng.standard_normal((dirs, n, h))), rng.standard_normal((dirs, n, h))]
+    cts = [rng.standard_normal((n, k, dirs * h)), rng.standard_normal((dirs, n, h)),
+           rng.standard_normal((dirs, n, h))]
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        ts = [torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16).requires_grad_()
+              for a in args]
+        out = lstm_cell.bf16_lstm(*ts, [d == 1 for d in range(dirs)])
+        torch.autograd.backward(out, [torch.from_numpy(np.asarray(a, np.float32)).to(
+            dev, torch.bfloat16) for a in cts])
+        grads[str(dev)] = [t.grad.cpu() for t in ts]
+    dists = compare(grads[str(cuda_device)], grads["cpu"])
+    print("rel-L2 (x, W_ih, W_hh, bias, h0, c0):", dists)
+    assert max(dists) <= GRAD_REL, dists
 
 
 def skim_inputs(device) -> tuple:
     """The kernel's arguments in skim.yaml's bf16 forward of 10 s of seeded
     noise on the card (``chip_smoke.seeded_zoo``'s weights)."""
     import chip_smoke
-    from sonicsim_tpu_torch.models import zoo_layers
     from sonicsim_tpu_torch.scripts.common import make_forward
 
     model = chip_smoke.seeded_zoo("SkiMNet", chip_smoke.ZOO_MODELS["SkiMNet"], 0).to(device)
-    seen, scan = [], zoo_layers.bf16_lstm_scan
+    seen, scan = [], lstm_cell.bf16_lstm_scan
 
-    def record(*args):
+    def record(*args, **kwargs):
         seen.append(args)
-        return scan(*args)
+        return scan(*args, **kwargs)
 
-    zoo_layers.bf16_lstm_scan = record
+    lstm_cell.bf16_lstm_scan = record
     try:
         x = 0.1 * torch.randn(1, 160000, generator=torch.Generator().manual_seed(0))
         make_forward(model, bf16=True)(x.to(device))
     finally:
-        zoo_layers.bf16_lstm_scan = scan
+        lstm_cell.bf16_lstm_scan = scan
     assert len(seen) == 1  # skim.yaml: the first SegLSTM alone has a bfloat16 carry
     return seen[0]
 
@@ -113,8 +201,11 @@ def test_kernel_matches_plain_at_skim_shape(cuda_device, carry):
         g = torch.Generator(device=cuda_device).manual_seed(1)
         h0 = torch.tanh(torch.randn(h0.shape, generator=g, device=cuda_device)).bfloat16()
         c0 = torch.randn(c0.shape, generator=g, device=cuda_device).bfloat16()
-    dists = hold((xp, w_hh, bias, h0, c0, reverse))
+    args = (xp, w_hh, bias, h0, c0, reverse)
+    dists = hold(args) + hold(args, keep=True)
     assert max(dists) <= REL, dists
+    dists = hold_backward(args)
+    assert max(dists) <= BACKWARD_REL, dists
 
 
 @pytest.mark.cuda
