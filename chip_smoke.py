@@ -211,11 +211,22 @@ Phases, one line each:
     running sum bit-equal), each timed beside its plain version and the
     autograd of cuDNN's bf16 LSTM over the same layer (another function);
     (e) that step is their main path: one launch of each per bf16-carry
-    SegLSTM and step, no inference scan, none in the float32 step; its
-    gradients against the port's CPU step on a 0.5 s window within rel-L2
-    0.05; its ms/step, bf16 and fp32. The zoo (phase 11) launches the
+    SegLSTM and step, the running sum's float32-dz instance once per
+    float32-carry LSTM layer and step, no inference scan, none in the
+    float32 step; its gradients against the port's CPU step on a 0.5 s
+    window within rel-L2 0.05; its ms/step, bf16 and fp32; (f) DPRNN's
+    (dprnn.yaml) and SkiM's bf16 train steps at B=2 x 4 s through the
+    float32-carry LSTMs' bf16 running sums (``ops.lstm_cell.f32_carry_lstm``,
+    ROADMAP C25): the float32-dz running sum once per float32-carry layer
+    call, ms/step beside the same step with cuDNN's float32 weight gradients
+    (in turns), the gradients against the port's CPU step on a 0.5 s window
+    within rel-L2 1e-2 per leaf group (the float32-carry LSTMs', every
+    leaf), and the running sum's float32-dz form bit-equal to its plain
+    version on DPRNN's arguments, timed. The zoo (phase 11) launches the
     inference kernel in SkiM's bf16 serving and separation training (phase
-    15) the training kernels in SkiM's bf16 steps; no other phase does.
+    15) the training kernels in SkiM's bf16 steps; the bf16 train steps of
+    phases 14, 15 and 18 launch the float32-dz running sum for their
+    float32-carry LSTMs; no other phase launches any.
 
 Phases 14, 15 and 18 run right after phase 10. Each of their step checks
 runs its two sides on the card there and hands its three CPU sides (the
@@ -622,14 +633,25 @@ RNN_BF16_REL = 1e-4  # rel-L2: a bf16 recurrent layer on the card against the CP
 # the DPTNet and SkiM bf16 forwards' times; (d) the training kernels against
 # their plain versions on the arguments SkiM's bf16 train step at B=2 x
 # ``train_s`` gives them, timed; (e) that step's launches, its gradients
-# against the CPU's on a ``check_s`` window, and its ms/step. Budget: 60 s.
+# against the CPU's on a ``check_s`` window, and its ms/step; (f) the bf16
+# train steps of ``carry_models`` through the float32-carry LSTMs' bf16
+# weight gradients (``ops.lstm_cell.f32_carry_lstm``): the running sum's
+# launches (its float32-dz instance, one a float32-carry layer and step),
+# ms/step beside the same step with cuDNN's float32 weight gradients, the
+# gradients against the CPU's by leaf group, and the running sum against its
+# plain version on a DPRNN layer's arguments. Budget: 100 s.
 BF16_CELL = dict(seed=0, window_s=10.0, reps=20, warmup=3, model_reps=3, train_s=4.0,
-                 step_reps=5, check_s=0.5, plain_reps=5)
+                 step_reps=5, check_s=0.5, plain_reps=5,
+                 carry_models={"dprnn": "DPRNNTasNet", "skim": "SkiMNet"})
 CELL_REL = 1e-3  # rel-L2: the kernel against its plain version on the card
 # rel-L2: the backward kernel against its plain version, 3x its readings: its
 # dh0 is one dot over 512 terms rounded (tests/test_torch_bf16_cell_cuda.py)
 CELL_BACKWARD_REL = 5e-3
 CELL_STEP_REL = 0.05  # rel-L2: SkiM's bf16 step gradients, card vs CPU (the bf16 gate)
+CARRY_STEP_REL = 1e-2  # rel-L2 a leaf group: (f)'s bf16 step gradients, card vs CPU
+CARRY_REPLACES = ("none: the bf16 weight and bias accumulators of the VJP of flax's "
+                  "float32-carry OptimizedLSTMCell scan on bf16 parameters that XLA computes "
+                  "(jax.grad of make_train_step's bf16 loss), sonicsim_tpu/models/zoo_layers.py:147")
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SOURCE = "sonicsim_tpu_torch/csrc/segment_select.cu"
@@ -4963,9 +4985,177 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
           f"{times['SkiMNet']:.4f} ms, DPTNet {times['DPTNetModel']:.4f} ms (CUDA-event "
           f"medians of {cfg['model_reps']}); {smi}", flush=True)
     train = _bf16_cell_training(device, cfg, zoo_models["SkiMNet"], weights, folders, smi)
+    carry = _f32_carry_steps(device, cfg, zoo_models, {"SkiMNet": weights}, folders, smi)
+    train["kernels"]["bf16_running_sum_f32dz"] = carry.pop("kernel")
     return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
                 flops=flops, cudnn_ms=cudnn_ms, err=max(h["err"] for h in holds.values()),
-                holds=holds, rel_cpu=rel_cpu, times=times, train=train)
+                holds=holds, rel_cpu=rel_cpu, times=times, train=train, carry=carry)
+
+
+@contextlib.contextmanager
+def _carry_layers():
+    """The float32-carry LSTM layers a bf16 train step trains on bfloat16
+    weights (``ops.lstm_cell.f32_carry_lstm``), one entry a call."""
+    from sonicsim_tpu_torch.models import zoo_layers
+
+    calls, run = [], zoo_layers.f32_carry_lstm
+
+    def record(*args):
+        calls.append(tuple(args[0].shape))
+        return run(*args)
+
+    zoo_layers.f32_carry_lstm = record
+    try:
+        yield calls
+    finally:
+        zoo_layers.f32_carry_lstm = run
+
+
+def _f32_carry_steps(device, cfg, zoo_models, weights, folders, smi) -> dict:
+    """Phase 22 (f): each of ``carry_models``' bf16 train step (its config's
+    optimizer and clip, PIT neg-SNR) at B=2 x ``train_s`` of phase 8's
+    split, through the float32-carry LSTMs' bf16 weight gradients: one step
+    with every launch counted from a reset just before it (the running
+    sum's float32-dz instance once per float32-carry layer call, the bf16
+    cell's kernels only where a carry is bfloat16); ms/step, and the same
+    step with cuDNN's float32 weight gradients (``zoo_layers.
+    _trains_bf16_weights`` off), in turns; the card's gradients against the
+    port's CPU step on a ``check_s`` window by leaf group (the float32-carry
+    LSTMs', every leaf); the running sum on the arguments of the first
+    float32-carry layer that DPRNN's backward reaches (its last layer)
+    against its plain version, timed. ``weights``:
+    seeded state by model name, else seeded here."""
+    import torch
+
+    from sonicsim_tpu_torch.dataset import MovingDataModule
+    from sonicsim_tpu_torch.models import zoo_layers
+    from sonicsim_tpu_torch.ops import lstm_cell
+
+    split = folders[0].parent.parent
+    dm = MovingDataModule(train_dir=str(split), val_dir=str(split), test_dir=str(split),
+                          duration=cfg["train_s"], num_samples=2, batch_size=2,
+                          seed=cfg["seed"])
+    mix, tgt = next(iter(dm.train_batches(0)))
+    x, y = torch.from_numpy(mix).to(device), torch.from_numpy(tgt).to(device)
+    xc, yc = _loudest_window(mix, tgt, 2, int(cfg["check_s"] * SR))
+    originals = {"sum": lstm_cell.bf16_running_sum, "gate": zoo_layers._trains_bf16_weights}
+    seen = []
+
+    def record_sum(*a, **kw):
+        if a[1].dtype == torch.float32 and not seen:
+            seen.append(a)
+        return originals["sum"](*a, **kw)
+
+    out = {}
+    for stem, name in cfg["carry_models"].items():
+        marks = [time.perf_counter()]
+        w = weights.get(name)
+        if w is None:
+            w = seeded_zoo(name, zoo_models[name], cfg["seed"]).state_dict()
+        fresh = sep_train_fresh(stem, w, dict(SEP_TRAIN, models={name: zoo_models[name]}))
+        model, step = fresh(device, precision="bf16")
+        lstm_cell.reset_launch_counts()
+        lstm_cell.bf16_running_sum = record_sum
+        try:
+            with _carry_layers() as carry:
+                loss = float(step(x, y))
+                sync(device)
+        finally:
+            lstm_cell.bf16_running_sum = originals["sum"]
+        launches = dict(lstm_cell.LAUNCHES)
+        check(np.isfinite(loss), f"{name} bf16 step: loss {loss}")
+        if device.type == "cuda":
+            check(len(carry) > 0 and launches["bf16_running_sum_f32dz"] == len(carry)
+                  and not launches["bf16_lstm_scan"],
+                  f"{name}'s bf16 train step: {len(carry)} float32-carry layer calls, "
+                  f"launches {launches}")
+        else:
+            check(not any(launches.values()), f"{name} on the CPU launched {launches}")
+        marks.append(time.perf_counter())
+        ms = {"repaired": [], "float32 sums": []}
+        for turn in ("repaired", "float32 sums", "repaired", "float32 sums"):
+            if turn == "float32 sums":
+                zoo_layers._trains_bf16_weights = lambda run, ws: False
+            try:
+                ms[turn].append(median_ms(lambda: step(x, y), device, reps=cfg["step_reps"],
+                                          warmup=1))
+            finally:
+                zoo_layers._trains_bf16_weights = originals["gate"]
+        del model, step
+        marks.append(time.perf_counter())
+        grads = {}
+        for dev in (device, torch.device("cpu")):
+            m, st = fresh(dev, precision="bf16")
+            with cpu_reference() if dev.type == "cpu" else contextlib.nullcontext():
+                st(xc.to(dev), yc.to(dev))
+            groups = _carry_leaf_groups(m)
+            grads[dev.type] = {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()
+                               if p.grad is not None}
+            del m, st
+        rels = {}
+        for group, names in groups.items():
+            names = [n for n in names if n in grads["cpu"]]
+            rels[group] = _rel_l2(*(torch.cat([grads[k][n].reshape(-1) for n in names])
+                                    for k in (device.type, "cpu")))
+        worst = max(_rel_l2(grads[device.type][n], grads["cpu"][n]) for n in grads["cpu"])
+        check(max(rels.values()) <= CARRY_STEP_REL,
+              f"{name} bf16 step gradients card vs CPU by leaf group: {rels} (tol "
+              f"{CARRY_STEP_REL})")
+        marks.append(time.perf_counter())
+        walls = "/".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+        out[name] = dict(launches=launches, calls=len(carry), ms=ms, rels=rels, worst=worst)
+        print(f"bf16-cell[(f) {name}]: bf16 train step ({stem}.yaml), B=2 x "
+              f"{cfg['train_s']:g} s, {len(carry)} float32-carry LSTM layer call(s): launches "
+              f"{launches} in one step (the float32-dz running sum's main path); ms/step "
+              f"{[round(v, 4) for v in ms['repaired']]} with the bf16 running sums, "
+              f"{[round(v, 4) for v in ms['float32 sums']]} with cuDNN's float32 weight "
+              f"gradients (CUDA-event medians of {cfg['step_reps']}, in turns); its gradients "
+              f"on the card vs the port's CPU step on B=2 x {cfg['check_s']:g} s: rel-L2 "
+              f"{ {k: float(f'{v:.4g}') for k, v in rels.items()} } (tol {CARRY_STEP_REL} a "
+              f"group), worst leaf {worst:.4g}; host wall {walls} s (step / times / CPU "
+              f"check); {smi}", flush=True)
+    check(bool(seen), "(f): no float32-carry running sum was recorded")
+    products, dz, reverse = seen[0][:3]
+    with torch.inference_mode():
+        kern = lstm_cell.bf16_running_sum(products, dz, reverse)
+        sync(device)
+        hold = _hold_kernel(kern, lstm_cell.bf16_running_sum_ref(products, dz, reverse), device)
+        check(max(hold["rels"]) == 0.0, f"bf16_running_sum (float32 dz) vs its plain version "
+                                         f"(the same arithmetic): {hold}")
+        ms_k = burst_ms(lambda: lstm_cell.bf16_running_sum(products, dz, reverse), device,
+                        reps=cfg["reps"], warmup=cfg["warmup"])
+        ms_p = median_ms(lambda: lstm_cell.bf16_running_sum_ref(products, dz, reverse), device,
+                         reps=cfg["plain_reps"], warmup=1)
+    dirs, k, gates, m = products.shape
+    nbytes = 4 * products.numel() + 4 * dz.numel() + 2 * dirs * gates * (m + 1)
+    bound_ms, bound_by = _bytes_bound(nbytes, 0)
+    launches = sum(r["launches"]["bf16_running_sum_f32dz"] for r in out.values())
+    print(f"bf16-cell[(f) bf16_running_sum_f32dz]: on the arguments of the first float32-carry "
+          f"layer that {next(iter(cfg['carry_models'].values()))}'s backward reaches (its last "
+          f"layer; N={dz.shape[0]} rows, K={k} steps, 4H="
+          f"{gates}, H + C={m}, {dirs} direction(s)) against its plain version on {device}: "
+          f"rel-L2 {hold['rels']} (tol 0), max abs err {hold['err']:.3g}; kernel {ms_k:.4f} ms "
+          f"(CUDA events around {cfg['reps']} launches in a row, median of 3 runs), plain "
+          f"{ms_p:.4f} ms (median of {cfg['plain_reps']}); bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:g} TB/s); {launches} launch(es) in "
+          f"(f)'s steps; {smi}", flush=True)
+    out["kernel"] = dict(launches=launches, ms=ms_k, plain_ms=ms_p, bytes=nbytes, flops=0,
+                         bound_ms=bound_ms, bound_by=bound_by, err=hold["err"],
+                         rels=hold["rels"], equal=hold["equal"], cudnn_ms=None)
+    return out
+
+
+def _carry_leaf_groups(model) -> dict:
+    """Parameter names of ``model`` by leaf group: the LSTM layers whose carry
+    is float32 in a bf16 step (every ``LSTMLayer`` but SkiM's first
+    SegLSTM's, whose carry is bfloat16), and every leaf."""
+    from sonicsim_tpu_torch.models import zoo_layers
+
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    lstm = [m for m, mod in model.named_modules() if isinstance(mod, zoo_layers.LSTMLayer)
+            and not m.endswith("seg_lstms.0.lstm")]
+    carry = [n for n in names if any(n.startswith(m + ".") for m in lstm)]
+    return {"float32-carry LSTMs": carry, "every leaf": names}
 
 
 def _bytes_bound(nbytes: int, flops: int) -> tuple:
@@ -5022,7 +5212,8 @@ def _bf16_cell_training(device, cfg, args, weights, folders, smi) -> dict:
 
     def recorder(name):
         def call(*a, **kw):
-            seen.setdefault(name + ("_train" if kw.get("keep") else ""), (a, kw))
+            if name != "bf16_running_sum" or a[1].dtype == torch.bfloat16:  # the cell's
+                seen.setdefault(name + ("_train" if kw.get("keep") else ""), (a, kw))
             return originals[name](*a, **kw)
         return call
 
@@ -5032,13 +5223,15 @@ def _bf16_cell_training(device, cfg, args, weights, folders, smi) -> dict:
         setattr(lstm_cell, n, recorder(n))
     lstm_cell.reset_launch_counts()
     try:
-        loss = float(step(x, y))
-        sync(device)
+        with _carry_layers() as carry:
+            loss = float(step(x, y))
+            sync(device)
     finally:
         for n, f in originals.items():
             setattr(lstm_cell, n, f)
     launches = dict(lstm_cell.LAUNCHES)
-    want = {"bf16_lstm_scan": 0, **{n: n_cells for n in train_names}}
+    want = {"bf16_lstm_scan": 0, **{n: n_cells for n in train_names},
+            "bf16_running_sum_f32dz": len(carry)}
     check(launches == want if device.type == "cuda" else not any(launches.values()),
           f"SkiM's bf16 train step launched {launches}, expected {want}")
     check(np.isfinite(loss), f"SkiM bf16 step: loss {loss}")
@@ -5157,7 +5350,8 @@ def _bf16_cell_training(device, cfg, args, weights, folders, smi) -> dict:
           f"(another function: float32 cell), forward and backward, {cudnn_ms:.4f} ms; {smi}",
           flush=True)
     print(f"bf16-cell[(e)]: SkiM (skim.yaml) bf16 train step, B=2 x {cfg['train_s']:g} s, "
-          f"{n_cells} bf16-carry SegLSTM(s): launches {launches} in one step (the kernels' main "
+          f"{n_cells} bf16-carry SegLSTM(s), {len(carry)} float32-carry LSTM layer call(s): "
+          f"launches {launches} in one step (the kernels' main "
           f"path), {f32_launches} in the fp32 step; {ms16:.4f} ms/step bf16, {ms32:.4f} fp32 "
           f"(CUDA-event medians of {cfg['step_reps']}); "
           f"its bf16 gradients on the card vs the port's CPU step on B=2 x {cfg['check_s']:g} "
@@ -5305,13 +5499,22 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"separation training launched a render kernel or the inference scan: {sep_training}")
     if device.type == "cuda":
         check(all(sep_training[k] > 0 for k in ("bf16_lstm_scan_train", "bf16_lstm_scan_backward",
-                                                "bf16_running_sum")),
+                                                "bf16_running_sum", "bf16_running_sum_f32dz")),
               f"SkiM's bf16 train step (phase 15) did not run the cell's kernels: {sep_training}")
+    # The bf16 train steps of enhancement training (phase 14) and the
+    # variants (phase 18) run the running sum's float32-dz instance through
+    # their float32-carry LSTMs (phase 22 (f)), and no other kernel; the
+    # other paths serve or train in float32 and launch none.
+    for path, c in (("enhancement training", enh_training), ("the variants", variants)):
+        check(not any(v for k, v in c.items() if k != "bf16_running_sum_f32dz"),
+              f"{path} launched a kernel other than the float32-dz running sum: {c}")
+        if device.type == "cuda":
+            check(c["bf16_running_sum_f32dz"] > 0,
+                  f"{path}: no bf16 train step ran the float32-dz running sum: {c}")
     for path, c in (("serving", serving), ("training", training),
                     ("SkiM streaming", streaming), ("the enhancement zoo", enhancement),
-                    ("enhancement training", enh_training),
                     ("the evaluation sidecars", eval_sidecars),
-                    ("the sidecar models", sidecar_models), ("the variants", variants),
+                    ("the sidecar models", sidecar_models),
                     ("the optimizers and the remix fit", adapters),
                     ("the import, the optax keywords and the bf16 layers", imports)):
         check(not any(c.values()), f"{path} launched a kernel: {c}")
@@ -5330,9 +5533,15 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
           f"(phase 22 (b)): {cell['launches']}, and in the zoo (phase 11, SkiM's bf16 "
           f"serving) {zoo['bf16_lstm_scan']}; the training forward, backward and running sum "
           f"in SkiM's bf16 train step (phase 22 (e)): "
-          f"{ {k: v['launches'] for k, v in cell['train']['kernels'].items()} }, and in "
+          f"{ {k: v['launches'] for k, v in cell['train']['kernels'].items() if 'f32dz' not in k} }"
+          f", and in "
           f"separation training (phase 15, SkiM's bf16 steps) "
-          f"{ {k: v for k, v in sep_training.items() if k.startswith('bf16')} }; serving (phase 9) launches "
+          f"{ {k: v for k, v in sep_training.items() if k.startswith('bf16')} }; the running "
+          f"sum's float32-dz instance (the float32-carry LSTMs of a bf16 step) in phase 22 "
+          f"(f): { {k: v['launches']['bf16_running_sum_f32dz'] for k, v in cell['carry'].items()} }"
+          f", in enhancement training (phase 14) {enh_training['bf16_running_sum_f32dz']}, in "
+          f"the variants (phase 18) {variants['bf16_running_sum_f32dz']}; serving (phase 9) "
+          f"launches "
           f"no kernel: {serving}, nor does training (phase 10): {training}, nor "
           f"the zoo (phase 11) a render kernel: {zoo}, nor SkiM streaming (phase 12): {streaming}, nor the "
           f"enhancement zoo (phase 13): {enhancement}, nor enhancement training (phase 14): "
@@ -5381,7 +5590,8 @@ def run(device, smi, head_cfg=HEADLINE, mix_cfg=MIXTURE, bank_cfg=BANK,
         "name": name,
         "route": "cuda",
         "source": CELL_SOURCE,
-        "replaces": "none: the VJP of flax's bf16 OptimizedLSTMCell scan that XLA computes "
+        "replaces": CARRY_REPLACES if name == "bf16_running_sum_f32dz" else
+                    "none: the VJP of flax's bf16 OptimizedLSTMCell scan that XLA computes "
                     "(jax.grad of make_train_step's bf16 loss), sonicsim_tpu/models/skim.py:52",
         "launches": k["launches"],
         "max_abs_err": k["err"],

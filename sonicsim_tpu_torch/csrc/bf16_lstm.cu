@@ -24,26 +24,25 @@
 // Four kernels:
 //  * bf16_lstm_scan_kernel<H, false>: the forward;
 //  * bf16_lstm_scan_kernel<H, true>: the forward that also writes each
-//    step's rounded pre-activations z and cells c', which the backward reads
-//    (it recomputes the gates from z, with the same arithmetic, so exactly);
+//    step's rounded gates i, f, g, o and cells c', which the backward reads;
 //  * bf16_lstm_scan_backward_kernel<H>: the reverse scan, one product
 //    dh_prev = rnd(dz . W_hh) a step;
 //  * bf16_running_sum_kernel: the weight and bias gradients accumulated in
 //    bfloat16 over the steps in the JAX transpose loop's order.
 //
-// Design of the scans. One CTA per (tile of 16 rows, direction), H / 8
-// warps: the rows' recurrences are independent, so the tiles run in
-// parallel and each walks its K steps alone. A step's product is one
-// m16 x n x k tile on the tensor cores (mma.sync m16n8k16, bf16 in, float32
-// out); each k tile's product is summed from zero on the tensor cores and
-// the k tiles' sums added in float32 here, since the tensor cores' own
-// float32 accumulation rounds less exactly than an add and a rounded gate
-// that flips carries through the recurrence. Warp w owns hidden units
-// [8w, 8w + 8) of all four gates, so the i, f, g and o of one (row, unit)
-// meet in one thread, which keeps c (and in the backward dc) in registers;
-// its slice of W_hh (64 registers at H = 128) stays in registers for the
-// whole scan. The step's new h (dz in the backward) goes to shared memory,
-// double-buffered, as the next step's A operand: one barrier a step.
+// Design of the forward scan (the backward's is at its kernel). One CTA per
+// (tile of 16 rows, direction), H / 8 warps: the rows' recurrences are
+// independent, so the tiles run in parallel and each walks its K steps
+// alone. A step's product is one m16 x n x k tile on the tensor cores
+// (mma.sync m16n8k16, bf16 in, float32 out); each k tile's product is summed
+// from zero on the tensor cores and the k tiles' sums added in float32 here,
+// since the tensor cores' own float32 accumulation rounds less exactly than
+// an add and a rounded gate that flips carries through the recurrence. Warp
+// w owns hidden units [8w, 8w + 8) of all four gates, so the i, f, g and o
+// of one (row, unit) meet in one thread, which keeps c in registers; its
+// slice of W_hh (64 registers at H = 128) stays in registers for the whole
+// scan. The step's new h goes to shared memory, double-buffered, as the next
+// step's A operand: one barrier a step.
 //
 // What bounds a step at SkiM's shapes (a 250-step dependence chain; the
 // bytes are 0.12 ms, the products 0.04 ms) is the rounded gate chain: three
@@ -53,7 +52,7 @@
 // those same functions (24 KB of shared memory); a step then reads five
 // entries per (row, unit) and computes directly only outside that window,
 // bit for bit the same values. A step's inputs (the forward's projection
-// tile, the backward's z, c and dy tiles) come through a ring of four
+// tile, the backward's gate, c and dy tiles) come through a ring of four
 // cp.async stages in shared memory, three steps ahead, off the chain; its
 // outputs (y, dz) leave from shared memory in 16-byte stores.
 
@@ -63,7 +62,8 @@
 
 namespace {
 
-constexpr int kRows = 16;     // rows of a tile: the m of mma.m16n8k16
+constexpr int kRows = 16;     // rows of a forward tile: the m of mma.m16n8k16
+constexpr int kBackRows = 8;  // rows of a backward tile: the n of mma.m16n8k16
 constexpr int kStages = 4;    // the forward's projection ring
 constexpr int kExpLo = 111;   // the gate tables: bf16 exponents [111, 135),
 constexpr int kExps = 24;     // |z| in [2^-16, 2^8)
@@ -107,6 +107,13 @@ __device__ void fill_tables(uint16_t* sig, uint16_t* tnh, int threads) {
     const float z = table_input(i);
     sig[i] = uint16_t(bits(sigmoid_rounded(z)));
     tnh[i] = uint16_t(bits(tanh_rounded(z)));
+  }
+}
+
+// The tanh table alone: the backward looks up tanh(c') and no sigmoid.
+__device__ void fill_tanh(uint16_t* tnh, int threads) {
+  for (int i = threadIdx.x; i < kTable; i += threads) {
+    tnh[i] = uint16_t(bits(tanh_rounded(table_input(i))));
   }
 }
 
@@ -160,7 +167,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // xp (N, K, D*4H), y (N, K, D*H), w_hh (D, 4H, H), bias (D, 4H),
-// h0/c0/hn/cn (D, N, H), with TRAIN z_out (N, K, D*4H) and c_out (N, K, D*H):
+// h0/c0/hn/cn (D, N, H), with TRAIN z_out (N, K, D*4H: the gates i, f, g, o
+// as rounded) and c_out (N, K, D*H):
 // bfloat16 bits, contiguous. Bit d of reverse_mask walks direction d from
 // step K-1 down to 0.
 //
@@ -363,7 +371,7 @@ bf16_lstm_scan_kernel(const uint16_t* __restrict__ xp,
         const int64_t zr = (int64_t(row) * k_len + t) * xs + int64_t(d) * G + u;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          *reinterpret_cast<uint32_t*>(z_out + zr + q * H) = pack2(z[0][q], z[1][q]);
+          *reinterpret_cast<uint32_t*>(z_out + zr + q * H) = pack2(gv[0][q], gv[1][q]);
         }
         *reinterpret_cast<uint32_t*>(c_out + (int64_t(row) * k_len + t) * ys +
                                      int64_t(d) * H + u) = pack2(cnew[0], cnew[1]);
@@ -385,17 +393,36 @@ bf16_lstm_scan_kernel(const uint16_t* __restrict__ xp,
 }
 
 // The scan's VJP. dy (N, K, D*H), dhn/dcn/c0/dh0/dc0 (D, N, H), the training
-// forward's z (N, K, D*4H) and c (N, K, D*H), w_hh (D, 4H, H), dz (N, K,
-// D*4H): bfloat16 bits, contiguous. Each (tile, direction) walks its steps
-// from the last back to the first; a step reads that step's z, c and dy and
-// the previous step's c (c0 at the first), takes dh from the product of the
-// step after it, rnd(dz_{t+1} . W_hh) on the tensor cores, and writes dz.
+// forward's gates (N, K, D*4H: i, f, g, o as it rounded them) and c (N, K,
+// D*H), w_hh (D, 4H, H), dz (N, K, D*4H): bfloat16 bits, contiguous. Each
+// (tile of 8 rows, direction) walks its steps from the last back to the
+// first; a step reads that step's gates, c and dy and the previous step's c
+// (c0 at the first), takes dh from the product of the step after it,
+// rnd(dz_{t+1} . W_hh) on the tensor cores, and writes dz.
+//
+// The design (the earlier form, 16-row tiles that recomputed every gate from
+// its pre-activation, timed with one part of its step taken out at a time:
+// tests/bf16_cell_probe.py --backward-variants):
+//  * the gates come from the training forward as it rounded them, so a
+//    step looks up tanh(c') alone, not five functions a cell;
+//  * 8-row tiles: 16-row tiles left half the SMs idle (130 CTAs at SkiM's
+//    516 rows, two directions, where 16-row tiles made 66);
+//  * the product is dh^T = W_hh^T . dz^T: the mma's 16 rows are units, its 8
+//    columns a tile's rows, so no row of it is padding; warp pair (w, w + H /
+//    16) holds W_hh^T for units [16 w, 16 w + 16) in registers, each warp
+//    half the k tiles, and the pair adds its two float32 sums (a named
+//    barrier each step); each warp then takes 8 of the 16 units. A chain of
+//    KT / 2 k tiles a step, not KT;
+//  * the previous step's c is the next walk position's, already in the
+//    cp.async ring.
+// Each k tile's product is still summed from zero on the tensor cores and
+// the tiles' sums added in float32.
 template <int H>
 __global__ void __launch_bounds__(4 * H, 1)
 bf16_lstm_scan_backward_kernel(const uint16_t* __restrict__ dy,
                                const uint16_t* __restrict__ dhn,
                                const uint16_t* __restrict__ dcn,
-                               const uint16_t* __restrict__ z,
+                               const uint16_t* __restrict__ gates,
                                const uint16_t* __restrict__ c,
                                const uint16_t* __restrict__ w_hh,
                                const uint16_t* __restrict__ c0,
@@ -403,218 +430,196 @@ bf16_lstm_scan_backward_kernel(const uint16_t* __restrict__ dy,
                                uint16_t* __restrict__ dc0, int n, int k_len, int dirs,
                                unsigned reverse_mask) {
   constexpr int G = 4 * H;
-  constexpr int KT = G / 16;      // k tiles of dz . W_hh
-  constexpr int THREADS = 4 * H;  // H / 8 warps
-  constexpr int ZLD = G + 8;      // z and dz row stride in shared memory
+  constexpr int KH = G / 32;      // k tiles of dz . W_hh a warp: half of them
+  constexpr int THREADS = 4 * H;  // H / 8 warps: H / 16 pairs
+  constexpr int UG = H / 16;      // unit groups of 16, one a warp pair
+  constexpr int ROWS = kBackRows;
+  constexpr int CELLS = 2;        // a thread's cells: rows 2 tq, 2 tq + 1, one unit
+  constexpr int ZLD = G + 8;      // gate and dz row stride in shared memory
   constexpr int CLD = H + 8;      // c and dy row stride in shared memory
+  constexpr int CTHREADS = ROWS * H / 8;  // threads that copy a c and a dy chunk
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* zring = reinterpret_cast<uint16_t*>(smem);  // [kStages][kRows][ZLD]
-  uint16_t* cring = zring + kStages * kRows * ZLD;      // [kStages][kRows][CLD]
-  uint16_t* gring = cring + kStages * kRows * CLD;      // [kStages][kRows][CLD], dy
-  uint16_t* sz = gring + kStages * kRows * CLD;         // [2][kRows][ZLD]
-  uint16_t* sig = sz + 2 * kRows * ZLD;                 // [kTable]
-  uint16_t* tnh = sig + kTable;                         // [kTable]
+  uint16_t* zring = reinterpret_cast<uint16_t*>(smem);  // [kStages][ROWS][ZLD], gates
+  uint16_t* cring = zring + kStages * ROWS * ZLD;       // [kStages][ROWS][CLD]
+  uint16_t* gring = cring + kStages * ROWS * CLD;       // [kStages][ROWS][CLD], dy
+  uint16_t* sz = gring + kStages * ROWS * CLD;          // [2][ROWS][ZLD]
+  uint16_t* tnh = sz + 2 * ROWS * ZLD;                  // [kTable]
+  float* xch = reinterpret_cast<float*>(tnh + kTable);  // [UG][2][32][CELLS]
 
   const int d = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
+  const int r0 = blockIdx.x * ROWS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int u = warp * 8 + 2 * tq;
+  const int ug = warp % UG, kh = warp / UG;
+  const int uc = 16 * ug + gq + 8 * kh;  // the thread's unit
   const bool rev = (reverse_mask >> d) & 1u;
   const int64_t zs = int64_t(dirs) * G, ys = int64_t(dirs) * H;
 
-  // B[k][col] = W_hh[k][col]: k a gate row, col a unit 8 warp + gq; the
+  // A[m][k] = W_hh[k][16 ug + m] for this warp's half of the k tiles: the
   // pair (k, k + 1) is H apart in W_hh.
-  uint32_t bw[KT][2];
-  const uint16_t* wd = w_hh + int64_t(d) * G * H + warp * 8 + gq;
+  uint32_t wa[KH][4];
+  const uint16_t* wd = w_hh + int64_t(d) * G * H + 16 * ug + gq;
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
+  for (int i = 0; i < KH; ++i) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int k = kt * 16 + 8 * half + 2 * tq;
-      bw[kt][half] = uint32_t(wd[int64_t(k) * H]) | (uint32_t(wd[int64_t(k + 1) * H]) << 16);
+    for (int f = 0; f < 4; ++f) {
+      const int k = (kh * KH + i) * 16 + 2 * tq + 8 * (f >> 1), m = 8 * (f & 1);
+      wa[i][f] = uint32_t(wd[int64_t(k) * H + m]) | (uint32_t(wd[int64_t(k + 1) * H + m]) << 16);
     }
   }
-  fill_tables(sig, tnh, THREADS);
-  // A step's z and dz tiles are 16 rows x G / 8 16-byte chunks, two a
-  // thread: rows zrow and zrow + 8, chunk zc8; its c and dy tiles 16 rows x
-  // H / 8 chunks, one for each of the first 2H threads. Their addresses, but
-  // for the step's offset, are fixed for the scan.
+  fill_tanh(tnh, THREADS);
+  // A step's gate and dz tiles are 8 rows x G / 8 16-byte chunks, one a
+  // thread: row zrow, chunk zc8; its c and dy tiles 8 rows x H / 8 chunks,
+  // one for each of the first CTHREADS threads. Their addresses, but for
+  // the step's offset, are fixed for the scan.
   const int zrow = threadIdx.x / (G / 8), zc8 = threadIdx.x % (G / 8);
   const int crow = threadIdx.x / (H / 8), cc8 = threadIdx.x % (H / 8);
-  const bool cthread = threadIdx.x < 2 * H;
-  uint16_t* zdst[2];
-  const uint16_t* zsrc[2];
-  bool zstore[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int row = r0 + zrow + 8 * j;
-    zstore[j] = row < n;
-    zdst[j] = dz + int64_t(row) * k_len * zs + int64_t(d) * G + zc8 * 8;
-    zsrc[j] = z + int64_t(min(row, n - 1)) * k_len * zs + int64_t(d) * G + zc8 * 8;
-  }
-  const int64_t cbase = int64_t(min(r0 + crow, n - 1)) * k_len * ys + int64_t(d) * H + cc8 * 8;
+  const bool cthread = threadIdx.x < CTHREADS;
+  const bool zstore = r0 + zrow < n;
+  uint16_t* const zdst = dz + int64_t(r0 + zrow) * k_len * zs + int64_t(d) * G + zc8 * 8;
+  const uint16_t* const zsrc =
+      gates + int64_t(min(r0 + zrow, n - 1)) * k_len * zs + int64_t(d) * G + zc8 * 8;
+  const int crow_n = min(r0 + crow, n - 1);
+  const int64_t cbase = int64_t(crow_n) * k_len * ys + int64_t(d) * H + cc8 * 8;
+  const int64_t c0base = (int64_t(d) * n + crow_n) * H + cc8 * 8;
   const int cbytes = r0 + crow < n ? 16 : 0;
-  // Walk position p's z, c and dy tiles (step K - 1 - p) into ring slot p %
-  // kStages, zeros for rows past n.
+  // Walk position p's gate, c and dy tiles (step K - 1 - p) into ring slot
+  // p % kStages, zeros for rows past n; position K is c0 alone, the c that
+  // the first step read.
   auto issue = [&](int p) {
-    const int s = k_len - 1 - p, t = rev ? k_len - 1 - s : s;
     const int slot = p % kStages;
-    uint16_t* zslot = zring + slot * kRows * ZLD + zrow * ZLD + zc8 * 8;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      cp_async16(zslot + 8 * j * ZLD, zsrc[j] + int64_t(t) * zs, zstore[j] ? 16 : 0);
+    if (p == k_len) {
+      if (cthread) cp_async16(cring + slot * ROWS * CLD + crow * CLD + cc8 * 8, c0 + c0base,
+                              cbytes);
+      return;
     }
+    const int s = k_len - 1 - p, t = rev ? k_len - 1 - s : s;
+    cp_async16(zring + slot * ROWS * ZLD + zrow * ZLD + zc8 * 8, zsrc + int64_t(t) * zs,
+               zstore ? 16 : 0);
     if (cthread) {
-      const int at = slot * kRows * CLD + crow * CLD + cc8 * 8;
+      const int at = slot * ROWS * CLD + crow * CLD + cc8 * 8;
       cp_async16(cring + at, c + cbase + int64_t(t) * ys, cbytes);
       cp_async16(gring + at, dy + cbase + int64_t(t) * ys, cbytes);
     }
   };
+  // Three positions ahead; a step reads its own slot and the next one's c.
   for (int p = 0; p < kStages - 1; ++p) {
-    if (p < k_len) issue(p);
+    if (p <= k_len) issue(p);
     cp_async_commit();
   }
 
-  float dh[2][2], dc[2][2];
+  // The thread's cells: rows lrow(ci) = 2 tq + ci, unit uc.
+  auto lrow = [&](int ci) { return 2 * tq + ci; };
+  float dh[CELLS], dc[CELLS];
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + gq + 8 * hr;
-    uint32_t hv = 0, cv = 0;
-    if (row < n) {
-      const int64_t at = (int64_t(d) * n + row) * H + u;
-      hv = load2(dhn + at);
-      cv = load2(dcn + at);
-    }
-    const float2 hf = unpack2(hv), cf = unpack2(cv);
-    dh[hr][0] = hf.x;
-    dh[hr][1] = hf.y;
-    dc[hr][0] = cf.x;
-    dc[hr][1] = cf.y;
+  for (int ci = 0; ci < CELLS; ++ci) {
+    const int row = r0 + lrow(ci);
+    const int64_t at = (int64_t(d) * n + row) * H + uc;
+    dh[ci] = row < n ? __bfloat162float(__ushort_as_bfloat16(dhn[at])) : 0.0f;
+    dc[ci] = row < n ? __bfloat162float(__ushort_as_bfloat16(dcn[at])) : 0.0f;
   }
-  cp_async_wait<kStages - 2>();  // the first step's tiles
+  cp_async_wait<kStages - 3>();  // the first step's tiles and the next one's c
   __syncthreads();
 
-  // rnd(dz . W_hh) for the thread's cells, dz the tile in `tile`.
-  auto product = [&](const uint16_t* tile, float (&out)[2][2]) {
+  // rnd(dz . W_hh) for the thread's cells, dz the tile in `tile`: this
+  // warp's half of the k tiles, each summed from zero on the tensor cores
+  // and added in float32, then the pair's two sums added (the lower k half's
+  // first).
+  auto product = [&](const uint16_t* tile, float (&out)[CELLS]) {
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      uint32_t a[4];
-      load_a(a, tile, ZLD, kt * 16, gq, tq);
+    for (int i = 0; i < KH; ++i) {
+      const int k = (kh * KH + i) * 16 + 2 * tq;
+      const uint16_t* row = tile + gq * ZLD + k;
       float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_bf16(part, a, bw[kt][0], bw[kt][1]);
+      mma_bf16(part, wa[i], *reinterpret_cast<const uint32_t*>(row),
+               *reinterpret_cast<const uint32_t*>(row + 8));
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[j] += part[j];
     }
-    out[0][0] = rnd(acc[0]);
-    out[0][1] = rnd(acc[1]);
-    out[1][0] = rnd(acc[2]);
-    out[1][1] = rnd(acc[3]);
+    // The accumulator holds units gq (j = 0, 1) and gq + 8 (j = 2, 3) of
+    // rows 2 tq, 2 tq + 1: this warp keeps its unit's, gives the other's.
+    float* mine = xch + ((ug * 2 + kh) * 32 + lane) * CELLS;
+    const float* theirs = xch + ((ug * 2 + (kh ^ 1)) * 32 + lane) * CELLS;
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) mine[ci] = acc[ci + 2 * (kh ^ 1)];
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + ug));
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) {
+      const float own = acc[ci + 2 * kh], other = theirs[ci];
+      out[ci] = rnd(kh ? other + own : own + other);
+    }
   };
 
+  auto bf = [](uint16_t v) { return __bfloat162float(__ushort_as_bfloat16(v)); };
   int buf = 0;
   for (int step = k_len - 1; step >= 0; --step) {
     const int t = rev ? k_len - 1 - step : step;
-    const int tp = rev ? t + 1 : t - 1;  // the step before, in the walk
     const int p = k_len - 1 - step;
-    // Three positions ahead; the slot was last read at position p - 1,
-    // before its barrier.
-    if (p + kStages - 1 < k_len) issue(p + kStages - 1);
+    // Three positions ahead; the slot was last read at positions p - 1 and
+    // p - 2, before their barriers.
+    if (p + kStages - 1 <= k_len) issue(p + kStages - 1);
     cp_async_commit();
-    uint32_t pv[2];  // the cells' c before this step, from device memory
+    if (step < k_len - 1) product(sz + buf * ROWS * ZLD, dh);
+    const uint16_t* zslot = zring + (p % kStages) * ROWS * ZLD;
+    const uint16_t* cslot = cring + (p % kStages) * ROWS * CLD;
+    const uint16_t* pslot = cring + ((p + 1) % kStages) * ROWS * CLD;  // c before this step
+    const uint16_t* gslot = gring + (p % kStages) * ROWS * CLD;
+    uint16_t* out = sz + (buf ^ 1) * ROWS * ZLD;
+    // The cells' tanh(c') looked up at once, the rare input outside the
+    // table's window computed after.
+    float tcv[CELLS];
+    bool outside = false;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = r0 + gq + 8 * hr;
-      pv[hr] = row >= n ? 0u
-               : step > 0 ? load2(c + (int64_t(row) * k_len + tp) * ys + int64_t(d) * H + u)
-                          : load2(c0 + (int64_t(d) * n + row) * H + u);
+    for (int ci = 0; ci < CELLS; ++ci) {
+      bool o;
+      tcv[ci] = lookup(tnh, bf(cslot[lrow(ci) * CLD + uc]), o);
+      outside |= o;
     }
-    if (step < k_len - 1) product(sz + buf * kRows * ZLD, dh);
-    const uint16_t* zslot = zring + (p % kStages) * kRows * ZLD;
-    const uint16_t* cslot = cring + (p % kStages) * kRows * CLD;
-    const uint16_t* gslot = gring + (p % kStages) * kRows * CLD;
-    uint16_t* out = sz + (buf ^ 1) * kRows * ZLD;
-    // One row at a time (registers): its cells' gates and tanh(c') [e][i,
-    // f, g, o, tanh c'], every lookup at once, the rare input outside the
-    // tables' window computed after.
+    if (outside) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int lr = gq + 8 * hr;
-      float in[2][5], gv[2][5];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 v = unpack2(*reinterpret_cast<const uint32_t*>(zslot + lr * ZLD + q * H + u));
-        in[0][q] = v.x;
-        in[1][q] = v.y;
-      }
-      const float2 cc = unpack2(*reinterpret_cast<const uint32_t*>(cslot + lr * CLD + u));
-      in[0][4] = cc.x;
-      in[1][4] = cc.y;
-      bool outside = false;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int q = 0; q < 5; ++q) {
-          bool o;
-          gv[e][q] = lookup(q == 2 || q == 4 ? tnh : sig, in[e][q], o);
-          outside |= o;
-        }
-      }
-      if (outside) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-#pragma unroll
-          for (int q = 0; q < 5; ++q) {
-            bool o;
-            lookup(sig, in[e][q], o);
-            if (o) {
-              gv[e][q] = q == 2 || q == 4 ? tanh_rounded(in[e][q]) : sigmoid_rounded(in[e][q]);
-            }
-          }
-        }
-      }
-      const float2 cp = unpack2(pv[hr]);
-      const float2 gy = unpack2(*reinterpret_cast<const uint32_t*>(gslot + lr * CLD + u));
-      const float cprev[2] = {cp.x, cp.y}, dyv[2] = {gy.x, gy.y};
-      float dzq[4][2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float ig = gv[e][0], fg = gv[e][1], gg = gv[e][2], og = gv[e][3], tc = gv[e][4];
-        const float cth = rnd(dh[hr][e] + dyv[e]);
-        const float uu = rnd(rnd(og * cth) * rnd(1.0f - tc));
-        const float dct = rnd(rnd(dc[hr][e] + uu) + rnd(uu * tc));
-        const float v = rnd(rnd(ig * dct) * rnd(1.0f - gg));
-        dzq[0][e] = rnd(rnd(dct * gg) * rnd(ig * rnd(1.0f - ig)));
-        dzq[1][e] = rnd(rnd(dct * cprev[e]) * rnd(fg * rnd(1.0f - fg)));
-        dzq[2][e] = rnd(v + rnd(v * gg));
-        dzq[3][e] = rnd(rnd(cth * tc) * rnd(og * rnd(1.0f - og)));
-        dc[hr][e] = rnd(fg * dct);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        *reinterpret_cast<uint32_t*>(out + lr * ZLD + q * H + u) = pack2(dzq[q][0], dzq[q][1]);
+      for (int ci = 0; ci < CELLS; ++ci) {
+        bool o;
+        const float cv = bf(cslot[lrow(ci) * CLD + uc]);
+        lookup(tnh, cv, o);
+        if (o) tcv[ci] = tanh_rounded(cv);
       }
     }
-    cp_async_wait<kStages - 2>();  // the next step's tiles
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) {
+      const int lr = lrow(ci);
+      const uint16_t* gr = zslot + lr * ZLD + uc;
+      const float ig = bf(gr[0]), fg = bf(gr[H]), gg = bf(gr[2 * H]), og = bf(gr[3 * H]);
+      const float tc = tcv[ci], cprev = bf(pslot[lr * CLD + uc]);
+      const float cth = rnd(dh[ci] + bf(gslot[lr * CLD + uc]));
+      const float uu = rnd(rnd(og * cth) * rnd(1.0f - tc));
+      const float dct = rnd(rnd(dc[ci] + uu) + rnd(uu * tc));
+      const float v = rnd(rnd(ig * dct) * rnd(1.0f - gg));
+      uint16_t* o = out + lr * ZLD + uc;
+      o[0] = __bfloat16_as_ushort(__float2bfloat16_rn(rnd(dct * gg) * rnd(ig * rnd(1.0f - ig))));
+      o[H] = __bfloat16_as_ushort(
+          __float2bfloat16_rn(rnd(dct * cprev) * rnd(fg * rnd(1.0f - fg))));
+      o[2 * H] = __bfloat16_as_ushort(__float2bfloat16_rn(v + rnd(v * gg)));
+      o[3 * H] = __bfloat16_as_ushort(
+          __float2bfloat16_rn(rnd(cth * tc) * rnd(og * rnd(1.0f - og))));
+      dc[ci] = rnd(fg * dct);
+    }
+    cp_async_wait<kStages - 3>();  // the next step's tiles and the c after them
     __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // dz, 16-byte stores from shared memory
-      if (zstore[j]) {
-        *reinterpret_cast<uint4*>(zdst[j] + int64_t(t) * zs) =
-            *reinterpret_cast<const uint4*>(out + (zrow + 8 * j) * ZLD + zc8 * 8);
-      }
+    if (zstore) {  // dz, a 16-byte store from shared memory
+      *reinterpret_cast<uint4*>(zdst + int64_t(t) * zs) =
+          *reinterpret_cast<const uint4*>(out + zrow * ZLD + zc8 * 8);
     }
     buf ^= 1;
   }
-  product(sz + buf * kRows * ZLD, dh);
+  product(sz + buf * ROWS * ZLD, dh);
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + gq + 8 * hr;
+  for (int ci = 0; ci < CELLS; ++ci) {
+    const int row = r0 + lrow(ci);
     if (row >= n) continue;
-    const int64_t at = (int64_t(d) * n + row) * H + u;
-    *reinterpret_cast<uint32_t*>(dh0 + at) = pack2(dh[hr][0], dh[hr][1]);
-    *reinterpret_cast<uint32_t*>(dc0 + at) = pack2(dc[hr][0], dc[hr][1]);
+    const int64_t at = (int64_t(d) * n + row) * H + uc;
+    dh0[at] = __bfloat16_as_ushort(__float2bfloat16_rn(dh[ci]));
+    dc0[at] = __bfloat16_as_ushort(__float2bfloat16_rn(dc[ci]));
   }
 }
 
@@ -622,27 +627,38 @@ constexpr int kSumThreads = 256;
 constexpr int kSumLanes = kSumThreads / 32;  // threads a column, in the bias blocks
 constexpr int kSumChunk = 8;  // steps a bias block sums over the rows
 
+// A dz element as float: bfloat16 bits or a float32.
+__device__ __forceinline__ float dz_at(const uint16_t* p, int64_t i) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(p + i)));
+}
+__device__ __forceinline__ float dz_at(const float* p, int64_t i) { return __ldg(p + i); }
+
 // The weight and bias gradients as the JAX scan's transpose loop sums
 // them, walking each direction's steps from its last to its first (walk
-// position o = 0, 1, ... is step K - 1 - o):
+// position o = 0, 1, ... is step K - 1 - o), from the accumulators dw0 and
+// db0 where given (a walk in chunks of steps), else from zero:
 //  * blocks [0, weight_blocks): one element of dw (D, 4H, M) a thread,
 //    dw = rnd(dw + rnd(P_t)) over products (D, K, 4H, M) float32, eight
 //    steps' loads in flight;
 //  * the rest: 32 columns of db (D, 4H) and `chunk` walk positions a
 //    block. s_t, the step's dz (N, K, D*4H) summed over the rows as XLA
-//    sums a bfloat16 reduce (windows of 32 rows summed in order, each add
-//    rounded; more than 32 windows summed the same way), goes to `partial`
-//    (groups, K, 32): 8 threads a column take the windows in turn, one
-//    thread a step sums a step's windows. The block that finishes its
-//    column group last (`counters`, zero on entry) adds the steps up in
-//    order, db = rnd(db + s_t). Dynamic shared memory: chunk x windows x 32
-//    floats.
+//    sums a reduce of dz's dtype (windows of 32 rows summed in order; more
+//    than 32 windows summed the same way), each add rounded for a
+//    bfloat16 dz (DZ = uint16_t, the bfloat16 cell's) and none for a
+//    float32 one (a float32 carry's), goes to `partial` (groups, K, 32): 8
+//    threads a column take the windows in turn, one thread a step sums a
+//    step's windows. The block that finishes its column group last
+//    (`counters`, zero on entry) adds the steps up in order, db = rnd(db +
+//    rnd(s_t)). Dynamic shared memory: chunk x windows x 32 floats.
+template <typename DZ>
 __global__ void __launch_bounds__(kSumThreads)
-bf16_running_sum_kernel(const float* __restrict__ products, const uint16_t* __restrict__ dz,
+bf16_running_sum_kernel(const float* __restrict__ products, const DZ* __restrict__ dz,
+                        const uint16_t* __restrict__ dw0, const uint16_t* __restrict__ db0,
                         uint16_t* __restrict__ dw, uint16_t* __restrict__ db,
                         float* __restrict__ partial, int* __restrict__ counters, int n,
                         int k_len, int dirs, int gates, int64_t m, unsigned reverse_mask,
                         int weight_blocks, int chunk) {
+  constexpr bool kRounded = sizeof(DZ) == 2;
   extern __shared__ float win[];
   if (int(blockIdx.x) < weight_blocks) {
     const int64_t per_dir = int64_t(gates) * m;
@@ -652,7 +668,7 @@ bf16_running_sum_kernel(const float* __restrict__ products, const uint16_t* __re
     const int64_t j = e % per_dir;
     const bool rev = (reverse_mask >> d) & 1u;
     const float* p = products + int64_t(d) * k_len * per_dir + j;
-    float acc = 0.0f;
+    float acc = dw0 ? __bfloat162float(__ushort_as_bfloat16(dw0[e])) : 0.0f;
     for (int s0 = k_len - 1; s0 >= 0; s0 -= 8) {
       float v[8];
 #pragma unroll
@@ -675,7 +691,7 @@ bf16_running_sum_kernel(const float* __restrict__ products, const uint16_t* __re
   const bool rev = (reverse_mask >> d) & 1u;
   const int windows = (n + 31) / 32, lo = (windows * 32 - n) / 2;
   const int64_t zs = int64_t(dirs) * gates;
-  const uint16_t* src = dz + int64_t(d) * gates + j;
+  const DZ* src = dz + int64_t(d) * gates + j;
   float* part = partial + int64_t(group) * k_len * 32 + col;
   const int steps = min(chunk, k_len - o0);
   for (int p = lane; p < steps * windows; p += kSumLanes) {
@@ -685,17 +701,15 @@ bf16_running_sum_kernel(const float* __restrict__ products, const uint16_t* __re
     // row and not added: an add of a zero changes nothing), then added in
     // order.
     const int base = 32 * w - lo;
-    uint16_t v[32];
+    float v[32];
 #pragma unroll
     for (int q = 0; q < 32; ++q) {
-      v[q] = __ldg(src + (int64_t(min(max(base + q, 0), n - 1)) * k_len + t) * zs);
+      v[q] = dz_at(src, (int64_t(min(max(base + q, 0), n - 1)) * k_len + t) * zs);
     }
     float sum = 0.0f;
 #pragma unroll
     for (int q = 0; q < 32; ++q) {
-      if (base + q >= 0 && base + q < n) {
-        sum = rnd(sum + __bfloat162float(__ushort_as_bfloat16(v[q])));
-      }
+      if (base + q >= 0 && base + q < n) sum = kRounded ? rnd(sum + v[q]) : sum + v[q];
     }
     win[p * 32 + col] = sum;
   }
@@ -708,13 +722,13 @@ bf16_running_sum_kernel(const float* __restrict__ products, const uint16_t* __re
       for (int q = 0; q < next; ++q) {
         const int a = max(0, 32 * q - l2), e = min(count, 32 * q + 32 - l2);
         float sum = 0.0f;
-        for (int r = a; r < e; ++r) sum = rnd(sum + v[r * 32]);
+        for (int r = a; r < e; ++r) sum = kRounded ? rnd(sum + v[r * 32]) : sum + v[r * 32];
         v[q * 32] = sum;
       }
       count = next;
     }
     float sum = 0.0f;
-    for (int r = 0; r < count; ++r) sum = rnd(sum + v[r * 32]);
+    for (int r = 0; r < count; ++r) sum = kRounded ? rnd(sum + v[r * 32]) : sum + v[r * 32];
     part[int64_t(o0 + i) * 32] = sum;
   }
   __threadfence();
@@ -724,9 +738,10 @@ bf16_running_sum_kernel(const float* __restrict__ products, const uint16_t* __re
   __syncthreads();
   if (!last || lane != 0) return;
   __threadfence();
-  float acc = 0.0f;
-  for (int o = 0; o < k_len; ++o) acc = rnd(acc + __ldcg(part + int64_t(o) * 32));
-  db[int64_t(d) * gates + j] = __bfloat16_as_ushort(__float2bfloat16_rn(acc));
+  const int64_t at = int64_t(d) * gates + j;
+  float acc = db0 ? __bfloat162float(__ushort_as_bfloat16(db0[at])) : 0.0f;
+  for (int o = 0; o < k_len; ++o) acc = rnd(acc + rnd(__ldcg(part + int64_t(o) * 32)));
+  db[at] = __bfloat16_as_ushort(__float2bfloat16_rn(acc));
 }
 
 template <int H>
@@ -736,7 +751,9 @@ constexpr int scan_smem() {
 
 template <int H>
 constexpr int backward_smem() {
-  return (kStages * kRows * (4 * H + 8 + 2 * (H + 8)) + 2 * kRows * (4 * H + 8) + 2 * kTable) * 2;
+  return (kStages * kBackRows * (4 * H + 8 + 2 * (H + 8)) + 2 * kBackRows * (4 * H + 8) +
+          kTable) * 2 +
+         (H / 16) * 2 * 32 * 2 * 4;
 }
 
 // The dynamic shared memory a kernel may take above 48 KB, set once per
@@ -770,17 +787,17 @@ int launch(const uint16_t* xp, const uint16_t* w_hh, const uint16_t* bias,
 
 template <int H>
 int launch_backward(const uint16_t* dy, const uint16_t* dhn, const uint16_t* dcn,
-                    const uint16_t* z, const uint16_t* c, const uint16_t* w_hh,
+                    const uint16_t* gates, const uint16_t* c, const uint16_t* w_hh,
                     const uint16_t* c0, uint16_t* dz, uint16_t* dh0, uint16_t* dc0,
                     int64_t n, int64_t k_len, int64_t dirs, unsigned reverse_mask,
                     cudaStream_t st) {
-  const dim3 grid(unsigned((n + kRows - 1) / kRows), unsigned(dirs));
+  const dim3 grid(unsigned((n + kBackRows - 1) / kBackRows), unsigned(dirs));
   constexpr int bytes = backward_smem<H>();
   static bool done[64];
   const cudaError_t err = allow_smem(bf16_lstm_scan_backward_kernel<H>, bytes, done);
   if (err != cudaSuccess) return int(err);
   bf16_lstm_scan_backward_kernel<H><<<grid, 4 * H, bytes, st>>>(
-      dy, dhn, dcn, z, c, w_hh, c0, dz, dh0, dc0, int(n), int(k_len), int(dirs),
+      dy, dhn, dcn, gates, c, w_hh, c0, dz, dh0, dc0, int(n), int(k_len), int(dirs),
       reverse_mask);
   return int(cudaGetLastError());
 }
@@ -855,15 +872,18 @@ extern "C" int sonicsim_bf16_lstm_scan_backward(const void* dy, const void* dhn,
   }
 }
 
-// products (D, K, gates, m) float32, dz (N, K, D*gates) bfloat16, dw (D,
-// gates, m) and db (D, gates) bfloat16; partial (D * gates / 32, K, 32)
+// products (D, K, gates, m) float32, dz (N, K, D*gates) bfloat16 or, with
+// f32_dz, float32; dw0/db0 (the accumulators to start from, or null) and
+// dw (D, gates, m), db (D, gates) bfloat16; partial (D * gates / 32, K, 32)
 // float32 scratch and counters (D * gates / 32) int32, zero; gates a
 // multiple of 32, and at most 51,200 rows (one step's window sums in 200 KB
 // of shared memory).
-extern "C" int sonicsim_bf16_running_sum(const void* products, const void* dz, void* dw,
-                                         void* db, void* partial, void* counters, int64_t n,
-                                         int64_t k_len, int64_t dirs, int64_t gates, int64_t m,
-                                         int64_t reverse_mask, int device, void* stream) {
+extern "C" int sonicsim_bf16_running_sum(const void* products, const void* dz,
+                                         const void* dw0, const void* db0, void* dw,
+                                         void* db, void* partial, void* counters,
+                                         int f32_dz, int64_t n, int64_t k_len, int64_t dirs,
+                                         int64_t gates, int64_t m, int64_t reverse_mask,
+                                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (dirs == 0 || gates == 0 || k_len == 0) return 0;
@@ -874,14 +894,29 @@ extern "C" int sonicsim_bf16_running_sum(const void* products, const void* dz, v
   if (window_bytes > budget) return int(cudaErrorInvalidValue);
   const int64_t chunk = budget / window_bytes < kSumChunk ? budget / window_bytes : kSumChunk;
   const int64_t bias_blocks = dirs * gates / 32 * ((k_len + chunk - 1) / chunk);
-  static bool done[64];
-  err = allow_smem(bf16_running_sum_kernel, int(budget), done);
-  if (err != cudaSuccess) return int(err);
-  bf16_running_sum_kernel<<<unsigned(weight_blocks + bias_blocks), kSumThreads,
-                            int(chunk * window_bytes), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(products), static_cast<const uint16_t*>(dz),
-      static_cast<uint16_t*>(dw), static_cast<uint16_t*>(db), static_cast<float*>(partial),
-      static_cast<int*>(counters), int(n), int(k_len), int(dirs), int(gates), m,
-      unsigned(reverse_mask), int(weight_blocks), int(chunk));
+  const unsigned blocks = unsigned(weight_blocks + bias_blocks);
+  const int bytes = int(chunk * window_bytes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const float*>(products);
+  const auto* w0 = static_cast<const uint16_t*>(dw0);
+  const auto* b0 = static_cast<const uint16_t*>(db0);
+  auto* wo = static_cast<uint16_t*>(dw);
+  auto* bo = static_cast<uint16_t*>(db);
+  auto* part = static_cast<float*>(partial);
+  auto* count = static_cast<int*>(counters);
+  static bool done[2][64];
+  if (f32_dz) {
+    err = allow_smem(bf16_running_sum_kernel<float>, int(budget), done[1]);
+    if (err != cudaSuccess) return int(err);
+    bf16_running_sum_kernel<float><<<blocks, kSumThreads, bytes, st>>>(
+        p, static_cast<const float*>(dz), w0, b0, wo, bo, part, count, int(n), int(k_len),
+        int(dirs), int(gates), m, unsigned(reverse_mask), int(weight_blocks), int(chunk));
+  } else {
+    err = allow_smem(bf16_running_sum_kernel<uint16_t>, int(budget), done[0]);
+    if (err != cudaSuccess) return int(err);
+    bf16_running_sum_kernel<uint16_t><<<blocks, kSumThreads, bytes, st>>>(
+        p, static_cast<const uint16_t*>(dz), w0, b0, wo, bo, part, count, int(n), int(k_len),
+        int(dirs), int(gates), m, unsigned(reverse_mask), int(weight_blocks), int(chunk));
+  }
   return int(cudaGetLastError());
 }

@@ -189,6 +189,35 @@ def fused_norm(x: torch.Tensor, unrounded: torch.Tensor, dims, weight, bias,
     return y.to(x.dtype)
 
 
+def channel_norm_narrow(x: torch.Tensor, unrounded: torch.Tensor | None, weight, bias,
+                        eps: float) -> torch.Tensor:
+    """The JAX package's hand-written cLN (``gamma·(x − mean)·rsqrt(var +
+    eps) + beta`` over the last axis, sonicsim_tpu/models/layers.py:42-47)
+    on a ``x`` narrower than float32, as XLA's compiled CPU forward
+    computes it: each op in float32 on its operands and rounded to ``x``'s
+    dtype, the two means float32 sums times the float32 reciprocal of the
+    width, the square unrounded inside its sum, and ``eps`` the narrow
+    dtype's. Where XLA fuses the op that made ``x`` into the norm
+    (``unrounded``, that op's float32 result), the mean's sum reads it
+    unrounded; everything after reads ``x``. Output in ``x``'s dtype."""
+    dt = x.dtype
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        return t.to(dt).float()
+
+    inv_n = torch.tensor(1.0 / x.shape[-1], dtype=torch.float32)
+    src = x if unrounded is None else unrounded
+    mean = rnd(src.float().sum(dim=-1, keepdim=True) * inv_n)
+    centred = rnd(x.float() - mean)
+    var = rnd((centred * centred).sum(dim=-1, keepdim=True) * inv_n)
+    scale = rnd(torch.rsqrt(rnd(var + rnd(torch.tensor(eps, dtype=torch.float32)))))
+    y = rnd(weight.float() * centred) if weight is not None else centred
+    y = rnd(y * scale)
+    if bias is not None:
+        y = rnd(y + bias.float())
+    return y.to(dt)
+
+
 def group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float) -> torch.Tensor:
     """flax's ``nn.GroupNorm`` on (B, C, ...): ``F.group_norm`` with its
     statistics in :func:`float32_or_wider`, output in the promoted dtype."""

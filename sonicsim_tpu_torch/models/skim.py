@@ -32,8 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import BaseModel, register_model
-from .layers import (Conv1d, ConvTranspose1d, Linear, PReLU, float32_or_wider, fused_norm,
-                     get_activation, group_norm, promote)
+from .layers import (Conv1d, ConvTranspose1d, Linear, PReLU, channel_norm_narrow,
+                     float32_or_wider, fused_norm, get_activation, group_norm, promote)
 from .zoo_layers import F32_EPS, LSTMLayer, overlap_add_sequence, segment_sequence
 
 
@@ -50,15 +50,17 @@ class SkiMNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, unrounded: torch.Tensor | None = None) -> torch.Tensor:
         """``unrounded``, where given, is the float32 value a narrower ``x``
-        was rounded from: normalised with ``x``'s statistics
-        (``layers.fused_norm``)."""
+        was rounded from, which XLA fuses into the norm: GroupNorm(1)
+        normalises it with ``x``'s statistics (``layers.fused_norm``), the
+        cLN's mean reads it (``layers.channel_norm_narrow``)."""
         g, b = self.gamma.reshape(-1), self.beta.reshape(-1)
-        if unrounded is not None:
-            dims = -1 if self.causal else tuple(range(1, x.dim()))
-            return fused_norm(x, unrounded, dims, g, b, 1e-5 if self.causal else F32_EPS)
         if self.causal:  # the JAX cLN, in the promoted dtype
             x, g, b = promote(x, g, b)
+            if float32_or_wider(x.dtype) != x.dtype:
+                return channel_norm_narrow(x, unrounded, g, b, 1e-5)
             return F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
+        if unrounded is not None:
+            return fused_norm(x, unrounded, tuple(range(1, x.dim())), g, b, F32_EPS)
         return group_norm(x.movedim(-1, 1), 1, g, b, F32_EPS).movedim(1, -1)
 
 

@@ -42,7 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.lstm_cell import bf16_lstm
+from ..ops.lstm_cell import bf16_lstm, f32_carry_lstm
 from .layers import Conv1d, Linear, PReLU, group_norm, float32_or_wider
 
 F32_EPS = 1.1920929e-7  # torch.finfo(torch.float32).eps: GroupNorm1's epsilon
@@ -250,7 +250,10 @@ class LSTMLayer(nn.LSTM):
     float32 carry, unless the input, the weights and the initial state are
     all bfloat16: then flax's bfloat16 cell (:func:`_run_wide`), outputs
     and final state bfloat16, in inference and in training (its gradients
-    the JAX scan's, ``ops.lstm_cell.bf16_lstm``)."""
+    the JAX scan's, ``ops.lstm_cell.bf16_lstm``). A float32 carry on
+    bfloat16 weights trains through ``ops.lstm_cell.f32_carry_lstm``
+    (:func:`_f32_carry_training`), whose weight gradients are the JAX
+    scan's bfloat16 running sums over the steps."""
 
     def __init__(self, input_size: int, hidden: int, bidirectional: bool = False,
                  num_layers: int = 1):
@@ -360,6 +363,9 @@ def _wide_recurrence(rnn: nn.RNNBase, op, n_states: int, x: torch.Tensor, weight
         states = (x.new_zeros(rnn.num_layers * (2 if rnn.bidirectional else 1), x.shape[0],
                               rnn.hidden_size, dtype=run),) * n_states
     wide = tuple(s.to(run) for s in states)
+    if n_states == 2 and _trains_bf16_weights(run, weights):
+        y, h = _f32_carry_training(rnn, x, weights, wide)
+        return y.to(out), tuple(s.to(out) for s in h)
     x_run, w_run = x.to(run), [w.to(run) for w in weights]
     narrow = torch.promote_types(x.dtype, weights[0].dtype)
     if narrow != run:
@@ -368,6 +374,42 @@ def _wide_recurrence(rnn: nn.RNNBase, op, n_states: int, x: torch.Tensor, weight
                float(rnn.dropout), rnn.training, rnn.bidirectional, rnn.batch_first)
     h = tuple(s.to(out) for s in h)
     return y.to(out), h if n_states > 1 else h[0]
+
+
+def _trains_bf16_weights(run: torch.dtype, weights: list) -> bool:
+    """Whether a float32-carry LSTM trains bfloat16 weights (a bfloat16
+    train step): then :func:`_f32_carry_training`, else cuDNN's float32
+    recurrence with its own weight gradients, a float32 sum over the steps
+    rounded once (what a GRU on bfloat16 weights keeps: no bfloat16 step
+    trains one, ``infer.precision.BF16_TRAIN_REFUSED``)."""
+    return run == torch.float32 and weights[0].dtype == torch.bfloat16 \
+        and torch.is_grad_enabled() and any(w.requires_grad for w in weights)
+
+
+def _f32_carry_training(rnn: nn.RNNBase, x: torch.Tensor, weights: list, states: tuple):
+    """A float32-carry LSTM on bfloat16 weights while autograd records (a
+    bfloat16 train step): each layer through ``ops.lstm_cell.f32_carry_lstm``,
+    whose weight gradients are the JAX scan's bfloat16 running sums, the
+    first on ``x`` as it is (flax's input dense rounds on a bfloat16 input),
+    each later one on the float32 output before it, as each layer of flax's
+    stack is its own ``nn.RNN``. ``states``: ``(h0, c0)``, float32."""
+    n_dir = 2 if rnn.bidirectional else 1
+    per_dir = len(weights) // (rnn.num_layers * n_dir)
+    reverse = [d == 1 for d in range(n_dir)]
+    hs, cs = [], []
+    for layer in range(rnn.num_layers):
+        w = [weights[(layer * n_dir + d) * per_dir:(layer * n_dir + d + 1) * per_dir]
+             for d in range(n_dir)]
+        bias = [(p[2], p[3]) if rnn.bias else (p[0].new_zeros(p[0].shape[0]),) * 2 for p in w]
+        lanes = slice(layer * n_dir, (layer + 1) * n_dir)
+        x, h, c = f32_carry_lstm(x, torch.stack([p[0] for p in w]),
+                                 torch.stack([p[1] for p in w]),
+                                 torch.stack([b[0] for b in bias]),
+                                 torch.stack([b[1] for b in bias]), states[0][lanes],
+                                 states[1][lanes], reverse, rnn.training)
+        hs.append(h)
+        cs.append(c)
+    return x, (torch.cat(hs), torch.cat(cs))
 
 
 def _bf16_cell(rnn: nn.RNNBase, x: torch.Tensor, weights: list, states: tuple):

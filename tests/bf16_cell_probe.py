@@ -26,6 +26,18 @@ sum at the same shape, and the backward, its plain version and the plain
 version with an exact dot against each other. The variants compute wrong
 values and are timed only.
 
+    python tests/bf16_cell_probe.py --backward-variants SOURCE
+
+With ``--backward-variants``, what sets the step time of the backward scan
+of ``SOURCE`` (an earlier form, from a ``git archive`` of a commit that has
+it) and of this checkout's: each built as it is and with one part of its
+step taken out at a time, by text (``BACKWARD_VARIANTS``: the products,
+half the products' k tiles, the previous step's c loaded from device
+memory, the barrier, the gate tables' loads; a part this checkout's form
+no longer has is skipped), timed at SkiM's B=2 x 4 s training shape (516
+rows of 250 steps) in two turns, and each form as it is at twice the rows:
+a time that holds at twice the rows says half the SMs were idle.
+
 Needs the card; imports neither jax nor the JAX package.
 """
 
@@ -127,14 +139,14 @@ def main() -> None:
     print(json.dumps({"device": torch.cuda.get_device_name(0), **times}), flush=True)
 
 
-def plain_backward_f64_dot(dy, dhn, dcn, z, c, w_hh, c0, reverse):
+def plain_backward_f64_dot(dy, dhn, dcn, gates, c, w_hh, c0, reverse):
     """``bf16_lstm_scan_backward_ref`` with ``dz·W_hh`` in float64, rounded
     once to float32: the correctly rounded dot."""
     ref = lstm_cell.bf16_lstm_scan_backward_ref
     bmm = torch.bmm
     torch.bmm = lambda a, b: bmm(a.double(), b.double()).float()
     try:
-        return ref(dy, dhn, dcn, z, c, w_hh, c0, reverse)
+        return ref(dy, dhn, dcn, gates, c, w_hh, c0, reverse)
     finally:
         torch.bmm = bmm
 
@@ -177,9 +189,44 @@ VARIANTS = {
 }
 
 
-def variants(source: Path) -> None:
-    """The module docstring's ``--variants``."""
-    import ctypes
+# The backward's step with one part taken out, on the source given to
+# --backward-variants (an earlier form) and on this checkout's: each variant's
+# replacements are made where their text is there (at least one must be);
+# a variant none of whose text is in a source is skipped for it.
+BACKWARD_VARIANTS = {
+    "as-is": ("nothing", []),
+    "no-products": ("the step's dz . W_hh products", [
+        ("      mma_bf16(part, a, bw[kt][0], bw[kt][1]);",
+         "      part[0] = __uint_as_float(a[0] ^ bw[kt][0]); "
+         "part[1] = __uint_as_float(a[1] ^ bw[kt][1]);")]),
+    "half-products": ("half the product's k tiles (a chain of 16, not 32)", [
+        ("    for (int kt = 0; kt < KT; ++kt) {\n      uint32_t a[4];\n      load_a(a, tile, ZLD",
+         "    for (int kt = 0; kt < KT / 2; ++kt) {\n      uint32_t a[4];\n      load_a(a, tile, ZLD"),
+        ("    for (int kt = 0; kt < KT; ++kt) {\n      uint32_t a[4];\n      const int k = kt",
+         "    for (int kt = 0; kt < KT / 2; ++kt) {\n      uint32_t a[4];\n      const int k = kt"),
+        ("    for (int i = 0; i < KH; ++i) {\n      const int k = (kh * KH + i)",
+         "    for (int i = 0; i < KH / 2; ++i) {\n      const int k = (kh * KH + i)")]),
+    "no-pair-sum": ("the warp pair's exchange of its two sums (the named barrier)", [
+        ("    asm volatile(\"bar.sync %0, 64;\\n\" ::\"r\"(1 + ug));", "")]),
+    "no-prev-c-load": ("the previous step's c, loaded from device memory on the chain", [
+        ("step > 0 ? load2(c + (int64_t(row) * k_len + tp) * ys + int64_t(d) * H + u)",
+         "step > 0 ? uint32_t(step)")]),
+    "no-barrier": ("the step's __syncthreads", [
+        ("    cp_async_wait<kStages - 2>();  // the next step's tiles\n    __syncthreads();",
+         "    cp_async_wait<kStages - 2>();  // the next step's tiles"),
+        ("    cp_async_wait<kStages - 3>();  // the next step's tiles and the c after them\n"
+         "    __syncthreads();",
+         "    cp_async_wait<kStages - 3>();  // the next step's tiles and the c after them")]),
+    "no-gate-lookups": ("the tables' loads (every gate 0.5)", [
+        ("  return from_bits(table[outside ? 0u : ((((b >> 15) * kExps + e) << 7) | (b & 0x7fu))]);",
+         "  outside = false;\n  return 0.5f + 0.0f * z;")]),
+}
+TRAIN_ROWS, STEPS = 516, 250  # SkiM's B=2 x 4 s training step: 516 rows of 250 steps
+
+
+def _build_variants(todo: dict) -> dict:
+    """Each ``name: (source text, (what, [(text, replacement)]))`` built by
+    ``nvcc`` with the replacements made; ``{name: .so}``."""
     import hashlib
     import os
     import subprocess
@@ -188,15 +235,10 @@ def variants(source: Path) -> None:
     from sonicsim_tpu_torch.ops import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {f"given {n}": (source.read_text(), VARIANTS[n]) for n in VARIANTS}
-    todo.update({f"this {n}": (lstm_cell.SOURCE.read_text(), NEW_VARIANTS[n])
-                 for n in NEW_VARIANTS})
 
     def build(name):
         src, (_, subs) = todo[name]
         for old, new in subs:
-            if old not in src:
-                raise SystemExit(f"variant {name}: {old!r} not in {source}")
             src = src.replace(old, new)
         key = hashlib.sha256(src.encode()).hexdigest()[:12]
         cu = kernels.BUILD_DIR / f"probe_{name.replace(' ', '_')}_{key}.cu"
@@ -209,7 +251,107 @@ def variants(source: Path) -> None:
         return so
 
     with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
-        libs = dict(zip(todo, pool.map(build, todo)))
+        return dict(zip(todo, pool.map(build, todo)))
+
+
+def backward_variants(source: Path) -> None:
+    """The module docstring's ``--backward-variants``."""
+    import ctypes
+    import subprocess
+
+    todo = {}
+    for label, text in (("given", source.read_text()), ("this", lstm_cell.SOURCE.read_text())):
+        for n, (what, subs) in BACKWARD_VARIANTS.items():
+            found = [(a, b) for a, b in subs if a in text]
+            if found or not subs:
+                todo[f"{label} {n}"] = (text, (what, found))
+    libs = _build_variants(todo)
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    stream = torch.cuda.current_stream().cuda_stream
+    p = ctypes.c_void_p
+    sigs = [p] * 10 + [ctypes.c_int64] * 5 + [ctypes.c_int, p]
+    inputs = {}
+    for rows in (TRAIN_ROWS, 2 * TRAIN_ROWS):
+        rng = np.random.default_rng(rows)
+
+        def bf(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+        xp = bf(rng.standard_normal((rows, STEPS, DIRS * 4 * H)))
+        w_hh = bf(rng.standard_normal((DIRS, 4 * H, H)) / np.sqrt(H))
+        bias = bf(0.1 * rng.standard_normal((DIRS, 4 * H)))
+        zeros = bf(np.zeros((DIRS, rows, H)))
+        dy = bf(rng.standard_normal((rows, STEPS, DIRS * H)))
+        inputs[rows] = (xp, w_hh, bias, zeros, dy)
+    # Each source's backward reads what that source's training forward kept.
+    kept = {}
+    for label in ("given", "this"):
+        fwd = ctypes.CDLL(str(libs[f"{label} as-is"])).sonicsim_bf16_lstm_scan
+        fwd.argtypes = sigs
+        for rows, (xp, w_hh, bias, zeros, dy) in inputs.items():
+            y = torch.empty(rows, STEPS, DIRS * H, dtype=torch.bfloat16, device=dev)
+            hn, cn = torch.empty_like(zeros), torch.empty_like(zeros)
+            zk, ck = torch.empty_like(xp), torch.empty_like(y)
+            fwd(*[t.data_ptr() for t in (xp, w_hh, bias, zeros, zeros, y, hn, cn, zk, ck)],
+                rows, STEPS, DIRS, H, 2, 0, stream)
+            dz = torch.empty_like(xp)
+            dh0, dc0 = torch.empty_like(zeros), torch.empty_like(zeros)
+            kept[label, rows] = [dy, zeros, zeros, zk, ck, w_hh, zeros, dz, dh0, dc0]
+    torch.cuda.synchronize()
+    times = {}
+    for turn in range(2):  # in turns: every variant twice
+        for name, so in libs.items():
+            fn = ctypes.CDLL(str(so)).sonicsim_bf16_lstm_scan_backward
+            fn.argtypes = sigs
+            for rows in inputs:
+                if rows != TRAIN_ROWS and not name.endswith("as-is"):
+                    continue
+                args = [t.data_ptr() for t in kept[name.split()[0], rows]] + [
+                    rows, STEPS, DIRS, H, 2, 0, stream]
+                times.setdefault((name, rows), []).append(median_ms(lambda: fn(*args)))
+    for (name, rows), ms in times.items():
+        print(json.dumps({"backward variant": name, "rows": rows,
+                          "takes out": todo[name][1][0], "ms": ms,
+                          "source": str(source) if name.startswith("given") else "this checkout",
+                          "card": smi}), flush=True)
+    xp, w_hh, bias, zeros, dy = inputs[TRAIN_ROWS]
+    backward_readings(dy, xp, w_hh, bias, zeros, dev)
+
+
+def backward_readings(dy, xp, w_hh, bias, h0, dev) -> None:
+    """This checkout's backward (on its training forward's gates and c),
+    its plain version and the plain version with an exact dot, each against
+    the others: one JSON line a pair."""
+    reverse = [False, True]
+    _, _, _, gates, c = lstm_cell.bf16_lstm_scan(xp, w_hh, bias, h0, h0, reverse, keep=True)
+    g = torch.Generator(device=dev).manual_seed(3)
+    dhn, dcn = (torch.randn(h0.shape, generator=g, device=dev).bfloat16() for _ in range(2))
+    bargs = (dy, dhn, dcn, gates, c, w_hh, h0, reverse)
+    outs = {"kernel": lstm_cell.bf16_lstm_scan_backward(*bargs),
+            "plain": lstm_cell.bf16_lstm_scan_backward_ref(*bargs),
+            "plain_f64_dot": plain_backward_f64_dot(*bargs)}
+    for a, b in (("kernel", "plain"), ("kernel", "plain_f64_dot"), ("plain", "plain_f64_dot")):
+        u, v = outs[a], outs[b]
+        print(json.dumps({"rows": xp.shape[0], "backward": f"{a} vs {b}", "dz": rel(u[0], v[0]),
+                          "dh0": rel(u[1], v[1]), "dc0": rel(u[2], v[2]),
+                          "flipped": [float((p != q).float().mean()) for p, q in zip(u, v)]}),
+              flush=True)
+
+
+def variants(source: Path) -> None:
+    """The module docstring's ``--variants``."""
+    import ctypes
+
+    todo = {f"given {n}": (source.read_text(), VARIANTS[n]) for n in VARIANTS}
+    todo.update({f"this {n}": (lstm_cell.SOURCE.read_text(), NEW_VARIANTS[n])
+                 for n in NEW_VARIANTS})
+    for name, (src, (_, subs)) in todo.items():
+        for old, _ in subs:
+            if old not in src:
+                raise SystemExit(f"variant {name}: {old!r} not in its source")
+    libs = _build_variants(todo)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
@@ -243,36 +385,27 @@ def variants(source: Path) -> None:
     # This checkout's kernels at the same shape.
     reverse = [False, True]
     args = (xp, w_hh, bias, h0, c0, reverse)
-    y, hn, cn, z, c = lstm_cell.bf16_lstm_scan(*args, keep=True)
+    y, hn, cn, gates, c = lstm_cell.bf16_lstm_scan(*args, keep=True)
     dy = torch.randn(y.shape, device=dev).bfloat16()
     zero = torch.zeros_like(h0)
-    dz, _, _ = lstm_cell.bf16_lstm_scan_backward(dy, zero, zero, z, c, w_hh, c0, reverse)
+    dz, _, _ = lstm_cell.bf16_lstm_scan_backward(dy, zero, zero, gates, c, w_hh, c0, reverse)
     x = bf(rng.standard_normal((N, 250, 64)))
     prods = lstm_cell.step_products(dz, x, y, h0, reverse)
-    # The backward: kernel, plain, plain with an exact dot, each against the others.
-    dhn, dcn = (torch.randn(h0.shape, device=dev).bfloat16() for _ in range(2))
-    bargs = (dy, dhn, dcn, z, c, w_hh, c0, reverse)
-    outs = {"kernel": lstm_cell.bf16_lstm_scan_backward(*bargs),
-            "plain": lstm_cell.bf16_lstm_scan_backward_ref(*bargs),
-            "plain_f64_dot": plain_backward_f64_dot(*bargs)}
-    for a, b in (("kernel", "plain"), ("kernel", "plain_f64_dot"), ("plain", "plain_f64_dot")):
-        u, v = outs[a], outs[b]
-        print(json.dumps({"backward": f"{a} vs {b}", "dz": rel(u[0], v[0]), "dh0": rel(u[1], v[1]),
-                          "dc0": rel(u[2], v[2]),
-                          "flipped": [float((p != q).float().mean()) for p, q in zip(u, v)]}),
-              flush=True)
+    backward_readings(dy, xp, w_hh, bias, h0, dev)
     print(json.dumps({
         "forward_ms": median_ms(lambda: lstm_cell.bf16_lstm_scan(*args)),
         "training_forward_ms": median_ms(lambda: lstm_cell.bf16_lstm_scan(*args, keep=True)),
         "backward_ms": median_ms(lambda: lstm_cell.bf16_lstm_scan_backward(
-            dy, zero, zero, z, c, w_hh, c0, reverse)),
+            dy, zero, zero, gates, c, w_hh, c0, reverse)),
         "step_products_ms": median_ms(lambda: lstm_cell.step_products(dz, x, y, h0, reverse)),
         "running_sum_ms": median_ms(lambda: lstm_cell.bf16_running_sum(prods, dz, reverse)),
         "card": smi}), flush=True)
 
 
 if __name__ == "__main__":
-    if "--variants" in sys.argv:
+    if "--backward-variants" in sys.argv:
+        backward_variants(Path(sys.argv[sys.argv.index("--backward-variants") + 1]))
+    elif "--variants" in sys.argv:
         variants(Path(sys.argv[sys.argv.index("--variants") + 1]))
     else:
         main()

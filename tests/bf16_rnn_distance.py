@@ -174,7 +174,7 @@ def trace(name: str) -> list:
         for h in hooks:
             h.remove()
     paths = {}
-    for mods, flax_paths in sep.mapped_pairs(name, r.model):
+    for mods, flax_paths in sep.mapped_pairs(r.name, r.model):
         ours = [m for m in mods if m in t_out]
         theirs = [p for p in flax_paths if p in j_out]
         if ours and theirs:

@@ -2,17 +2,24 @@
 their plain versions (``ops.lstm_cell``'s ``*_ref``) on the same card.
 
 * the forward, both variants (inference, and training, which also writes
-  z and c), at a small shape (6 rows, 24 steps, 32 units), both directions,
+  the gates and c), at a small shape (6 rows, 24 steps, 32 units), both directions,
   from a zero and from a seeded carry, and every hidden width the kernels
   have an instance of, uni- and bidirectional;
 * at SkiM's full shape (642 rows, 250 steps, 128 units, two directions: the
   first SegLSTM of skim.yaml on 10 s of audio), from the inputs the model's
   bf16 forward gives the kernel and from injected carries;
 * the backward at the small shapes, every width and SkiM's, on the
-  training forward's own z and c;
+  training forward's own gates and c;
+* the backward at row counts that fill no tile, one and one and a bit (5,
+  8, 9, 17, 33), every direction mask;
 * the running sum (weights and the windowed bias sum over 70 and 1,100
-  rows): bit-equal to its plain version, which does the same arithmetic in
-  the same order;
+  rows), on a bfloat16 ``dz`` (the bf16 cell's) and a float32 one (a
+  float32 carry's), from zero and from given accumulators, both direction
+  orders: bit-equal to its plain version, which does the same arithmetic
+  in the same order;
+* ``f32_carry_lstm``'s gradients (a float32-carry layer of a bf16 train
+  step: cuDNN, the step products, the running sum) on the card against the
+  CPU's, and walked in chunks of steps bit-equal to one walk;
 * ``bf16_lstm``'s gradients on the card against the CPU's (the plain
   versions), every cotangent;
 * a failed build raises, and so does a width the kernels have no instance
@@ -90,18 +97,18 @@ def compare(got, ref) -> list:
 
 
 def hold_backward(args) -> list:
-    """The backward on the training forward's (plain version's) z and c and
+    """The backward on the training forward's (plain version's) gates and c and
     seeded cotangents, against its plain version."""
     xp, w_hh, bias, h0, c0, reverse = args
-    y, hn, cn, z, c = lstm_cell.bf16_lstm_scan_ref(*args, keep=True)
+    y, hn, cn, gates, c = lstm_cell.bf16_lstm_scan_ref(*args, keep=True)
     g = torch.Generator(device=xp.device).manual_seed(5)
     dy, dhn, dcn = (torch.randn(t.shape, generator=g, device=xp.device).bfloat16()
                     for t in (y, hn, cn))
     before = lstm_cell.LAUNCHES["bf16_lstm_scan_backward"]
-    got = lstm_cell.bf16_lstm_scan_backward(dy, dhn, dcn, z, c, w_hh, c0, reverse)
+    got = lstm_cell.bf16_lstm_scan_backward(dy, dhn, dcn, gates, c, w_hh, c0, reverse)
     torch.cuda.synchronize()
     assert lstm_cell.LAUNCHES["bf16_lstm_scan_backward"] == before + 1
-    return compare(got, lstm_cell.bf16_lstm_scan_backward_ref(dy, dhn, dcn, z, c, w_hh, c0,
+    return compare(got, lstm_cell.bf16_lstm_scan_backward_ref(dy, dhn, dcn, gates, c, w_hh, c0,
                                                               reverse))
 
 
@@ -133,17 +140,73 @@ def test_backward_matches_plain_small(cuda_device, dirs, carry):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("start", [False, True], ids=["from-zero", "from-accumulators"])
+@pytest.mark.parametrize("dz_dtype", [torch.bfloat16, torch.float32], ids=["bf16-dz", "f32-dz"])
 @pytest.mark.parametrize("rows", [70, 1100])
-def test_running_sum_is_its_plain_version(cuda_device, rows):
+def test_running_sum_is_its_plain_version(cuda_device, rows, dz_dtype, start):
     g = torch.Generator(device=cuda_device).manual_seed(rows)
     products = torch.randn(2, 9, 64, 40, generator=g, device=cuda_device)
-    dz = torch.randn(rows, 9, 128, generator=g, device=cuda_device).bfloat16()
-    before = lstm_cell.LAUNCHES["bf16_running_sum"]
-    got = lstm_cell.bf16_running_sum(products, dz, [False, True])
-    torch.cuda.synchronize()
-    assert lstm_cell.LAUNCHES["bf16_running_sum"] == before + 1
-    ref = lstm_cell.bf16_running_sum_ref(products, dz, [False, True])
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    dz = torch.randn(rows, 9, 128, generator=g, device=cuda_device).to(dz_dtype)
+    acc = (torch.randn(2, 64, 40, generator=g, device=cuda_device).bfloat16(),
+           torch.randn(2, 64, generator=g, device=cuda_device).bfloat16()) if start else ()
+    name = "bf16_running_sum_f32dz" if dz_dtype == torch.float32 else "bf16_running_sum"
+    for reverse in ([False, True], [True, False]):
+        before = lstm_cell.LAUNCHES[name]
+        got = lstm_cell.bf16_running_sum(products, dz, reverse, *acc)
+        torch.cuda.synchronize()
+        assert lstm_cell.LAUNCHES[name] == before + 1
+        ref = lstm_cell.bf16_running_sum_ref(products, dz, reverse, *acc)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [[False], [True], [False, True], [True, False]],
+                         ids=["fwd", "rev", "fwd-rev", "rev-fwd"])
+@pytest.mark.parametrize("rows", [5, 8, 9, 17, 33])
+def test_backward_rows_and_direction_masks(cuda_device, rows, reverse):
+    """Row counts that fill no tile, one, and one and a bit, each direction
+    mask."""
+    xp, w_hh, bias, h0, c0, _ = inputs(rows, 13, 32, len(reverse), rows, True, cuda_device)
+    dists = hold_backward((xp, w_hh, bias, h0, c0, reverse))
+    assert max(dists) <= BACKWARD_REL, dists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["bf16-in", "f32-in"])
+@pytest.mark.parametrize("dirs", [1, 2])
+def test_float32_carry_gradients_on_the_card_are_the_cpus(cuda_device, dirs, x_dtype,
+                                                          monkeypatch):
+    """``f32_carry_lstm`` (cuDNN's float32 recurrence, the step products,
+    the running sum's float32-dz form) on the card against the CPU, and
+    walked in chunks of 7 steps, bit-equal to one walk."""
+    rng = np.random.default_rng(10 + dirs)
+    n, k, c_in, h = 45, 20, 24, 32
+    args = [rng.standard_normal((n, k, c_in)), 0.3 * rng.standard_normal((dirs, 4 * h, c_in)),
+            0.3 * rng.standard_normal((dirs, 4 * h, h)), 0.3 * rng.standard_normal((dirs, 4 * h)),
+            np.zeros((dirs, 4 * h)), np.tanh(rng.standard_normal((dirs, n, h))),
+            rng.standard_normal((dirs, n, h))]
+    cts = [rng.standard_normal((n, k, dirs * h)), rng.standard_normal((dirs, n, h)),
+           rng.standard_normal((dirs, n, h))]
+    reverse = [d == 1 for d in range(dirs)]
+
+    def grads(dev):
+        dts = [x_dtype] + [torch.bfloat16] * 4 + [torch.float32] * 2
+        ts = [torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt).requires_grad_()
+              for a, dt in zip(args, dts)]
+        out = lstm_cell.f32_carry_lstm(*ts, reverse, True)
+        torch.autograd.backward(out, [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                                      for a in cts])
+        return [t.grad.cpu() for i, t in enumerate(ts) if i != 4]
+
+    before = lstm_cell.LAUNCHES["bf16_running_sum_f32dz"]
+    card = grads(cuda_device)
+    assert lstm_cell.LAUNCHES["bf16_running_sum_f32dz"] == before + 1
+    dists = compare(card, grads("cpu"))
+    print("rel-L2 (x, W_ih, W_hh, bias, h0, c0):", dists)
+    assert max(dists) <= GRAD_REL, dists
+    monkeypatch.setattr(lstm_cell, "PRODUCTS_BUDGET", 7 * 4 * dirs * 4 * h * (h + c_in))
+    chunked = grads(cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(chunked, card))
 
 
 @pytest.mark.cuda

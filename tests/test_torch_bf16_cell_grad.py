@@ -35,15 +35,13 @@ over the rows with a rounding reducer in windows of 32 rows
     (rel-L2 of their concatenation) within ``CELL_BOUND`` and every other
     leaf within ``REST_BOUND``, each 3× the readings (``PORT_VS_JAX``'s
     rule). At this level the two packages' other layers already differ
-    (the norms' bf16 backward, XLA's bf16 bias reductions, the float32
-    -carry Mem-LSTMs' bf16 running sums), so the float32 recurrence's
-    readings, also recorded, lie 1.6-2.2× the kernel path's: held to be
-    further, not to miss the bound.
-
-  Causal SkiM (the streaming mode: cLN, one direction) is held too; its
-  forward already parts from JAX's at the first SegLSTM's cLN (4.7e-3
-  rel-L2, the cell's own output exact), so its model-level readings are
-  not held against the float32 recurrence's.
+    (the norms' bf16 backward, XLA's bf16 bias reductions), so the float32
+    recurrence's readings, also recorded, lie 1.4-4.1× the kernel path's:
+    held to be further, not to miss the bound. The float32-carry LSTMs
+    (the Mem-LSTMs, the later SegLSTMs of "hc") train as ``jax.grad``
+    computes them (``ops.lstm_cell.f32_carry_lstm``,
+    tests/test_torch_bf16_carry_grad.py), and causal SkiM's cLN rounds as
+    the JAX cLN does (``layers.channel_norm_narrow``).
 
 Widths: skim's tests' small model with 16 units; 0.25 s of audio (B=2).
 """
@@ -72,10 +70,11 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 
 K, D, H = 12, 16, 16
 REL = 3.3e-3
-# 3x the readings of (b) (the cells' leaves together, the worst other leaf); the
-# float32 recurrence read 5.10e-3, 4.77e-3 and 5.68e-3 on the cells.
-CELL_BOUND = {"id": 9.8e-3, "hc": 9.0e-3, "causal": 2.2e-2}
-REST_BOUND = {"id": 7.8e-2, "hc": 2.0e-1, "causal": 1.6e-1}
+# 3x the readings of (b) (the cells' leaves together: 3.256e-3, 2.830e-3,
+# 1.702e-3; the worst other leaf: 2.589e-2, 2.030e-2, 4.966e-2); the float32
+# recurrence read 4.648e-3, 4.053e-3 and 7.001e-3 on the cells.
+CELL_BOUND = {"id": 9.8e-3, "hc": 8.5e-3, "causal": 5.1e-3}
+REST_BOUND = {"id": 7.8e-2, "hc": 6.1e-2, "causal": 1.49e-1}
 T = 4000
 
 
@@ -188,12 +187,14 @@ def test_backward_entry_point_on_cpu_is_the_plain_version():
     args, cts = inputs(6, 2, "seeded", 0)
     xp = lstm_cell._projection(bf16(args[0]), bf16(args[1]))
     w_hh, bias, h0, c0 = (bf16(a) for a in args[2:])
-    y, hn, cn, z, c = lstm_cell.bf16_lstm_scan(xp, w_hh, bias, h0, c0, [False, True], keep=True)
+    y, hn, cn, gates, c = lstm_cell.bf16_lstm_scan(xp, w_hh, bias, h0, c0, [False, True],
+                                                   keep=True)
     assert all(torch.equal(a, b) for a, b in zip(
         (y, hn, cn), lstm_cell.bf16_lstm_scan(xp, w_hh, bias, h0, c0, [False, True])))
     dy, dhn, dcn = (bf16(a) for a in cts)
-    got = lstm_cell.bf16_lstm_scan_backward(dy, dhn, dcn, z, c, w_hh, c0, [False, True])
-    ref = lstm_cell.bf16_lstm_scan_backward_ref(dy, dhn, dcn, z, c, w_hh, c0, [False, True])
+    got = lstm_cell.bf16_lstm_scan_backward(dy, dhn, dcn, gates, c, w_hh, c0, [False, True])
+    ref = lstm_cell.bf16_lstm_scan_backward_ref(dy, dhn, dcn, gates, c, w_hh, c0,
+                                                [False, True])
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     prods = lstm_cell.step_products(got[0], bf16(args[0]), y, h0, [False, True])
     assert all(torch.equal(a, b) for a, b in zip(
@@ -291,9 +292,9 @@ def test_skim_bf16_step_gradients_are_jax(case, monkeypatch):
         return np.concatenate([np.ravel(g[i]) for i in cell])
 
     cells = rel_l2(cat(got), cat(want)), rel_l2(cat(before), cat(want))
-    rest = max(rel_l2(got[i], want[i]) for i in range(len(want)) if i not in cell)
+    rest, worst = max((rel_l2(got[i], want[i]), names[i]) for i in range(len(want))
+                      if i not in cell)
     print(f"bf16 cells' leaves rel-L2: kernels {cells[0]:.3e}, float32 recurrence "
-          f"{cells[1]:.3e}; worst other leaf {rest:.3e}")
+          f"{cells[1]:.3e}; worst other leaf {rest:.3e} ({worst})")
     assert cells[0] <= CELL_BOUND[case] and rest <= REST_BOUND[case], (cells, rest)
-    if case != "causal":  # causal: the cLN's bf16 rounding differs before the cell's
-        assert cells[0] < cells[1]
+    assert cells[0] < cells[1]

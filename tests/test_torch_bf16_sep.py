@@ -26,7 +26,8 @@ read 1.08e-3 before the port rounded its first LSTM's input projection as flax d
 (zoo_layers._rounded_projection) and 1.09e-4 after (tests/bf16_rnn_distance.py); SkiM's read
 5.95e-3 and DPTNet's 2.37e-3 before the port computed flax's bfloat16 cell (ops.lstm_cell), its
 Dense, its attention and XLA's fused norms as the compiled JAX forward does, and 2.70e-7 and
-2.12e-7 after. Widths are
+2.12e-7 after; causal SkiM's (its cLN, ``OTHER_MODES``) 5.17e-3 before the port computed the
+JAX cLN's bfloat16 schedule (layers.channel_norm_narrow) and 2.38e-7 after. Widths are
 tests/test_torch_zoo_models.py's and tests/test_torch_skim.py's; inputs
 0.25 s. Each model's JAX functions are jitted once per file.
 """
@@ -60,7 +61,8 @@ from test_torch_zoo_models import SMALL as ZOO_SMALL
 from torch_threads import one_intra_op_thread  # noqa: F401
 
 BF16_REL_L2 = 0.05
-PORT_VS_JAX = {"DPRNNTasNet": 3.3e-4, "SkiMNet": 8.1e-7, "DPTNetModel": 6.4e-7}  # 3x readings
+PORT_VS_JAX = {"DPRNNTasNet": 3.3e-4, "SkiMNet": 8.1e-7, "DPTNetModel": 6.4e-7,  # 3x readings
+               "SkiMNet-causal": 7.2e-7}
 T = 4000  # 0.25 s at 16 kHz
 LR = 1e-3
 STEPS = 3
@@ -74,6 +76,8 @@ SEP = {
     "MossFormer": ZOO_SMALL["MossFormer"],
     "SkiMNet": dict(SKIM_SMALL, causal=False, seg_overlap=True),  # skim.yaml's mode
 }
+# Held beside the zoo by its own key: causal SkiM, the streaming mode (cLN).
+OTHER_MODES = {"SkiMNet-causal": ("SkiMNet", dict(SKIM_SMALL, causal=True, seg_overlap=False))}
 
 
 def rel_l2(a, b) -> float:
@@ -265,7 +269,7 @@ def check_forward(r: Readings):
     assert j16.shape == t16.shape == t32.shape == j32.shape and np.isfinite(t16).all()
     dists = rel_l2(j16, j32), rel_l2(t16, t32), rel_l2(t16, j16)
     assert max(dists) < BF16_REL_L2, dists
-    assert dists[2] < PORT_VS_JAX.get(r.name, BF16_REL_L2), dists
+    assert dists[2] < PORT_VS_JAX.get(getattr(r, "key", r.name), BF16_REL_L2), dists
     assert 0 < dists[1]  # really computed in bfloat16
     with torch.inference_mode():
         served = to_waveform(r.model, bf16_forward(r.model)(torch.from_numpy(r.mix)), T)
@@ -327,12 +331,16 @@ def check_refused(name, model, reason, train_only=False):
 _READINGS = {}
 
 
-def readings(name) -> Readings:
-    if name not in _READINGS:
-        cfg = SEP[name]
+def readings(key) -> Readings:
+    """A zoo model's readings by its name, or another mode's by its key in
+    ``OTHER_MODES``."""
+    if key not in _READINGS:
+        name, cfg = OTHER_MODES.get(key, (key, SEP.get(key)))
         model, params = seeded(name, cfg)
-        _READINGS[name] = Readings(name, cfg, params, model.eval(), JM.get(name)(**cfg), 2)
-    return _READINGS[name]
+        r = Readings(name, cfg, params, model.eval(), JM.get(name)(**cfg), 2)
+        r.key = key
+        _READINGS[key] = r
+    return _READINGS[key]
 
 
 def test_the_lists_name_the_zoo():
@@ -342,12 +350,12 @@ def test_the_lists_name_the_zoo():
     assert not set(SEP) & set(BF16_TRAIN_REFUSED)
 
 
-@pytest.mark.parametrize("name", list(SEP))
+@pytest.mark.parametrize("name", list(SEP) + list(OTHER_MODES))
 def test_bf16_forward_three_ways(name):
     check_forward(readings(name))
 
 
-@pytest.mark.parametrize("name", list(SEP))
+@pytest.mark.parametrize("name", list(SEP) + list(OTHER_MODES))
 def test_bf16_dtype_schedule_is_jax(name):
     check_schedule(readings(name))
 
