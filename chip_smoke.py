@@ -210,6 +210,13 @@ Phases, one line each:
     train step at B=2 x 4 s gives them (the scans within rel-L2 1e-3, the
     running sum bit-equal), each timed beside its plain version and the
     autograd of cuDNN's bf16 LSTM over the same layer (another function);
+    the training forward (``bf16_lstm_scan_train_kernel``) also with the
+    bit-equal share of each output; with ``--earlier-cell SOURCE`` (another
+    ``bf16_lstm.cu``, such as the parent commit's from a ``git archive``
+    under ``build/``), that source's training forward timed beside this
+    one's on the same arguments in turns (this, earlier, earlier, this) and
+    held to its plain version too, and in (a) its serving forward's outputs
+    bit-equal to this one's and timed beside them;
     (e) that step is their main path: one launch of each per bf16-carry
     SegLSTM and step, the running sum's float32-dz instance once per
     float32-carry LSTM layer and step, no inference scan, none in the
@@ -779,6 +786,11 @@ def phase_env():
     return torch.device("cuda", 0), smi, line
 
 
+# Another bf16_lstm.cu whose forwards phase 22 times beside this checkout's
+# (``--earlier-cell``), or None.
+EARLIER_CELL = None
+
+
 def phase_build() -> None:
     """Every kernel source built at once, one ``nvcc`` each, and bound."""
     from concurrent.futures import ThreadPoolExecutor
@@ -786,7 +798,7 @@ def phase_build() -> None:
     from sonicsim_tpu_torch.ops import kernels, lstm_cell
 
     t0 = time.perf_counter()
-    sources = (kernels.SOURCE, lstm_cell.SOURCE)
+    sources = (kernels.SOURCE, lstm_cell.SOURCE) + ((EARLIER_CELL,) if EARLIER_CELL else ())
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(lambda s: kernels.build(verbose=True, source=s), sources))
     kernels._library()
@@ -4939,6 +4951,15 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
     args = (xp, w_hh, bias, h0, c0, reverse)
     with torch.inference_mode():
         ms = burst_ms(lambda: scan(*args), device, reps=cfg["reps"], warmup=cfg["warmup"])
+        earlier = None
+        if EARLIER_CELL and device.type == "cuda":  # its serving forward: the same bits
+            run_earlier = _earlier_scan()
+            same = all(torch.equal(a, b) for a, b in zip(run_earlier(*args), scan(*args)))
+            check(same, f"the serving forward's outputs differ from {EARLIER_CELL}'s")
+            earlier = [burst_ms(lambda: run_earlier(*args), device, reps=cfg["reps"],
+                                warmup=cfg["warmup"]) for _ in range(2)]
+            earlier.append(burst_ms(lambda: scan(*args), device, reps=cfg["reps"],
+                                    warmup=cfg["warmup"]))
         call_ms = median_ms(lambda: scan(*args), device, reps=cfg["reps"], warmup=1)
         plain_ms = median_ms(lambda: lstm_cell.bf16_lstm_scan_ref(*args), device,
                              reps=cfg["reps"], warmup=1)
@@ -4976,6 +4997,12 @@ def phase_bf16_cell(device, cfg, zoo_models, folders, smi) -> dict:
           f"{BF16_PEAK_FLOPS / 1e12:g} TFLOP/s; a {k}-step dependence chain); cuDNN's bf16 "
           f"LSTM over the same layer (another function: float32 cell) {cudnn_ms:.4f} ms; {smi}",
           flush=True)
+    if earlier:
+        print(f"bf16-cell[(a) earlier]: the serving forward of {EARLIER_CELL} on the same "
+              f"arguments: outputs bit-equal to this checkout's; {earlier[0]:.4f}, "
+              f"{earlier[1]:.4f} ms beside this checkout's {ms:.4f}, {earlier[2]:.4f} ms (in "
+              f"turns, each CUDA events around {cfg['reps']} launches in a row); {smi}",
+              flush=True)
     print(f"bf16-cell[(b)]: SkiM (skim.yaml) B=1 x {cfg['window_s']:g} s: {launches} launch(es) "
           f"in its bf16 forward, {f32_launches} in its fp32 forward; its bf16 output on the "
           f"card vs the CPU's: rel-L2 {rel_cpu:.4g} (gate {BF16_REL_L2}, phases 11 and 13's "
@@ -5166,15 +5193,46 @@ def _bytes_bound(nbytes: int, flops: int) -> tuple:
 
 def _hold_kernel(kern, plain, device) -> dict:
     """A kernel's outputs ``kern`` against its plain version's ``plain``:
-    rel-L2 of each, max abs error, the share of the first output's elements
-    that are bit-equal."""
+    rel-L2 of each, max abs error, the share of each output's elements that
+    are bit-equal (``equal`` the first's)."""
     import torch
 
     check(all(bool(torch.isfinite(a.float()).all()) and a.shape == b.shape and a.dtype == b.dtype
               for a, b in zip(kern, plain)), "a kernel's output is not finite or misshapen")
+    equals = [float((a == b).float().mean()) for a, b in zip(kern, plain)]
     return dict(rels=[_rel_l2(a.double(), b.double()) for a, b in zip(kern, plain)],
                 err=max(float((a.float() - b.float()).abs().max()) for a, b in zip(kern, plain)),
-                equal=float((kern[0] == plain[0]).float().mean()))
+                equal=equals[0], equals=equals)
+
+
+def _earlier_scan():
+    """``bf16_lstm_scan``'s entry point in ``EARLIER_CELL``'s library (built
+    by phase 1's ``phase_build``) as a function of the same arguments:
+    ``(xp, w_hh, bias, h0, c0, reverse, keep=False) -> outputs``."""
+    import ctypes
+
+    import torch
+
+    from sonicsim_tpu_torch.ops import kernels, lstm_cell
+
+    fn = ctypes.CDLL(str(kernels.build(source=EARLIER_CELL))).sonicsim_bf16_lstm_scan
+    p = ctypes.c_void_p
+    fn.argtypes = [p] * 10 + [ctypes.c_int64] * 5 + [ctypes.c_int, p]
+
+    def scan(xp, w_hh, bias, h0, c0, reverse, keep=False):
+        n, k, _ = xp.shape
+        dirs, _, hidden = w_hh.shape
+        y = torch.empty(n, k, dirs * hidden, dtype=torch.bfloat16, device=xp.device)
+        hn, cn = torch.empty_like(h0), torch.empty_like(c0)
+        kept = (torch.empty_like(xp), torch.empty_like(y)) if keep else ()
+        status = fn(*[t.data_ptr() for t in (xp, w_hh, bias, h0, c0, y, hn, cn)],
+                    *[t.data_ptr() for t in kept] if keep else [None, None], n, k, dirs,
+                    hidden, lstm_cell._mask(reverse), xp.device.index,
+                    torch.cuda.current_stream(xp.device).cuda_stream)
+        check(status == 0, f"the earlier bf16_lstm_scan: cudaError {status}")
+        return (y, hn, cn) + kept
+
+    return scan
 
 
 def _bf16_cell_training(device, cfg, args, weights, folders, smi) -> dict:
@@ -5296,6 +5354,17 @@ def _bf16_cell_training(device, cfg, args, weights, folders, smi) -> dict:
         times = {n: (burst_ms(kern_fn[n], device, reps=reps, warmup=warmup),
                      median_ms(plain_fn[n], device, reps=cfg["plain_reps"], warmup=1))
                  for n in train_names}
+        earlier = None
+        if EARLIER_CELL and device.type == "cuda":  # its training forward, in turns
+            run_earlier = _earlier_scan()
+            earlier = _hold_kernel(run_earlier(*fwd_args, keep=True),
+                                   plain_fn["bf16_lstm_scan_train"](), device)
+            check(max(earlier["rels"]) <= CELL_REL,
+                  f"{EARLIER_CELL}'s training forward vs its plain version: {earlier}")
+            earlier["ms"] = [burst_ms(lambda: run_earlier(*fwd_args, keep=True), device,
+                                      reps=reps, warmup=warmup) for _ in range(2)]
+            earlier["ms"].append(burst_ms(kern_fn["bf16_lstm_scan_train"], device, reps=reps,
+                                          warmup=warmup))
     layer = model32.separation.skim.seg_lstms[0].lstm.bfloat16().train()
     layer.flatten_parameters()
     g = torch.Generator(device=device).manual_seed(cfg["seed"])
@@ -5346,6 +5415,18 @@ def _bf16_cell_training(device, cfg, args, weights, folders, smi) -> dict:
               f"{bound_ms:.4f} ms "
               f"({bound_by}: {nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:g} TB/s, "
               f"{flops / 1e9:.1f} GFLOP at {BF16_PEAK_FLOPS / 1e12:g} TFLOP/s); {smi}", flush=True)
+    h = holds["bf16_lstm_scan_train"]
+    print(f"bf16-cell[(d) bf16_lstm_scan_train bit-equal]: y, hn, cn, gates, c "
+          f"{[float(f'{e:.6f}') for e in h['equals']]} of their elements equal the plain "
+          f"version's; {smi}", flush=True)
+    if earlier:
+        print(f"bf16-cell[(d) earlier]: the training forward of {EARLIER_CELL} on the same "
+              f"arguments: rel-L2 {[float(f'{r:.3g}') for r in earlier['rels']]} from the "
+              f"plain version (tol {CELL_REL}), bit-equal "
+              f"{[float(f'{e:.6f}') for e in earlier['equals']]}; {earlier['ms'][0]:.4f}, "
+              f"{earlier['ms'][1]:.4f} ms beside this checkout's "
+              f"{times['bf16_lstm_scan_train'][0]:.4f}, {earlier['ms'][2]:.4f} ms (in turns, "
+              f"each CUDA events around {reps} launches in a row); {smi}", flush=True)
     print(f"bf16-cell[(d) yardstick]: the autograd of cuDNN's bf16 LSTM over the same layer "
           f"(another function: float32 cell), forward and backward, {cudnn_ms:.4f} ms; {smi}",
           flush=True)
@@ -5889,7 +5970,12 @@ def main() -> int:
                     help="import sonicsim_tpu_torch from this checkout")
     ap.add_argument("--trace-dir", default=None,
                     help="write phase 6's op-by-op trace of the bank (ROADMAP C9) here")
+    ap.add_argument("--earlier-cell", default=None, metavar="SOURCE",
+                    help="another bf16_lstm.cu whose forwards phase 22 times beside these")
     args = ap.parse_args()
+    if args.earlier_cell:
+        global EARLIER_CELL
+        EARLIER_CELL = Path(args.earlier_cell).resolve()
     if args.port_root:
         sys.path.insert(0, args.port_root)
     try:

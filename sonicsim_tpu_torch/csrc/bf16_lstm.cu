@@ -22,15 +22,18 @@
 // either: cuDNN's bfloat16 RNN keeps its gates and cell in float32.
 //
 // Four kernels:
-//  * bf16_lstm_scan_kernel<H, false>: the forward;
-//  * bf16_lstm_scan_kernel<H, true>: the forward that also writes each
-//    step's rounded gates i, f, g, o and cells c', which the backward reads;
+//  * bf16_lstm_scan_kernel<H, false>: the forward (serving); its TRAIN
+//    instance, the earlier training forward, is no longer launched;
+//  * bf16_lstm_scan_train_kernel<H>: the training forward, which also
+//    writes each step's rounded gates i, f, g, o and cells c', which the
+//    backward reads;
 //  * bf16_lstm_scan_backward_kernel<H>: the reverse scan, one product
 //    dh_prev = rnd(dz . W_hh) a step;
 //  * bf16_running_sum_kernel: the weight and bias gradients accumulated in
 //    bfloat16 over the steps in the JAX transpose loop's order.
 //
-// Design of the forward scan (the backward's is at its kernel). One CTA per
+// Design of the serving forward scan (the training forward's and the
+// backward's are at their kernels). One CTA per
 // (tile of 16 rows, direction), H / 8 warps: the rows' recurrences are
 // independent, so the tiles run in parallel and each walks its K steps
 // alone. A step's product is one m16 x n x k tile on the tensor cores
@@ -392,6 +395,261 @@ bf16_lstm_scan_kernel(const uint16_t* __restrict__ xp,
   }
 }
 
+// The training forward: bf16_lstm_scan_kernel's function, and each step's
+// rounded gates i, f, g, o (z_out, N, K, D*4H) and cells c' (c_out, N, K,
+// D*H) kept for the backward; the arguments as bf16_lstm_scan_kernel's.
+// At SkiM's training shape the kept gates and cells are 3 in 4 of the bytes
+// written (661.8 MB a call at 516 rows, 0.20 ms at 3.35 TB/s) and the step
+// is a 250-step dependence chain. Its design is the backward's:
+//  * 8-row tiles: 130 CTAs at 516 rows and two directions, where 16-row
+//    tiles made 66 on 132 SMs;
+//  * the product is z^T = W_hh . h^T: the mma's 16 rows are 16 units of one
+//    gate, its 8 columns a tile's rows, so no row of it is padding; warp
+//    pair (w, w + H / 16) holds W_hh for units [16 w, 16 w + 16) of all
+//    four gates in registers, warp w the lower half of the k tiles (the
+//    larger, for an odd count) and warp w + H / 16 the upper; the pair
+//    trades halves through shared memory (a named barrier each step), and
+//    each warp keeps 8 of the 16 units, so a thread holds 2 cells (rows 2 q,
+//    2 q + 1 of the tile, one unit) with all four gates, and c stays in
+//    registers: a chain of KT / 2 k tiles a step and 10 table lookups a
+//    thread, where the earlier form had KT and 20;
+//  * the step's gates, c' and h go to a double-buffered tile in shared
+//    memory and leave it after the step's barrier in 16-byte stores, each
+//    warp writing whole rows: the stores of step t overlap step t + 1.
+// Each k tile's product is summed from zero on the tensor cores and added
+// in float32, in order within each half; then the lower half's sum plus the
+// upper half's. The projection ring and the gate tables are the forward's.
+template <int H>
+__global__ void __launch_bounds__(4 * H, 1)
+bf16_lstm_scan_train_kernel(const uint16_t* __restrict__ xp,
+                            const uint16_t* __restrict__ w_hh,
+                            const uint16_t* __restrict__ bias,
+                            const uint16_t* __restrict__ h0,
+                            const uint16_t* __restrict__ c0,
+                            uint16_t* __restrict__ y, uint16_t* __restrict__ hn,
+                            uint16_t* __restrict__ cn, uint16_t* __restrict__ z_out,
+                            uint16_t* __restrict__ c_out, int n, int k_len, int dirs,
+                            unsigned reverse_mask) {
+  constexpr int G = 4 * H;
+  constexpr int KT = H / 16;         // k tiles of W_hh . h^T
+  constexpr int KLO = (KT + 1) / 2;  // the lower half's, warps [0, UG)
+  constexpr int KHI = KT / 2;        // the upper half's, warps [UG, 2 UG)
+  constexpr int THREADS = 4 * H;     // H / 8 warps: H / 16 pairs
+  constexpr int UG = H / 16;         // unit groups of 16, one a warp pair
+  constexpr int ROWS = kBackRows;
+  constexpr int CELLS = 2;           // a thread's cells: rows 2 tq, 2 tq + 1, one unit
+  constexpr int XLD = G + 8;         // projection and gate row stride in shared memory
+  constexpr int LD = H + 8;          // h and c row stride in shared memory
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem);  // [kStages][ROWS][XLD]
+  uint16_t* sz = ring + kStages * ROWS * XLD;          // [2][ROWS][XLD], gates
+  uint16_t* sh = sz + 2 * ROWS * XLD;                  // [2][ROWS][LD], h
+  uint16_t* sc = sh + 2 * ROWS * LD;                   // [2][ROWS][LD], c'
+  uint16_t* sig = sc + 2 * ROWS * LD;                  // [kTable]
+  uint16_t* tnh = sig + kTable;                        // [kTable]
+  float* xch = reinterpret_cast<float*>(tnh + kTable);  // [UG][2][4 * CELLS][32]
+
+  const int d = blockIdx.y;
+  const int r0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ug = warp % UG, kh = warp / UG;
+  const int uc = 16 * ug + gq + 8 * kh;  // the thread's unit
+  const bool rev = (reverse_mask >> d) & 1u;
+  const int64_t xs = int64_t(dirs) * G, ys = int64_t(dirs) * H;
+
+  // A[m][k] = W_hh[q H + 16 ug + m][k], gate q, for this warp's half of the
+  // k tiles: each pair (k, k + 1) is adjacent in W_hh.
+  uint32_t wa[4][KLO][4];
+  const uint16_t* wd = w_hh + int64_t(d) * G * H;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int i = 0; i < KLO; ++i) {
+      const int kt = kh ? KLO + i : i;
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int m = q * H + 16 * ug + gq + 8 * (f & 1), k = kt * 16 + 2 * tq + 8 * (f >> 1);
+        wa[q][i][f] = kt < KT ? load2(wd + int64_t(m) * H + k) : 0u;
+      }
+    }
+  }
+  fill_tables(sig, tnh, THREADS);
+  float bq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    bq[q] = __bfloat162float(__ushort_as_bfloat16(bias[int64_t(d) * G + q * H + uc]));
+  }
+
+  // A step's projection tile and its gates are 8 rows x G / 8 16-byte
+  // chunks, one a thread: row zrow, chunk zc8. Its h and c' are 8 rows x H /
+  // 8 chunks: y from threads [0, H), c' from [H, 2 H), row orow, chunk oc8.
+  const int zrow = threadIdx.x / (G / 8), zc8 = threadIdx.x % (G / 8);
+  const int ot = threadIdx.x % H, orow = ot / (H / 8), oc8 = ot % (H / 8);
+  const bool kstore = r0 + zrow < n;
+  const bool ystore = threadIdx.x < H && r0 + orow < n;
+  const bool cstore = threadIdx.x >= H && threadIdx.x < 2 * H && r0 + orow < n;
+  const int64_t zbase = int64_t(min(r0 + zrow, n - 1)) * k_len * xs + int64_t(d) * G + zc8 * 8;
+  const int64_t obase = int64_t(r0 + orow) * k_len * ys + int64_t(d) * H + oc8 * 8;
+  // Step `step`'s projection tile into ring slot step % kStages, zeros for
+  // rows past n.
+  auto issue = [&](int step) {
+    const int64_t at = int64_t(rev ? k_len - 1 - step : step) * xs;
+    cp_async16(ring + (step % kStages) * ROWS * XLD + zrow * XLD + zc8 * 8, xp + zbase + at,
+               kstore ? 16 : 0);
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < k_len) issue(s);
+    cp_async_commit();
+  }
+
+  auto bf = [](uint16_t v) { return __bfloat162float(__ushort_as_bfloat16(v)); };
+  auto lrow = [&](int ci) { return 2 * tq + ci; };
+  float c[CELLS], hlast[CELLS];
+#pragma unroll
+  for (int ci = 0; ci < CELLS; ++ci) {
+    const int row = r0 + lrow(ci);
+    const int64_t at = (int64_t(d) * n + row) * H + uc;
+    const uint16_t hv = row < n ? h0[at] : uint16_t(0);
+    c[ci] = row < n ? bf(c0[at]) : 0.0f;
+    hlast[ci] = bf(hv);
+    sh[lrow(ci) * LD + uc] = hv;
+  }
+  cp_async_wait<kStages - 2>();  // step 0's tile
+  __syncthreads();
+
+  float* mine = xch + (ug * 2 + kh) * 4 * CELLS * 32 + lane;
+  const float* theirs = xch + (ug * 2 + (kh ^ 1)) * 4 * CELLS * 32 + lane;
+  int buf = 0;
+  for (int step = 0; step < k_len; ++step) {
+    const int t = rev ? k_len - 1 - step : step;
+    // Three steps ahead; the slot was last read in step - 1, before its
+    // barrier.
+    if (step + kStages - 1 < k_len) issue(step + kStages - 1);
+    cp_async_commit();
+
+    // z^T = W_hh . h^T over this warp's half of the k tiles; the
+    // accumulator holds units gq (j = 0, 1) and gq + 8 (j = 2, 3) of rows
+    // 2 tq, 2 tq + 1.
+    const uint16_t* hb = sh + buf * ROWS * LD;
+    float acc[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < KLO; ++i) {
+      if (kh && i >= KHI) break;
+      const uint16_t* hrow = hb + gq * LD + (kh ? KLO + i : i) * 16 + 2 * tq;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(hrow);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(hrow + 8);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(part, wa[q][i], b0, b1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[q][j] += part[j];
+      }
+    }
+    // This warp keeps its unit's sums and gives the other unit's.
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int ci = 0; ci < CELLS; ++ci) mine[(q * CELLS + ci) * 32] = kh ? acc[q][ci] : acc[q][2 + ci];
+    }
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + ug));  // the pair's halves
+
+    const uint16_t* slot = ring + (step % kStages) * ROWS * XLD;
+    uint16_t* zo = sz + buf * ROWS * XLD;
+    uint16_t* ho = sh + (buf ^ 1) * ROWS * LD;
+    uint16_t* co = sc + buf * ROWS * LD;
+    // The cells' pre-activations, then every gate's lookup at once, the
+    // rare input outside the tables' window computed after.
+    float z[CELLS][4], gv[CELLS][4];
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float own = kh ? acc[q][2 + ci] : acc[q][ci], other = theirs[(q * CELLS + ci) * 32];
+        const float dot = kh ? other + own : own + other;
+        z[ci][q] = rnd(rnd(rnd(dot) + bq[q]) + bf(slot[lrow(ci) * XLD + q * H + uc]));
+      }
+    }
+    bool outside = false;
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        bool o;
+        gv[ci][q] = lookup(q == 2 ? tnh : sig, z[ci][q], o);
+        outside |= o;
+      }
+    }
+    if (outside) {
+#pragma unroll
+      for (int ci = 0; ci < CELLS; ++ci) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          bool o;
+          lookup(sig, z[ci][q], o);
+          if (o) gv[ci][q] = q == 2 ? tanh_rounded(z[ci][q]) : sigmoid_rounded(z[ci][q]);
+        }
+      }
+    }
+    float tc[CELLS];
+    outside = false;
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) {
+      c[ci] = rnd(rnd(gv[ci][1] * c[ci]) + rnd(gv[ci][0] * gv[ci][2]));
+      bool o;
+      tc[ci] = lookup(tnh, c[ci], o);
+      outside |= o;
+    }
+    if (outside) {
+#pragma unroll
+      for (int ci = 0; ci < CELLS; ++ci) {
+        bool o;
+        lookup(tnh, c[ci], o);
+        if (o) tc[ci] = tanh_rounded(c[ci]);
+      }
+    }
+#pragma unroll
+    for (int ci = 0; ci < CELLS; ++ci) {
+      const int lr = lrow(ci);
+      hlast[ci] = rnd(gv[ci][3] * tc[ci]);
+      ho[lr * LD + uc] = __bfloat16_as_ushort(__float2bfloat16_rn(hlast[ci]));
+      co[lr * LD + uc] = __bfloat16_as_ushort(__float2bfloat16_rn(c[ci]));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        zo[lr * XLD + q * H + uc] = __bfloat16_as_ushort(__float2bfloat16_rn(gv[ci][q]));
+      }
+    }
+    cp_async_wait<kStages - 2>();  // the next step's tile and outputs
+    __syncthreads();
+    // Step t's outputs, 16-byte stores from shared memory: each tile is
+    // next written two steps on, after a barrier that follows these loads.
+    if (kstore) {  // the kept gates
+      *reinterpret_cast<uint4*>(z_out + zbase + int64_t(t) * xs) =
+          *reinterpret_cast<const uint4*>(zo + zrow * XLD + zc8 * 8);
+    }
+    if (ystore) {  // y
+      *reinterpret_cast<uint4*>(y + obase + int64_t(t) * ys) =
+          *reinterpret_cast<const uint4*>(ho + orow * LD + oc8 * 8);
+    }
+    if (cstore) {  // the kept cells
+      *reinterpret_cast<uint4*>(c_out + obase + int64_t(t) * ys) =
+          *reinterpret_cast<const uint4*>(co + orow * LD + oc8 * 8);
+    }
+    buf ^= 1;
+  }
+#pragma unroll
+  for (int ci = 0; ci < CELLS; ++ci) {
+    const int row = r0 + lrow(ci);
+    if (row >= n) continue;
+    const int64_t at = (int64_t(d) * n + row) * H + uc;
+    hn[at] = __bfloat16_as_ushort(__float2bfloat16_rn(hlast[ci]));
+    cn[at] = __bfloat16_as_ushort(__float2bfloat16_rn(c[ci]));
+  }
+}
+
 // The scan's VJP. dy (N, K, D*H), dhn/dcn/c0/dh0/dc0 (D, N, H), the training
 // forward's gates (N, K, D*4H: i, f, g, o as it rounded them) and c (N, K,
 // D*H), w_hh (D, 4H, H), dz (N, K, D*4H): bfloat16 bits, contiguous. Each
@@ -750,6 +1008,13 @@ constexpr int scan_smem() {
 }
 
 template <int H>
+constexpr int train_smem() {
+  return (kStages * kBackRows * (4 * H + 8) + 2 * kBackRows * (4 * H + 8) +
+          4 * kBackRows * (H + 8) + 2 * kTable) * 2 +
+         (H / 16) * 2 * 4 * 2 * 32 * 4;
+}
+
+template <int H>
 constexpr int backward_smem() {
   return (kStages * kBackRows * (4 * H + 8 + 2 * (H + 8)) + 2 * kBackRows * (4 * H + 8) +
           kTable) * 2 +
@@ -774,14 +1039,24 @@ int launch(const uint16_t* xp, const uint16_t* w_hh, const uint16_t* bias,
            const uint16_t* h0, const uint16_t* c0, uint16_t* y, uint16_t* hn,
            uint16_t* cn, uint16_t* z_out, uint16_t* c_out, int64_t n, int64_t k_len,
            int64_t dirs, unsigned reverse_mask, cudaStream_t st) {
+  static bool done[2][64];
+  if (z_out) {  // the training forward
+    const dim3 grid(unsigned((n + kBackRows - 1) / kBackRows), unsigned(dirs));
+    constexpr int bytes = train_smem<H>();
+    const cudaError_t err = allow_smem(bf16_lstm_scan_train_kernel<H>, bytes, done[1]);
+    if (err != cudaSuccess) return int(err);
+    bf16_lstm_scan_train_kernel<H><<<grid, 4 * H, bytes, st>>>(
+        xp, w_hh, bias, h0, c0, y, hn, cn, z_out, c_out, int(n), int(k_len), int(dirs),
+        reverse_mask);
+    return int(cudaGetLastError());
+  }
   const dim3 grid(unsigned((n + kRows - 1) / kRows), unsigned(dirs));
   constexpr int bytes = scan_smem<H>();
-  static bool done[2][64];
-  auto kernel = z_out ? bf16_lstm_scan_kernel<H, true> : bf16_lstm_scan_kernel<H, false>;
-  const cudaError_t err = allow_smem(kernel, bytes, done[z_out ? 1 : 0]);
+  const cudaError_t err = allow_smem(bf16_lstm_scan_kernel<H, false>, bytes, done[0]);
   if (err != cudaSuccess) return int(err);
-  kernel<<<grid, 4 * H, bytes, st>>>(xp, w_hh, bias, h0, c0, y, hn, cn, z_out, c_out,
-                                     int(n), int(k_len), int(dirs), reverse_mask);
+  bf16_lstm_scan_kernel<H, false><<<grid, 4 * H, bytes, st>>>(
+      xp, w_hh, bias, h0, c0, y, hn, cn, z_out, c_out, int(n), int(k_len), int(dirs),
+      reverse_mask);
   return int(cudaGetLastError());
 }
 

@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.lstm_cell import row_sum_ref
+
 
 def promote(*tensors):
     """``tensors`` (``None`` passes) cast to the widest of their dtypes by
@@ -201,21 +203,138 @@ def channel_norm_narrow(x: torch.Tensor, unrounded: torch.Tensor | None, weight,
     (``unrounded``, that op's float32 result), the mean's sum reads it
     unrounded; everything after reads ``x``. Output in ``x``'s dtype."""
     dt = x.dtype
+    centred, scale, _ = _channel_stats_narrow(x, unrounded, eps)
+    y = _round_to(weight.float() * centred, dt) if weight is not None else centred
+    y = _round_to(y * scale, dt)
+    if bias is not None:
+        y = _round_to(y + bias.float(), dt)
+    return y.to(dt)
 
-    def rnd(t: torch.Tensor) -> torch.Tensor:
-        return t.to(dt).float()
 
+def _round_to(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return t.to(dt).float()
+
+
+def _rnd(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _channel_stats_narrow(x: torch.Tensor, unrounded: torch.Tensor | None, eps: float):
+    """:func:`channel_norm_narrow`'s ``x − mean``, its ``rsqrt(var + eps)``
+    and ``var + eps``, each rounded to ``x``'s dtype, in float32."""
+    dt = x.dtype
     inv_n = torch.tensor(1.0 / x.shape[-1], dtype=torch.float32)
     src = x if unrounded is None else unrounded
-    mean = rnd(src.float().sum(dim=-1, keepdim=True) * inv_n)
-    centred = rnd(x.float() - mean)
-    var = rnd((centred * centred).sum(dim=-1, keepdim=True) * inv_n)
-    scale = rnd(torch.rsqrt(rnd(var + rnd(torch.tensor(eps, dtype=torch.float32)))))
-    y = rnd(weight.float() * centred) if weight is not None else centred
-    y = rnd(y * scale)
-    if bias is not None:
-        y = rnd(y + bias.float())
-    return y.to(dt)
+    mean = _round_to(src.float().sum(dim=-1, keepdim=True) * inv_n, dt)
+    centred = _round_to(x.float() - mean, dt)
+    var = _round_to((centred * centred).sum(dim=-1, keepdim=True) * inv_n, dt)
+    shifted = _round_to(var + _round_to(torch.tensor(eps, dtype=torch.float32), dt), dt)
+    return centred, _round_to(torch.rsqrt(shifted), dt), shifted
+
+
+class _DenseNormBf16(torch.autograd.Function):
+    """flax's bfloat16 ``Dense`` followed by SkiM's norm (GroupNorm(1) over
+    every non-batch axis, or the JAX cLN over the last), forward as
+    :class:`Linear` and :func:`fused_norm` / :func:`channel_norm_narrow`
+    compute it, backward as the compiled HLO of ``jax.vjp`` of the pair
+    computes it (tests/bf16_dense_norm_hlo.py prints that HLO). With
+    ``rnd`` a rounding to bfloat16, ``c`` the output's cotangent, ``u`` the
+    Dense's float32 sum of its rounded product and bias and ``y = rnd(u)``:
+
+    * GroupNorm(1): per sample, from ``y``'s float32 sums ``s1``, ``s2`` (the
+      mean ``m = s1/n``, ``var = max(s2/n − m², 0)``, ``r = rsqrt(var + eps)``),
+      in float32: ``a = Σ c·r·γ``, ``S = Σ_rows (u − m)·c`` per channel,
+      ``b = Σ_ch S·γ·(−r/2(var + eps))``; the Dense's cotangent
+      ``rnd(rnd(c·r·γ) + rnd((−a − 2m·b)/n + y·2b/n))``; ``dγ = rnd(Σ r·S)``
+      and ``dβ = rnd(Σ c)``, float32 sums rounded once;
+    * the cLN: every op of its VJP rounded, its channel sums and the
+      parameters' row sums bfloat16 reduces;
+    * the Dense: the bias's cotangent a bfloat16 reduce over the rows, the
+      kernel's and the input's float32 dots rounded once.
+
+    A bfloat16 reduce sums in XLA's order (``ops.lstm_cell.row_sum_ref``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta, eps: float, causal: bool):
+        product = F.linear(x, weight)
+        unrounded = product.float() + bias.float()
+        y = product + bias
+        if causal:
+            out = channel_norm_narrow(y, unrounded, gamma, beta, eps)
+        else:
+            out = fused_norm(y, unrounded, tuple(range(1, y.dim())), gamma, beta, eps)
+        ctx.save_for_backward(x, weight, bias, gamma, product)
+        ctx.eps, ctx.causal = eps, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, weight, bias, gamma, product = ctx.saved_tensors
+        dt = x.dtype
+        u = product.float() + bias.float()
+        norm = _cln_backward_bf16 if ctx.causal else _gln_backward_bf16
+        d_dense, d_gamma, d_beta = norm(ct.float(), u, gamma.float(), ctx.eps)
+        d_bias = row_sum_ref(d_dense.to(dt), lead=d_dense.dim() - 1)
+        d_weight = d_dense.flatten(0, -2).t() @ x.float().flatten(0, -2)
+        d_x = d_dense @ weight.float()
+        return (d_x.to(dt), d_weight.to(dt), d_bias.to(dt), d_gamma.to(dt), d_beta.to(dt),
+                None, None)
+
+
+def _gln_backward_bf16(c: torch.Tensor, u: torch.Tensor, gamma: torch.Tensor, eps: float):
+    """GroupNorm(1)'s part of :class:`_DenseNormBf16`'s backward: the
+    Dense's cotangent (bfloat16 values) and ``dγ``, ``dβ`` (rounded)."""
+    y = _rnd(u)
+    per_sample = tuple(range(1, c.dim()))
+    inv_n = torch.tensor(1.0 / y[0].numel(), dtype=torch.float32)
+    twice = inv_n * 2
+    s1 = y.sum(dim=per_sample, keepdim=True)
+    raw = y.square().sum(dim=per_sample, keepdim=True) * inv_n - (s1 * inv_n).square()
+    var = raw.clamp_min(0.0)
+    r = torch.rsqrt(var + eps)
+    slope = torch.where(raw > 0, 1.0, torch.where(raw == 0, 0.5, 0.0))
+    scale = r * gamma
+    a = (c * scale).sum(dim=per_sample, keepdim=True)
+    s = ((u - s1 * inv_n) * c).sum(dim=per_sample[:-1], keepdim=True)
+    b = (s * gamma * (r / (var + eps) * -0.5)).sum(dim=-1, keepdim=True) * slope
+    g1 = (-a + -b * (s1 * twice)) * inv_n
+    d_dense = _rnd(_rnd(c * scale) + _rnd(g1 + y * (b * twice)))
+    d_gamma = (r * s).sum(dim=tuple(range(c.dim() - 1))).to(torch.bfloat16)
+    d_beta = c.sum(dim=tuple(range(c.dim() - 1))).to(torch.bfloat16)
+    return d_dense, d_gamma, d_beta
+
+
+def _cln_backward_bf16(c: torch.Tensor, u: torch.Tensor, gamma: torch.Tensor, eps: float):
+    """The cLN's part of :class:`_DenseNormBf16`'s backward (the compiled
+    ``jax.vjp`` of sonicsim_tpu/models/layers.py:42-47 on a bfloat16 input):
+    the Dense's cotangent (bfloat16 values) and ``dγ``, ``dβ``."""
+    bf16, rnd = torch.bfloat16, _rnd
+    centred, scale, shifted = _channel_stats_narrow(u.to(bf16), u, eps)
+    inv_n = torch.tensor(1.0 / c.shape[-1], dtype=torch.float32)
+    lead = c.dim() - 1
+
+    def over_channels(t):
+        return row_sum_ref(t.to(bf16).movedim(-1, 0))[..., None]
+
+    d_beta = row_sum_ref(c.to(bf16), lead=lead)
+    d_y1 = rnd(c * scale)
+    d_scale = over_channels(rnd(rnd(gamma * centred) * c))
+    d_gamma = row_sum_ref(rnd(d_y1 * centred).to(bf16), lead=lead)
+    d_square = rnd(d_scale * rnd(rnd(scale / shifted) * -0.5) * inv_n)
+    from_square = rnd(d_square * rnd(centred * 2))
+    direct = rnd(gamma * d_y1)
+    d_mean = rnd((over_channels(-direct) + over_channels(-from_square)) * inv_n)
+    return rnd(rnd(direct + from_square) + d_mean), d_gamma, d_beta
+
+
+def dense_norm_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                    causal: bool) -> torch.Tensor:
+    """SkiM's ``norm(proj(x))`` with every operand bfloat16: the output of
+    :class:`Linear` and :func:`fused_norm` (GroupNorm(1) over every
+    non-batch axis) or :func:`channel_norm_narrow` (``causal``), and the
+    gradients ``jax.grad`` computes for the pair (:class:`_DenseNormBf16`)."""
+    return _DenseNormBf16.apply(x, weight, bias, gamma, beta, eps, causal)
 
 
 def group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float) -> torch.Tensor:

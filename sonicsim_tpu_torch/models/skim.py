@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from .base import BaseModel, register_model
 from .layers import (Conv1d, ConvTranspose1d, Linear, PReLU, channel_norm_narrow,
-                     float32_or_wider, fused_norm, get_activation, group_norm, promote)
+                     dense_norm_bf16, float32_or_wider, fused_norm, get_activation,
+                     group_norm, promote)
 from .zoo_layers import F32_EPS, LSTMLayer, overlap_add_sequence, segment_sequence
 
 
@@ -62,6 +63,18 @@ class SkiMNorm(nn.Module):
         if unrounded is not None:
             return fused_norm(x, unrounded, tuple(range(1, x.dim())), g, b, F32_EPS)
         return group_norm(x.movedim(-1, 1), 1, g, b, F32_EPS).movedim(1, -1)
+
+    def after(self, dense: Linear, x: torch.Tensor) -> torch.Tensor:
+        """``self(dense(x))`` as XLA compiles the pair: the norm reads the
+        Dense's float32 sum where it rounds (:meth:`forward`); with every
+        operand bfloat16, forward and backward are ``jax.vjp``'s
+        (``layers.dense_norm_bf16``)."""
+        operands = (x, dense.weight, dense.bias, self.gamma, self.beta)
+        if all(t.dtype == torch.bfloat16 for t in operands):
+            return dense_norm_bf16(x, dense.weight, dense.bias, self.gamma.reshape(-1),
+                                   self.beta.reshape(-1), 1e-5 if self.causal else F32_EPS,
+                                   self.causal)
+        return self(dense(x), dense.unrounded(x))
 
 
 def _flat_states(s: torch.Tensor) -> torch.Tensor:
@@ -101,7 +114,7 @@ class SegLSTM(nn.Module):
             zeros = x.new_zeros(2 if lstm.bidirectional else 1, x.shape[0], lstm.hidden_size)
             hc = (zeros, zeros)
         out, hc = self.lstm.run(x, hc)
-        n = self.norm(self.proj(out), self.proj.unrounded(out))
+        n = self.norm.after(self.proj, out)
         if wide is not None and torch.promote_types(x.dtype, n.dtype) != x.dtype:
             return wide.to(n.dtype) + n, hc
         out = x + n

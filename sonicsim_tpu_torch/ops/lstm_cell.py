@@ -222,25 +222,38 @@ def walk_chunk(dz: torch.Tensor, reverse: Sequence[bool], walk: tuple[int, int]
 ROW_WINDOW = 32  # XLA's TreeReductionRewriter: the rows a reduce-window sums
 
 
-def row_sum_ref(v: torch.Tensor, rounded: bool = True) -> torch.Tensor:
-    """``v`` (N, ...) summed over its first axis as XLA's CPU backend sums a
-    ``reduce_sum`` of that dtype: up to 32 rows in row order from 0; more,
-    padded with zeros to a multiple of 32 (half the padding, rounded down,
-    in front), each window of 32 summed in order, and the window sums
-    summed the same way. A bfloat16 reduce (``rounded``) rounds each add,
-    a float32 one none."""
-    n = v.shape[0]
-    if n > ROW_WINDOW:
-        m = -(-n // ROW_WINDOW) * ROW_WINDOW
-        lo = (m - n) // 2
-        pad = [0, 0] * (v.dim() - 1) + [lo, m - n - lo]
-        windows = torch.nn.functional.pad(v, pad).reshape(m // ROW_WINDOW, ROW_WINDOW,
-                                                          *v.shape[1:])
-        return row_sum_ref(_in_order(windows.transpose(0, 1), rounded), rounded)
-    return _in_order(v, rounded)
+def row_sum_ref(v: torch.Tensor, rounded: bool = True, lead: int = 1) -> torch.Tensor:
+    """``v`` summed over its first ``lead`` axes as XLA's CPU backend sums a
+    ``reduce_sum`` of that dtype over them (its TreeReductionRewriter):
+    where no summed axis is longer than 32, every element in row-major
+    order from 0; else each longer axis padded with zeros to a multiple of
+    32 (half the padding, rounded down, in front), each window (32 along
+    those axes, the whole of the shorter ones) summed in that order, and
+    the window sums summed the same way. A bfloat16 reduce (``rounded``)
+    rounds each add, a float32 one none. A bfloat16 ``v`` is summed in
+    bfloat16 adds, which round as ``rounded`` does; the result is float32."""
+    sizes = v.shape[:lead]
+    if all(n <= ROW_WINDOW for n in sizes):
+        return _in_order(v.reshape(-1, *v.shape[lead:]), rounded)
+    pad, split = [], []
+    for n in sizes:
+        m = -(-n // ROW_WINDOW) * ROW_WINDOW if n > ROW_WINDOW else n
+        pad.append(((m - n) // 2, m - n - (m - n) // 2))
+        split += [m // min(m, ROW_WINDOW), min(m, ROW_WINDOW)]
+    flat = [0, 0] * (v.dim() - lead) + [p for lo_hi in reversed(pad) for p in lo_hi]
+    v = torch.nn.functional.pad(v, flat).reshape(*split, *v.shape[lead:])
+    order = [*range(1, 2 * lead, 2), *range(0, 2 * lead, 2), *range(2 * lead, v.dim())]
+    windows = v.permute(order).reshape(-1, *v.shape[0:2 * lead:2], *v.shape[2 * lead:])
+    sums = _in_order(windows, rounded)
+    return row_sum_ref(sums.to(v.dtype) if rounded else sums, rounded, lead)
 
 
 def _in_order(v: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    if rounded and v.dtype == torch.bfloat16:
+        acc = torch.zeros(v.shape[1:], dtype=torch.bfloat16, device=v.device)
+        for r in range(v.shape[0]):
+            acc.add_(v[r])
+        return acc.float()
     acc = torch.zeros(v.shape[1:], dtype=torch.float32, device=v.device)
     for r in range(v.shape[0]):
         acc = _rnd(acc + v[r]) if rounded else acc + v[r]

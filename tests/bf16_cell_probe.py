@@ -38,6 +38,16 @@ no longer has is skipped), timed at SkiM's B=2 x 4 s training shape (516
 rows of 250 steps) in two turns, and each form as it is at twice the rows:
 a time that holds at twice the rows says half the SMs were idle.
 
+    python tests/bf16_cell_probe.py --train-variants SOURCE
+
+With ``--train-variants``, the same for the training forward (the scan
+that also keeps each step's rounded gates and cells) of ``SOURCE`` and of
+this checkout: ``TRAIN_VARIANTS`` takes out the kept gates' and cells'
+stores, the output stores, the gate tables' loads, the products, the
+barrier; at SkiM's training shape in two turns, each form as it is also
+at twice the rows; then this checkout's training forward against its
+plain version (rel-L2 and the bit-equal share of every output).
+
 Needs the card; imports neither jax nor the JAX package.
 """
 
@@ -223,6 +233,36 @@ BACKWARD_VARIANTS = {
 }
 TRAIN_ROWS, STEPS = 516, 250  # SkiM's B=2 x 4 s training step: 516 rows of 250 steps
 
+# The training forward's step with one part taken out, on the source given
+# to --train-variants and on this checkout's, as BACKWARD_VARIANTS is read.
+TRAIN_VARIANTS = {
+    "as-is": ("nothing", []),
+    "no-kept-stores": ("the kept gates' and cells' stores", [
+        ("      if (TRAIN && row < n) {", "      if (TRAIN && row < 0) {"),
+        ("    if (kstore) {  // the kept gates", "    if (false) {  // the kept gates"),
+        ("    if (cstore) {  // the kept cells", "    if (false) {  // the kept cells")]),
+    "no-output-stores": ("the y stores", [
+        ("    if (step > 0) store_h(hb, rev ? t + 1 : t - 1);",
+         "    if (step < 0) store_h(hb, rev ? t + 1 : t - 1);"),
+        ("    if (ystore) {  // y", "    if (false) {  // y")]),
+    "no-gate-lookups": NEW_VARIANTS["no-gate-lookups"],
+    "no-products": ("the mma.sync products", [
+        ("        mma_bf16(part, a, bw[q][kt][0], bw[q][kt][1]);",
+         "        part[0] = __uint_as_float(a[0] ^ bw[q][kt][0]); "
+         "part[1] = __uint_as_float(a[1] ^ bw[q][kt][1]);"),
+        ("        mma_bf16(part, wa[q][i], b0, b1);",
+         "        part[0] = __uint_as_float(wa[q][i][0] ^ b0); "
+         "part[1] = __uint_as_float(wa[q][i][1] ^ b1);")]),
+    "no-pair-sum": ("the warp pair's exchange of its two halves (the named barrier)", [
+        ("    asm volatile(\"bar.sync %0, 64;\\n\" ::\"r\"(1 + ug));  // the pair's halves", "")]),
+    "no-barrier": ("the step's __syncthreads", [
+        ("    cp_async_wait<kStages - 2>();  // the next step's tile\n    __syncthreads();",
+         "    cp_async_wait<kStages - 2>();  // the next step's tile"),
+        ("    cp_async_wait<kStages - 2>();  // the next step's tile and outputs\n"
+         "    __syncthreads();",
+         "    cp_async_wait<kStages - 2>();  // the next step's tile and outputs")]),
+}
+
 
 def _build_variants(todo: dict) -> dict:
     """Each ``name: (source text, (what, [(text, replacement)]))`` built by
@@ -257,18 +297,10 @@ def _build_variants(todo: dict) -> dict:
 def backward_variants(source: Path) -> None:
     """The module docstring's ``--backward-variants``."""
     import ctypes
-    import subprocess
 
-    todo = {}
-    for label, text in (("given", source.read_text()), ("this", lstm_cell.SOURCE.read_text())):
-        for n, (what, subs) in BACKWARD_VARIANTS.items():
-            found = [(a, b) for a, b in subs if a in text]
-            if found or not subs:
-                todo[f"{label} {n}"] = (text, (what, found))
-    libs = _build_variants(todo)
+    todo, libs = _variant_builds(source, BACKWARD_VARIANTS)
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = _card_line()
     stream = torch.cuda.current_stream().cuda_stream
     p = ctypes.c_void_p
     sigs = [p] * 10 + [ctypes.c_int64] * 5 + [ctypes.c_int, p]
@@ -320,6 +352,89 @@ def backward_variants(source: Path) -> None:
     backward_readings(dy, xp, w_hh, bias, zeros, dev)
 
 
+def _variant_builds(source: Path, variants: dict) -> tuple:
+    """``{label name: (text, (what, replacements))}`` for ``source`` (label
+    "given") and this checkout's ``bf16_lstm.cu`` ("this"), each variant
+    with the replacements whose text is in that source (one at least, but
+    for "as-is"), and what ``nvcc`` built of them."""
+    todo = {}
+    for label, text in (("given", source.read_text()), ("this", lstm_cell.SOURCE.read_text())):
+        for n, (what, subs) in variants.items():
+            found = [(a, b) for a, b in subs if a in text]
+            if found or not subs:
+                todo[f"{label} {n}"] = (text, (what, found))
+    return todo, _build_variants(todo)
+
+
+def _card_line() -> str:
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def train_variants(source: Path) -> None:
+    """The module docstring's ``--train-variants``."""
+    import ctypes
+
+    todo, libs = _variant_builds(source, TRAIN_VARIANTS)
+    dev = torch.device("cuda")
+    smi = _card_line()
+    stream = torch.cuda.current_stream().cuda_stream
+    p = ctypes.c_void_p
+    sigs = [p] * 10 + [ctypes.c_int64] * 5 + [ctypes.c_int, p]
+    buffers = {}
+    for rows in (TRAIN_ROWS, 2 * TRAIN_ROWS):
+        rng = np.random.default_rng(rows)
+
+        def bf(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+        xp = bf(rng.standard_normal((rows, STEPS, DIRS * 4 * H)))
+        w_hh = bf(rng.standard_normal((DIRS, 4 * H, H)) / np.sqrt(H))
+        bias = bf(0.1 * rng.standard_normal((DIRS, 4 * H)))
+        zeros = bf(np.zeros((DIRS, rows, H)))
+        y = torch.empty(rows, STEPS, DIRS * H, dtype=torch.bfloat16, device=dev)
+        buffers[rows] = [xp, w_hh, bias, zeros, zeros, y, torch.empty_like(zeros),
+                         torch.empty_like(zeros), torch.empty_like(xp), torch.empty_like(y)]
+    times = {}
+    for turn in range(2):  # in turns: every variant twice
+        for name, so in libs.items():
+            fn = ctypes.CDLL(str(so)).sonicsim_bf16_lstm_scan
+            fn.argtypes = sigs
+            for rows, bufs in buffers.items():
+                if rows != TRAIN_ROWS and not name.endswith("as-is"):
+                    continue
+                args = [t.data_ptr() for t in bufs] + [rows, STEPS, DIRS, H, 2, 0, stream]
+                times.setdefault((name, rows), []).append(median_ms(lambda: fn(*args)))
+    for (name, rows), ms in times.items():
+        print(json.dumps({"training forward variant": name, "rows": rows,
+                          "takes out": todo[name][1][0], "ms": ms,
+                          "source": str(source) if name.startswith("given") else "this checkout",
+                          "card": smi}), flush=True)
+    # The serving forward's outputs on the card tests' seeded inputs, by each
+    # source: tests/test_torch_bf16_cell_cuda.py's SERVING_SHA256.
+    from test_torch_bf16_cell_cuda import serving_digest
+
+    for label in ("given", "this"):
+        lib = ctypes.CDLL(str(libs[f"{label} as-is"]))
+        lib.sonicsim_bf16_lstm_scan.argtypes = sigs
+        lstm_cell._lib = lib
+        print(json.dumps({"serving forward sha256": serving_digest(dev),
+                          "source": str(source) if label == "given" else "this checkout",
+                          "card": smi}), flush=True)
+    lstm_cell._lib = None
+    xp, w_hh, bias, zeros = buffers[TRAIN_ROWS][:4]
+    reverse = [False, True]
+    got = lstm_cell.bf16_lstm_scan(xp, w_hh, bias, zeros, zeros, reverse, keep=True)
+    want = lstm_cell.bf16_lstm_scan_ref(xp, w_hh, bias, zeros, zeros, reverse, keep=True)
+    print(json.dumps({"rows": TRAIN_ROWS, "training forward": "kernel vs plain",
+                      **{k: rel(a, b) for k, a, b in zip(("y", "hn", "cn", "gates", "c"),
+                                                          got, want)},
+                      "bit_equal": [float((a == b).float().mean()) for a, b in zip(got, want)],
+                      "card": smi}), flush=True)
+
+
 def backward_readings(dy, xp, w_hh, bias, h0, dev) -> None:
     """This checkout's backward (on its training forward's gates and c),
     its plain version and the plain version with an exact dot, each against
@@ -365,9 +480,7 @@ def variants(source: Path) -> None:
     y = torch.empty(N, 250, DIRS * H, dtype=torch.bfloat16, device=dev)
     hn, cn = torch.empty_like(h0), torch.empty_like(c0)
     stream = torch.cuda.current_stream().cuda_stream
-    smi = __import__("subprocess").run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
+    smi = _card_line()
     times = {}
     for turn in range(2):  # in turns: every variant twice
         for name, so in libs.items():
@@ -403,7 +516,9 @@ def variants(source: Path) -> None:
 
 
 if __name__ == "__main__":
-    if "--backward-variants" in sys.argv:
+    if "--train-variants" in sys.argv:
+        train_variants(Path(sys.argv[sys.argv.index("--train-variants") + 1]))
+    elif "--backward-variants" in sys.argv:
         backward_variants(Path(sys.argv[sys.argv.index("--backward-variants") + 1]))
     elif "--variants" in sys.argv:
         variants(Path(sys.argv[sys.argv.index("--variants") + 1]))

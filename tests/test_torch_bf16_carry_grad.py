@@ -28,7 +28,12 @@ products in float32 and rounds once.
   against ``jax.grad`` of the JAX ``make_train_step``'s bf16 loss from
   seeded weights carried by the bridge: every float32-carry LSTM leaf
   (rel-L2 a leaf) within ``MODEL_BOUND``, 3x the readings and below 1e-2;
-  with the float32 sum the worst leaf misses it.
+  with the float32 sum the worst leaf misses it. DPRNN's and DCCRN's other
+  leaves too (rel-L2 a leaf) within ``REST_BOUND``, 3x the readings;
+  DCCRN's convolution biases before a batch norm, whose gradients are zero
+  but for rounding (norms near 1e-5 against leaves near 1e2), by their
+  distance over the largest leaf's norm, within ``ZERO_BOUND``, 3x the
+  reading.
 
 Widths: the zoo tests' small models (SkiM with 16 units), 0.25 s of audio
 (B=2).
@@ -186,6 +191,15 @@ MODELS = {
 # 3x the readings (2.118e-3, 2.629e-3, 2.129e-4, 2.620e-3); the float32 sums read
 # 1.682e-2, 6.605e-2, 4.830e-2 and 1.296e-2.
 MODEL_BOUND = {"dprnn": 6.4e-3, "skim-hc": 7.9e-3, "skim-causal": 6.4e-4, "dccrn": 7.9e-3}
+# The other leaves: 3x the readings (DPRNN 2.366e-3 at encoder/kernel,
+# DCCRN 3.436e-3 at dec_prelu_0); DCCRN's 10 leaves whose gradient is zero
+# but for rounding (below 1e-4 of the largest leaf's norm), 3x their largest
+# distance over that norm (2.017e-7). The repair of SkiM's Dense and norm
+# (layers.dense_norm_bf16) is not on these models' paths: the readings are
+# the parent's.
+REST_BOUND = {"dprnn": 7.1e-3, "dccrn": 1.04e-2}
+ZERO_BOUND = {"dprnn": 0.0, "dccrn": 6.1e-7}
+ZERO_SHARE = 1e-4
 
 
 def _step_grads(name, cfg, loss, mix, tgt) -> list:
@@ -224,3 +238,12 @@ def test_bf16_step_float32_carry_leaves_are_jax(case, monkeypatch):
     print(f"{case}: {len(carry)} float32-carry leaves, worst rel-L2 {worst:.3e} "
           f"(float32 sums {old:.3e})", sorted(dists.items(), key=lambda kv: -kv[1])[:3])
     assert worst <= MODEL_BOUND[case] < old, (worst, old)
+    if case in REST_BOUND:
+        scale = max(np.linalg.norm(w) for w in want)
+        other = [i for i, nm in enumerate(names) if "OptimizedLSTMCell" not in nm]
+        zero = [i for i in other if np.linalg.norm(want[i]) < ZERO_SHARE * scale]
+        rest = max((rel_l2(got[i], want[i]), names[i]) for i in other if i not in zero)
+        off = max((float(np.linalg.norm(got[i] - want[i]) / scale) for i in zero), default=0.0)
+        print(f"{case}: {len(other)} other leaves, worst rel-L2 {rest[0]:.3e} ({rest[1]}); "
+              f"{len(zero)} zero but for rounding, distance over the largest leaf {off:.3e}")
+        assert rest[0] <= REST_BOUND[case] and off <= ZERO_BOUND[case], (rest, off)

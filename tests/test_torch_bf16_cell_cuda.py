@@ -8,6 +8,14 @@ their plain versions (``ops.lstm_cell``'s ``*_ref``) on the same card.
 * at SkiM's full shape (642 rows, 250 steps, 128 units, two directions: the
   first SegLSTM of skim.yaml on 10 s of audio), from the inputs the model's
   bf16 forward gives the kernel and from injected carries;
+* the training forward (``bf16_lstm_scan_train_kernel``) at SkiM's B=2 x
+  4 s training shape (516 rows, 250 steps, 128 units, two directions), at
+  a row count that is not a multiple of its 8-row tiles (517), at one row,
+  and at more tiles than the card has SMs (1,100 rows): y, h, c, the kept
+  gates and cells within ``REL`` of the plain version, the bit-equal share
+  printed; and the serving forward's outputs on seeded inputs bit-equal to
+  the earlier source's (``SERVING_SHA256``, which
+  ``tests/bf16_cell_probe.py --train-variants`` prints for a source);
 * the backward at the small shapes, every width and SkiM's, on the
   training forward's own gates and c;
 * the backward at row counts that fill no tile, one and one and a bit (5,
@@ -129,6 +137,42 @@ def test_every_hidden_width(cuda_device, hidden):
     assert max(dists) <= REL, dists
     dists = hold_backward(args)
     assert max(dists) <= BACKWARD_REL, dists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,steps", [(516, 250), (517, 64), (1, 64), (1100, 64)],
+                         ids=["skim-train-516", "517", "1", "1100"])
+def test_training_forward_rows(cuda_device, rows, steps):
+    """The training forward at SkiM's training shape, a row count its 8-row
+    tiles do not divide, one row, and more (tile, direction) pairs than
+    SMs."""
+    dists = hold(inputs(rows, steps, 128, 2, rows, True, cuda_device), keep=True)
+    print("rel-L2 (y, hn, cn, gates, c):", dists)
+    assert max(dists) <= REL, dists
+
+
+# sha256 of the serving forward's outputs on ``serving_digest``'s inputs, as
+# the source from before the training forward had its own kernel computed
+# them on an NVIDIA H100 80GB HBM3: the serving kernel is unchanged.
+SERVING_SHA256 = "266a08912fa8a8d44da37e5eb8823fe1b380cc3ca3c734e9bca0d8cefbc901b5"
+
+
+def serving_digest(device) -> str:
+    """sha256 of the serving forward's y, hn and cn bytes on seeded inputs
+    (300 rows, 40 steps, 128 units, two directions, seeded carries)."""
+    import hashlib
+
+    got = lstm_cell.bf16_lstm_scan(*inputs(300, 40, 128, 2, 20, True, device))
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in got:
+        digest.update(t.view(torch.int16).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+@pytest.mark.cuda
+def test_serving_forward_is_unchanged(cuda_device):
+    assert serving_digest(cuda_device) == SERVING_SHA256
 
 
 @pytest.mark.cuda

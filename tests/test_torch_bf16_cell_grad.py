@@ -34,14 +34,19 @@ over the rows with a rounding reducer in windows of 32 rows
   - every parameter leaf of the model: the bf16 cells' leaves together
     (rel-L2 of their concatenation) within ``CELL_BOUND`` and every other
     leaf within ``REST_BOUND``, each 3× the readings (``PORT_VS_JAX``'s
-    rule). At this level the two packages' other layers already differ
-    (the norms' bf16 backward, XLA's bf16 bias reductions), so the float32
-    recurrence's readings, also recorded, lie 1.4-4.1× the kernel path's:
-    held to be further, not to miss the bound. The float32-carry LSTMs
-    (the Mem-LSTMs, the later SegLSTMs of "hc") train as ``jax.grad``
-    computes them (``ops.lstm_cell.f32_carry_lstm``,
-    tests/test_torch_bf16_carry_grad.py), and causal SkiM's cLN rounds as
-    the JAX cLN does (``layers.channel_norm_narrow``).
+    rule; ``CELL_BOUND`` no looser than before the Dense and norm repair).
+    SkiM's bf16 ``proj`` and ``norm`` differentiate as ``jax.vjp`` does
+    (``layers.dense_norm_bf16``, tests/test_torch_bf16_dense_norm_grad.py),
+    the float32-carry LSTMs as ``jax.grad`` does
+    (``ops.lstm_cell.f32_carry_lstm``, tests/test_torch_bf16_carry_grad.py),
+    and causal SkiM's cLN rounds as the JAX cLN does
+    (``layers.channel_norm_narrow``). What is left: causal SkiM, whose bf16
+    forward is the JAX package's to 1.3e-7, equals ``jax.grad`` at every
+    leaf but the encoder's kernel (1.1e-3, torch's bf16 convolution
+    backward) and ``seg_lstm_0/proj/kernel`` (1.1e-5); ``hc``'s forward lies
+    9.5e-6 and ``id``'s 2.9e-3 from JAX's at these widths, and their
+    gradients carry that. The float32 recurrence's readings, also
+    recorded, are held to be further than the kernel path's.
 
 Widths: skim's tests' small model with 16 units; 0.25 s of audio (B=2).
 """
@@ -70,11 +75,15 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 
 K, D, H = 12, 16, 16
 REL = 3.3e-3
-# 3x the readings of (b) (the cells' leaves together: 3.256e-3, 2.830e-3,
-# 1.702e-3; the worst other leaf: 2.589e-2, 2.030e-2, 4.966e-2); the float32
-# recurrence read 4.648e-3, 4.053e-3 and 7.001e-3 on the cells.
-CELL_BOUND = {"id": 9.8e-3, "hc": 8.5e-3, "causal": 5.1e-3}
-REST_BOUND = {"id": 7.8e-2, "hc": 6.1e-2, "causal": 1.49e-1}
+# 3x the readings of (b): the worst other leaf 6.829e-3
+# (seg_lstm_2/proj/bias), 3.145e-3 (seg_lstm_0/proj/bias), 1.076e-3
+# (encoder/kernel), where torch's autograd of the Dense and norm read
+# 2.589e-2, 2.030e-2 and 4.966e-2; the cells' leaves together 3.673e-3,
+# 3.117e-3 and 2.714e-4 (before the Dense and norm repair 3.256e-3, 2.830e-3
+# and 1.702e-3, whose bounds the first two keep); the float32 recurrence
+# read 4.598e-3, 4.121e-3 and 7.284e-3 on the cells.
+CELL_BOUND = {"id": 9.8e-3, "hc": 8.5e-3, "causal": 8.2e-4}
+REST_BOUND = {"id": 2.05e-2, "hc": 9.5e-3, "causal": 3.3e-3}
 T = 4000
 
 
